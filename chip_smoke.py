@@ -7,17 +7,19 @@ Phases, each fatal on failure:
 
 1. build ``csrc/myers_tile.cu`` with nvcc for sm_90a (the build time is
    printed);
-2. hold the Myers kernel against its plain PyTorch version on the card at
-   the main path's shapes (Q = 1024 queries, C = 8192 corpus rows, L in
-   32/64/128/256) -- results must be exactly equal -- and time both with
-   CUDA events beside the kernel's bound;
-3. drive the main path: serve ``DukeApp(device="cuda")`` over HTTP, ingest
+2. drive the main path: serve ``DukeApp(device="cuda")`` over HTTP, ingest
    131,072 stresstest records in 2,048-record POSTs, POST one 8,192-record
    query batch, ingest a second workload whose names run 33-120 chars (the
    4-word kernel), read both ``?since=0`` feeds, and check that both
-   kernels were launched; re-score the final query block with the plain
-   functions on the same tensors (equal ``top_index``/``count_above``);
-   check a 512-record workload's feed against a brute-force host oracle;
+   kernels were launched; re-score the final block of each workload with
+   the plain functions on the same tensors (equal ``count_above``,
+   ``top_index`` and ``top_logit``); check a 512-record workload's feed
+   against a brute-force host oracle.  The (Q, C, L) shapes the kernel
+   wrapper saw are recorded;
+3. hold the Myers kernel against its plain PyTorch version on the card at
+   every shape the main path gave it, plus the 2- and 8-word widths at a
+   2,048-query block -- results must be exactly equal -- and time both
+   with CUDA events beside the kernel's bound;
 4. print the per-kernel JSON line, the card's name and power limit, and
    the result line ``{"ok": true, "device": {...}}`` last.
 
@@ -41,14 +43,23 @@ from unittest import mock
 REPO = Path(__file__).resolve().parent
 PACKAGE = "sesam_duke_microservice_tpu_torch"
 
-# H100 SXM peaks (NVIDIA data sheet, dense): device memory bandwidth, and
-# the CUDA-core rate used for the kernel's int32 ALU work (67 TFLOP/s
-# float32 outside the tensor cores; no separate int32 figure is published)
+# H100 SXM device memory rate (NVIDIA data sheet)
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = 67e12
+# int32 lanes per Hopper SM (NVIDIA H100 architecture whitepaper: 64 INT32
+# units per SM); the int32 ALU peak is lanes x SMs x the card's max SM clock
+INT32_LANES_PER_SM = 64
+# int32 operations the DP needs per 32-bit word per text step: the match
+# word's table lookup, then Xv (or), Xh (and, add, carry add, carry shift,
+# xor, or), Ph (or, not, or), Mh (and), the Ph and Mh shifts (shift, or,
+# carry shift each), Pv (or, not, or) and Mv (and); plus 4 per text step
+# for the score update
+OPS_PER_WORD_STEP = 22
+OPS_PER_STEP = 4
 
-KERNEL_Q = 1024
-KERNEL_C = 8192
+# widths not on this run's main path, held against the plain version at
+# the ingest POST's 2,048-query block
+EXTRA_WIDTHS = (64, 256)
+EXTRA_Q = 2048
 INGEST_RECORDS = 131072
 INGEST_BATCH = 2048
 QUERY_BATCH = 8192
@@ -141,11 +152,24 @@ def with_copies(entities, source, every, seed):
     return entities
 
 
-def card_line() -> str:
+def nvidia_smi(query: str, fmt: str = "csv,noheader") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+        ["nvidia-smi", f"--query-gpu={query}", f"--format={fmt}"],
+        capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def card_line() -> str:
+    return nvidia_smi("name,power.limit")
+
+
+def int32_peak_ops_per_s() -> float:
+    """int32 lanes per SM x SMs x the card's max SM clock."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(nvidia_smi("clocks.max.sm", "csv,noheader,nounits"))
+    return INT32_LANES_PER_SM * sms * mhz * 1e6
 
 
 def cuda_ms(fn, runs):
@@ -190,51 +214,52 @@ def kernel_inputs(q, c, l, seed):
     return qc, ql, cc, cl
 
 
-def kernel_bound(qc, ql, cc, cl):
+def kernel_bound(qc, ql, cc, cl, peak_ops):
     """(bound_ms, bound_by): the larger of the bytes the function must move
     (inputs read once, the (Q, C) int32 output written once) over the
-    memory rate and the int32 operations this data needs -- per pair
-    cl * (ql compares + 20 W bit-ops) -- over the CUDA-core rate."""
+    memory rate and the int32 operations this data needs over the int32
+    ALU peak.  A pair needs cl text steps of W words each; an empty
+    pattern needs none (its distance is cl)."""
     from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
 
     q, l = qc.shape
     c = cc.shape[0]
     words = ck.kernel_words(l)
     nbytes = 4 * (q * l + q + c * l + c) + 4 * q * c
-    sum_cl = float(cl.double().sum())
-    ops = sum_cl * float(ql.double().sum()) + sum_cl * q * 20 * words
+    steps = float(cl.double().sum()) * float((ql > 0).sum())
+    ops = steps * (OPS_PER_WORD_STEP * words + OPS_PER_STEP)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S * 1e3
+    t_ops = ops / peak_ops * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def phase_kernels():
-    """Kernel vs plain version at the main path's shapes; returns the
-    per-width measurements."""
+def phase_kernels(shapes, peak_ops):
+    """Kernel vs plain version at each (Q, C, L) shape; returns the
+    measurements by shape."""
     import torch
 
     from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
 
     rows = {}
-    for l in (32, 64, 128, 256):
-        qc, ql, cc, cl = kernel_inputs(KERNEL_Q, KERNEL_C, l, seed=l)
+    for q, c, l in shapes:
+        qc, ql, cc, cl = kernel_inputs(q, c, l, seed=q + l)
         got = ck.myers_distance_tiles(qc, ql, cc, cl)
         torch.cuda.synchronize()
         want = ck.myers_distance_tiles_reference(qc, ql, cc, cl)
         err = int((got.long() - want.long()).abs().max())
         if err != 0:
             raise AssertionError(
-                f"Myers kernel differs from its plain version at L={l}: "
-                f"max |err| = {err}")
+                f"Myers kernel differs from its plain version at Q={q} "
+                f"C={c} L={l}: max |err| = {err}")
         ms = cuda_ms(lambda: ck.myers_distance_tiles(qc, ql, cc, cl), 10)
         plain_ms = cuda_ms(
             lambda: ck.myers_distance_tiles_reference(qc, ql, cc, cl), 2)
-        bound_ms, bound_by = kernel_bound(qc, ql, cc, cl)
-        rows[l] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": bound_ms, "bound_by": bound_by}
-        print(f"kernel Q={KERNEL_Q} C={KERNEL_C} L={l} W={ck.kernel_words(l)}"
-              f": exact, {ms:.3f} ms (plain {plain_ms:.1f} ms, bound "
-              f"{bound_ms:.3f} ms by {bound_by})", flush=True)
+        bound_ms, bound_by = kernel_bound(qc, ql, cc, cl, peak_ops)
+        rows[q, c, l] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by}
+        print(f"kernel Q={q} C={c} L={l} W={ck.kernel_words(l)}: exact, "
+              f"{ms:.3f} ms (plain {plain_ms:.1f} ms, bound {bound_ms:.3f} "
+              f"ms by {bound_by}, {bound_ms / ms:.1%} of it)", flush=True)
         del qc, ql, cc, cl, got, want
         torch.cuda.empty_cache()
     return rows
@@ -286,8 +311,39 @@ def oracle_links(workload, entities):
     return links
 
 
+def rescore_plain(workload, records):
+    """Score ``records`` as one block twice on the workload's device
+    tensors -- through the kernels, then with the kernel wrapper swapped
+    for its plain version -- and fail unless count_above, top_index and
+    top_logit are equal."""
+    from sesam_duke_microservice_tpu_torch.engine import device_matcher as DM
+    from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
+
+    cache = workload.index.scorer_cache
+
+    def score():
+        pending = cache.dispatch_block(records, group_filtering=False)
+        count = pending.fetch.result()[0][: len(records)]
+        return count, DM.resolve_block(pending)
+
+    with workload.lock:
+        k_count, kernel = score()
+        with mock.patch.object(ck, "myers_distance_tiles",
+                               ck.myers_distance_tiles_reference):
+            p_count, plain = score()
+    if not ((k_count == p_count).all()
+            and (kernel.top_index == plain.top_index).all()
+            and (kernel.top_logit == plain.top_logit).all()):
+        raise AssertionError(f"{workload.name}: kernel and plain scoring "
+                             "disagree on the final block")
+    print(f"{workload.name}: final block re-scored with the plain functions:"
+          f" equal count_above/top_index/top_logit over {len(records)} "
+          f"queries x {workload.index.corpus.capacity} rows", flush=True)
+
+
 def phase_main_path(line):
-    """Drive the port's main path over HTTP on the card."""
+    """Drive the port's main path over HTTP on the card; returns the launch
+    counts and the wrapper's CUDA calls by (Q, C, L) shape."""
     import torch
 
     from sesam_duke_microservice_tpu_torch.core.config import parse_config
@@ -311,25 +367,38 @@ def phase_main_path(line):
         addresses = with_copies(addresses, addresses[: LONG_RECORDS // 2],
                                 8, 2)
 
-        ck.reset_launch_counts()
-        t0 = time.perf_counter()
-        latencies = [post(port, "/deduplication/people/crm",
-                          ingest[s:s + INGEST_BATCH])
-                     for s in range(0, INGEST_RECORDS, INGEST_BATCH)]
-        ingest_s = time.perf_counter() - t0
-        stats = people.processor.stats
-        split = (stats.retrieval_seconds, stats.compare_seconds)
-        pairs0 = people.processor.stats.pairs_compared
-        query_s = post(port, "/deduplication/people/crm", queries)
-        query_pairs = people.processor.stats.pairs_compared - pairs0
-        for s in range(0, LONG_RECORDS, INGEST_BATCH):
-            post(port, "/deduplication/addresses/crm",
-                 addresses[s:s + INGEST_BATCH])
-        people_rows = feed(port, "/deduplication/people")
-        address_rows = feed(port, "/deduplication/addresses")
-        launches = dict(ck.LAUNCHES)
+        # the kernel wrapper's CUDA calls by shape; the wrapper itself
+        # counts the launches
+        shapes = {}
+        wrapper = ck.myers_distance_tiles
 
-        print(f"main path: launches {launches}", flush=True)
+        def recording(qchars, qlen, cchars, clen):
+            if qchars.is_cuda:
+                key = (qchars.shape[0], cchars.shape[0], qchars.shape[1])
+                shapes[key] = shapes.get(key, 0) + 1
+            return wrapper(qchars, qlen, cchars, clen)
+
+        with mock.patch.object(ck, "myers_distance_tiles", recording):
+            ck.reset_launch_counts()
+            t0 = time.perf_counter()
+            latencies = [post(port, "/deduplication/people/crm",
+                              ingest[s:s + INGEST_BATCH])
+                         for s in range(0, INGEST_RECORDS, INGEST_BATCH)]
+            ingest_s = time.perf_counter() - t0
+            stats = people.processor.stats
+            split = (stats.retrieval_seconds, stats.compare_seconds)
+            pairs0 = people.processor.stats.pairs_compared
+            query_s = post(port, "/deduplication/people/crm", queries)
+            query_pairs = people.processor.stats.pairs_compared - pairs0
+            for s in range(0, LONG_RECORDS, INGEST_BATCH):
+                post(port, "/deduplication/addresses/crm",
+                     addresses[s:s + INGEST_BATCH])
+            people_rows = feed(port, "/deduplication/people")
+            address_rows = feed(port, "/deduplication/addresses")
+            launches = dict(ck.LAUNCHES)
+
+        print(f"main path: launches {launches}; wrapper calls by (Q, C, L) "
+              f"{dict(sorted(shapes.items()))}", flush=True)
         for name, count in launches.items():
             if count <= 0:
                 raise AssertionError(f"kernel {name} never launched on the "
@@ -343,30 +412,15 @@ def phase_main_path(line):
               f"{len(address_rows)} links (char widths {widths})",
               flush=True)
 
-        # the final query block again, kernels vs plain functions on the
-        # same device tensors
-        block = people.datasources["crm"].records_for_batch(
-            queries[-DM.query_buckets()[-1]:])
-        cache = people.index.scorer_cache
-
-        def score(records):
-            pending = cache.dispatch_block(records, group_filtering=False)
-            count = pending.fetch.result()[0][: len(records)]
-            return count, DM.resolve_block(pending)
-
-        with people.lock:
-            k_count, kernel = score(block)
-            with mock.patch.object(ck, "myers_distance_tiles",
-                                   ck.myers_distance_tiles_reference):
-                p_count, plain = score(block)
-        if not ((k_count == p_count).all()
-                and (kernel.top_index == plain.top_index).all()
-                and (kernel.top_logit == plain.top_logit).all()):
-            raise AssertionError("final block: kernel and plain scoring "
-                                 "disagree")
-        print(f"final block re-scored with the plain functions: equal "
-              f"count_above/top_index/top_logit over {len(block)} queries "
-              f"x {people.index.corpus.capacity} rows", flush=True)
+        # each workload's final block again (the 1-word kernel on the
+        # query POST's last 4,096-query block, the 4-word kernel on the
+        # last 2,048-record address POST), kernels vs plain functions on
+        # the same device tensors
+        rescore_plain(people, people.datasources["crm"].records_for_batch(
+            queries[-DM.query_buckets()[-1]:]))
+        long_wl = app.deduplications["addresses"]
+        rescore_plain(long_wl, long_wl.datasources["crm"].records_for_batch(
+            addresses[-INGEST_BATCH:]))
 
         # a sixth of the batch copies one entity: more candidates per
         # query than the initial top-K, so K-escalation runs too
@@ -403,7 +457,7 @@ def phase_main_path(line):
           f"results {split[0]:.3f} s, host finalization {split[1]:.3f} s, "
           f"the rest (HTTP, JSON, extraction, upload, kernel launches) "
           f"{ingest_s - sum(split):.3f} s (host clock) [{line}]")
-    return launches
+    return launches, shapes
 
 
 def main() -> int:
@@ -427,18 +481,34 @@ def main() -> int:
     print(f"build: csrc/myers_tile.cu with nvcc for sm_90a in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    rows = phase_kernels()
-    launches = phase_main_path(line)
+    launches, shapes = phase_main_path(line)
+
+    peak_ops = int32_peak_ops_per_s()
+    print(f"int32 ALU peak: {peak_ops / 1e12:.2f} Top/s ({INT32_LANES_PER_SM}"
+          f" lanes x {torch.cuda.get_device_properties(0).multi_processor_count}"
+          f" SMs x max SM clock) [{line}]", flush=True)
+    chunk = max(c for _, c, _ in shapes)
+    extra = [(EXTRA_Q, chunk, l) for l in EXTRA_WIDTHS]
+    rows = phase_kernels(sorted(set(shapes) | set(extra)), peak_ops)
+
+    def busiest(one_word):
+        """The main-path shape of the 1-word (or N-word) kernel with the
+        most launches."""
+        return max((n, s) for s, n in shapes.items()
+                   if (ck.kernel_words(s[2]) == 1) == one_word)[1]
+
+    print(f"kernels line: myers_tile at (Q, C, L) = {busiest(True)}, "
+          f"myersN_tile at {busiest(False)}", flush=True)
 
     source = f"{PACKAGE}/csrc/myers_tile.cu"
     pallas = "sesam_duke_microservice_tpu/ops/pallas_kernels.py"
     kernels = [
         dict(name="myers_tile", route="cuda", source=source,
              replaces=f"{pallas}:151", launches=launches["myers_tile"],
-             library_ms=None, **rows[32]),
+             library_ms=None, **rows[busiest(True)]),
         dict(name="myersN_tile", route="cuda", source=source,
              replaces=f"{pallas}:265", launches=launches["myersN_tile"],
-             library_ms=None, **rows[128]),
+             library_ms=None, **rows[busiest(False)]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(line)

@@ -20,11 +20,15 @@
 // chain and the cross-word shifts.  The similarity / logit math stays in
 // torch, outside this kernel, so nvcc's FMA contraction never touches it.
 //
-// Bound.  Per pair the kernel does ~ L * (ql compares + ~20 * W bit-ops)
-// int32 ALU operations and writes one int32; its inputs are O((Q + C) L).
-// At the main path's shapes (Q >= 1024, C = 8192) that is hundreds of
-// operations per output byte, far above the H100's ops:bytes balance, so
-// the bound is the int32 ALU rate, not device memory.
+// Bound.  The DP needs, per pair, cl text steps of ~22 int32 operations
+// per word (a match-table lookup, then the Xv/Xh/Ph/Mh/Pv/Mv bit-ops, the
+// add with its carry and the cross-word shifts) plus ~4 for the score;
+// it writes one int32 per pair, and its inputs are O((Q + C) L).  At the
+// main path's shapes (Q >= 1024, C = 8192) that is hundreds of operations
+// per output byte, far above the H100's ops:bytes balance, so the bound is
+// the int32 ALU rate (64 lanes per SM), not device memory.  This kernel
+// has no match table: it spends up to ql extra compares per text step
+// building the match words, which is most of its distance from the bound.
 //
 // Returns cudaGetLastError() after the launch (0 on success).
 
