@@ -5,22 +5,32 @@
 
 Phases, each fatal on failure:
 
-1. build ``csrc/myers_tile.cu`` with nvcc for sm_90a (the build time is
-   printed);
-2. drive the main path: serve ``DukeApp(device="cuda")`` over HTTP, ingest
-   131,072 stresstest records in 2,048-record POSTs, POST one 8,192-record
-   query batch, ingest a second workload whose names run 33-120 chars (the
-   4-word kernel), read both ``?since=0`` feeds, and check that both
-   kernels were launched; re-score the final block of each workload with
-   the plain functions on the same tensors (equal ``count_above``,
-   ``top_index`` and ``top_logit``); check a 512-record workload's feed
-   against a brute-force host oracle.  The (Q, C, L) shapes the kernel
-   wrapper saw are recorded;
-3. hold the Myers kernel against its plain PyTorch version on the card at
-   every shape the main path gave it, plus the 2- and 8-word widths at a
-   2,048-query block -- results must be exactly equal -- and time both
-   with CUDA events beside the kernel's bound;
-4. print the per-kernel JSON line, the card's name and power limit, and
+1. build every ``csrc/*.cu`` with nvcc for sm_90a, one nvcc per source,
+   all at once (the build time is printed);
+2. slice 1's main path: serve ``DukeApp(device="cuda")`` over HTTP, ingest
+   131,072 stresstest records (Levenshtein / Numeric / Exact) in
+   2,048-record POSTs, POST one 8,192-record query batch, ingest a second
+   workload whose names run 33-120 chars (the 4-word Myers kernel), read
+   both ``?since=0`` feeds; the Myers kernels must have launched;
+3. the ``mixed`` main path: a schema with a Levenshtein, a Jaro-Winkler, a
+   q-gram, a Jaccard and an Exact property and a host-only PersonName
+   property (which widens the survivor filter, so the certified dd
+   finalization has non-emitting survivors to reject); 65,536 records in
+   2,048-record POSTs, every 8th a perturbed copy of an earlier one.  The
+   Myers, Jaro-Winkler, set-intersection and gathered Myers kernels must
+   all have launched and some pairs must have been certified rejects;
+4. the final block of each main-path workload is re-scored with the
+   kernels and with their plain versions on the same device tensors
+   (equal ``count_above``, ``top_index`` and ``top_logit``), and the
+   ``mixed`` block's dd program on the card must equal the same program
+   on CPU copies of its tensors; a 512-record workload of each schema must
+   give the feed of a brute-force host oracle.  The kernel wrappers'
+   shapes are recorded on the main paths;
+5. hold every kernel against its plain PyTorch version on the card at
+   every shape the main paths gave it (Myers also at L=64 and 256) --
+   results must be exactly equal -- and time both with CUDA events beside
+   the kernel's bound;
+6. print the per-kernel JSON line, the card's name and power limit, and
    the result line ``{"ok": true, "device": {...}}`` last.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -29,6 +39,7 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import random
 import statistics
@@ -42,19 +53,33 @@ from unittest import mock
 
 REPO = Path(__file__).resolve().parent
 PACKAGE = "sesam_duke_microservice_tpu_torch"
+PALLAS = "sesam_duke_microservice_tpu/ops/pallas_kernels.py"
 
 # H100 SXM device memory rate (NVIDIA data sheet)
 PEAK_BYTES_PER_S = 3.35e12
 # int32 lanes per Hopper SM (NVIDIA H100 architecture whitepaper: 64 INT32
 # units per SM); the int32 ALU peak is lanes x SMs x the card's max SM clock
 INT32_LANES_PER_SM = 64
-# int32 operations the DP needs per 32-bit word per text step: the match
-# word's table lookup, then Xv (or), Xh (and, add, carry add, carry shift,
-# xor, or), Ph (or, not, or), Mh (and), the Ph and Mh shifts (shift, or,
-# carry shift each), Pv (or, not, or) and Mv (and); plus 4 per text step
-# for the score update
+# int32 operations the Myers DP needs per 32-bit word per text step: the
+# match word's table lookup, then Xv (or), Xh (and, add, carry add, carry
+# shift, xor, or), Ph (or, not, or), Mh (and), the Ph and Mh shifts (shift,
+# or, carry shift each), Pv (or, not, or) and Mv (and); plus 4 per text
+# step for the score
 OPS_PER_WORD_STEP = 22
 OPS_PER_STEP = 4
+# Jaro-Winkler with the match done by lookup, as the bound counts it: each
+# corpus row keeps one position mask per char, built once and shared by all
+# queries; per query char the row's mask of that char, the window mask, the
+# and-not with the used positions, its lowest bit (negate, and), the two
+# ors and the count; per match the walk's two lowest-bit finds, the compare,
+# the count and the two bit clears; per common-prefix char a compare and a
+# count.  The per-row tables (C x L, under 1/Q of the rest) are left out.
+JW_OPS_PER_CHAR = 8
+JW_OPS_PER_MATCH = 6
+JW_OPS_PER_PREFIX = 2
+# the set merge's ALU work per step: the compare, the count and the two
+# advances
+MERGE_OPS_PER_STEP = 4
 
 # widths not on this run's main path, held against the plain version at
 # the ingest POST's 2,048-query block
@@ -65,8 +90,12 @@ INGEST_BATCH = 2048
 QUERY_BATCH = 8192
 LONG_RECORDS = 16384
 ORACLE_RECORDS = 512
+MIXED_RECORDS = 65536
+SET_PAD = 2**31 - 1
+# where the kernel phase makes its inputs
+DEVICE = "cuda"
 
-SCHEMA_XML = """
+STRESS_SCHEMA = """
       <object class="no.priv.garshol.duke.comparators.NumericComparator"
               name="AreaComparator">
         <param name="min-ratio" value="0.7"/>
@@ -91,11 +120,38 @@ SCHEMA_XML = """
       </data-source>
 """
 
+# every scan kernel's comparator kind plus a host-only PersonName property
+# (the JAX package's tests/test_dd.py hostprop fixture, widened); the
+# address q-grams use the Jaccard formula, as overlap (common over the
+# smaller set) scores most pairs of street addresses above 0.5
+MIXED_PROPS = (("name", "levenshtein", 0.3, 0.9),
+               ("given", "jaro-winkler", 0.35, 0.88),
+               ("address", "AddressComparator", 0.3, 0.85),
+               ("employer", "jaccard", 0.4, 0.7),
+               ("ssn", "exact", 0.3, 0.95),
+               ("person", "person-name", 0.4, 0.8))
+MIXED_SCHEMA = (
+    '<object class="no.priv.garshol.duke.comparators.QGramComparator" '
+    'name="AddressComparator"><param name="formula" value="jaccard"/>'
+    "</object>"
+    "<schema><threshold>0.8</threshold><maybe-threshold>0.6</maybe-threshold>"
+    + "".join(f"<property><name>{p.upper()}</name><comparator>{c}"
+              f"</comparator><low>{lo}</low><high>{hi}</high></property>"
+              for p, c, lo, hi in MIXED_PROPS)
+    + "</schema><data-source class=\"io.sesam.dukemicroservice."
+    "IncrementalDeduplicationDataSource\"><param name=\"dataset-id\" "
+    "value=\"crm\"/>"
+    + "".join(f'<column name="{p}" property="{p.upper()}"/>'
+              for p, _, _, _ in MIXED_PROPS)
+    + "</data-source>")
 
-def config_xml(names) -> str:
+
+def config_xml(workloads) -> str:
+    """``workloads``: {name: schema XML}."""
     body = "".join(
         f'<Deduplication name="{n}" link-database-type="in-memory">'
-        f"<duke>{SCHEMA_XML}</duke></Deduplication>" for n in names)
+        f"<duke>{schema}</duke></Deduplication>"
+        for n, schema in workloads.items())
     return f"<DukeMicroService>{body}</DukeMicroService>"
 
 
@@ -105,6 +161,18 @@ LAST = ["hansen", "johansen", "olsen", "larsen", "andersen", "pedersen",
         "nilsen", "kristiansen", "jensen", "karlsen", "johnsen", "pettersen"]
 STREETS = ["holmenkollveien", "stortingsgata", "kirkeveien", "bygdoy alle",
            "karl johans gate", "nordre gate", "tollbugata", "akersgata"]
+# letters of made-up syllables (CV, CVC or VC) for names and streets
+CONSONANTS = "bcdfghjklmnprstvwz"
+VOWELS = "aeiouy"
+STREET_ENDS = ["veien", "gata", "gate", "vegen", "stien", "alle", "lia",
+               "svingen"]
+EMPLOYER_WORDS = ["acme", "nordic", "fjord", "energy", "bank", "shipping",
+                  "telecom", "foods", "media", "group", "holding", "invest",
+                  "consult", "data", "systems", "health", "oil", "salmon",
+                  "timber", "retail", "transport", "insurance", "pharma",
+                  "design", "logistics", "solar", "wind", "hydro", "steel",
+                  "textile", "mining", "software", "labs", "capital",
+                  "partners", "north", "west", "coast", "valley", "bridge"]
 
 
 def _long_name_pool(rng, size=512):
@@ -152,6 +220,63 @@ def with_copies(entities, source, every, seed):
     return entities
 
 
+def _typo(rng, value):
+    pos = rng.randrange(len(value))
+    return value[:pos] + rng.choice("abcdefghij") + value[pos + 1:]
+
+
+def mixed_entities(n, seed, prefix):
+    """Seeded people for the ``mixed`` schema: made-up given names of two
+    syllables and surnames of three (at most 32 chars in all), addresses
+    on ~3,000 made-up streets, two- or three-word employers, a random ssn,
+    and a person name of given + initial + surname.  Every 8th entity is a
+    copy of an earlier one with typos in some fields and, half the time,
+    another ssn or address, so survivors fall on both sides of the
+    thresholds.  Pairs that share only a given name (a few per query at
+    65,536 records) are the survivors the dd path certifies as rejects."""
+    rng = random.Random(seed)
+
+    def syllable():
+        c, v = rng.choice(CONSONANTS), rng.choice(VOWELS)
+        k = rng.random()
+        return c + v if k < 0.4 else c + v + rng.choice(CONSONANTS) \
+            if k < 0.8 else v + c
+
+    def word(parts):
+        return "".join(syllable() for _ in range(parts))
+
+    givens = sorted({word(2) for _ in range(20000)})
+    lasts = sorted({word(3) for _ in range(20000)})
+    streets = sorted({word(3) + rng.choice(STREET_ENDS) for _ in range(3000)})
+    out = []
+    for i in range(n):
+        if i % 8 == 7:
+            ent = dict(rng.choice(out), _id=f"{prefix}{i}")
+            for prop in ("name", "given", "address", "employer", "person"):
+                if rng.random() < 0.3:
+                    ent[prop] = _typo(rng, ent[prop])
+            if rng.random() < 0.5:
+                ent["ssn"] = str(rng.randint(1, 1_000_000))
+            if rng.random() < 0.5:
+                ent["address"] = (f"{rng.choice(streets)} "
+                                  f"{rng.randint(1, 200)}")
+            out.append(ent)
+            continue
+        given = rng.choice(givens)
+        last = rng.choice(lasts)
+        out.append({
+            "_id": f"{prefix}{i}",
+            "name": f"{given} {last}"[:32],
+            "given": given,
+            "address": f"{rng.choice(streets)} {rng.randint(1, 200)}",
+            "employer": " ".join(rng.sample(EMPLOYER_WORDS,
+                                            rng.choice((2, 3)))),
+            "ssn": str(rng.randint(1, 1_000_000)),
+            "person": f"{given} {rng.choice('abcdefghjk')}. {last}",
+        })
+    return out
+
+
 def nvidia_smi(query: str, fmt: str = "csv,noheader") -> str:
     out = subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", f"--format={fmt}"],
@@ -191,78 +316,60 @@ def cuda_ms(fn, runs):
     return statistics.median(times)
 
 
-def kernel_inputs(q, c, l, seed):
-    """Small-alphabet chars so matches are real; random lengths with the
-    edge cases (empty and full-width patterns and texts) forced in."""
-    import torch
+# -- the kernel wrappers' shapes on the main paths -----------------------------
 
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    qc = torch.randint(97, 102, (q, l), generator=g, device="cuda",
-                       dtype=torch.int32)
-    cc = torch.randint(97, 102, (c, l), generator=g, device="cuda",
-                       dtype=torch.int32)
-    ql = torch.randint(0, l + 1, (q,), generator=g, device="cuda",
-                       dtype=torch.int32)
-    cl = torch.randint(0, l + 1, (c,), generator=g, device="cuda",
-                       dtype=torch.int32)
-    ql[:3] = torch.tensor([0, l, 1], dtype=torch.int32)
-    cl[:3] = torch.tensor([l, 0, l], dtype=torch.int32)
-    cc[2] = qc[1]
-    pos = torch.arange(l, device="cuda")
-    qc = torch.where(pos[None, :] < ql[:, None], qc, 0).contiguous()
-    cc = torch.where(pos[None, :] < cl[:, None], cc, 0).contiguous()
-    return qc, ql, cc, cl
+# wrapper name -> the shape key of one call (its args)
+WRAPPER_SHAPES = {
+    "myers_distance_tiles":
+        lambda a: (a[0].shape[0], a[2].shape[0], a[0].shape[1]),
+    "jaro_winkler_sim_tiles":
+        lambda a: (a[0].shape[0], a[2].shape[0], a[0].shape[1]),
+    "myers_distance_gathered":
+        lambda a: (a[0].shape[0], a[2].shape[1], a[0].shape[1]),
+    "set_intersection_tiles":
+        lambda a: (a[0].shape[0], a[2].shape[0], a[0].shape[1]),
+}
 
 
-def kernel_bound(qc, ql, cc, cl, peak_ops):
-    """(bound_ms, bound_by): the larger of the bytes the function must move
-    (inputs read once, the (Q, C) int32 output written once) over the
-    memory rate and the int32 operations this data needs over the int32
-    ALU peak.  A pair needs cl text steps of W words each; an empty
-    pattern needs none (its distance is cl)."""
+@contextlib.contextmanager
+def recording_shapes():
+    """Count each kernel wrapper's CUDA calls by shape (the wrappers
+    themselves count the launches)."""
     from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
 
-    q, l = qc.shape
-    c = cc.shape[0]
-    words = ck.kernel_words(l)
-    nbytes = 4 * (q * l + q + c * l + c) + 4 * q * c
-    steps = float(cl.double().sum()) * float((ql > 0).sum())
-    ops = steps * (OPS_PER_WORD_STEP * words + OPS_PER_STEP)
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / peak_ops * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    shapes = {name: {} for name in WRAPPER_SHAPES}
+    with contextlib.ExitStack() as stack:
+        for name, key in WRAPPER_SHAPES.items():
+            def recording(*args, _wrapper=getattr(ck, name), _key=key,
+                          _seen=shapes[name], **kwargs):
+                if args[0].is_cuda:
+                    k = _key(args)
+                    _seen[k] = _seen.get(k, 0) + 1
+                return _wrapper(*args, **kwargs)
+
+            stack.enter_context(mock.patch.object(ck, name, recording))
+        yield shapes
 
 
-def phase_kernels(shapes, peak_ops):
-    """Kernel vs plain version at each (Q, C, L) shape; returns the
-    measurements by shape."""
-    import torch
-
+@contextlib.contextmanager
+def plain_versions():
+    """Swap every kernel wrapper for its plain PyTorch version."""
     from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
 
-    rows = {}
-    for q, c, l in shapes:
-        qc, ql, cc, cl = kernel_inputs(q, c, l, seed=q + l)
-        got = ck.myers_distance_tiles(qc, ql, cc, cl)
-        torch.cuda.synchronize()
-        want = ck.myers_distance_tiles_reference(qc, ql, cc, cl)
-        err = int((got.long() - want.long()).abs().max())
-        if err != 0:
-            raise AssertionError(
-                f"Myers kernel differs from its plain version at Q={q} "
-                f"C={c} L={l}: max |err| = {err}")
-        ms = cuda_ms(lambda: ck.myers_distance_tiles(qc, ql, cc, cl), 10)
-        plain_ms = cuda_ms(
-            lambda: ck.myers_distance_tiles_reference(qc, ql, cc, cl), 2)
-        bound_ms, bound_by = kernel_bound(qc, ql, cc, cl, peak_ops)
-        rows[q, c, l] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": bound_ms, "bound_by": bound_by}
-        print(f"kernel Q={q} C={c} L={l} W={ck.kernel_words(l)}: exact, "
-              f"{ms:.3f} ms (plain {plain_ms:.1f} ms, bound {bound_ms:.3f} "
-              f"ms by {bound_by}, {bound_ms / ms:.1%} of it)", flush=True)
-        del qc, ql, cc, cl, got, want
-        torch.cuda.empty_cache()
-    return rows
+    with contextlib.ExitStack() as stack:
+        for name, plain in (
+                ("myers_distance_tiles", ck.myers_distance_tiles_reference),
+                ("jaro_winkler_sim_tiles",
+                 ck.jaro_winkler_sim_tiles_reference),
+                ("myers_distance_gathered",
+                 ck.myers_distance_gathered_reference),
+                ("set_intersection_tiles",
+                 ck.set_intersection_tiles_reference)):
+            stack.enter_context(mock.patch.object(ck, name, plain))
+        yield
+
+
+# -- HTTP ---------------------------------------------------------------------
 
 
 def post(port, path, body):
@@ -285,6 +392,14 @@ def feed(port, path):
         return json.loads(resp.read())
 
 
+def ingest(port, path, entities):
+    """POST ``entities`` in INGEST_BATCH-record batches; (latencies, wall)."""
+    t0 = time.perf_counter()
+    latencies = [post(port, path, entities[s:s + INGEST_BATCH])
+                 for s in range(0, len(entities), INGEST_BATCH)]
+    return latencies, time.perf_counter() - t0
+
+
 def check_rows(rows, what):
     if not rows:
         raise AssertionError(f"{what}: empty feed")
@@ -294,30 +409,49 @@ def check_rows(rows, what):
 
 
 def oracle_links(workload, entities):
-    """Brute-force host oracle: every pair of the batch through the
-    port's f64 ``Processor.compare``, thresholded as the service does."""
+    """Brute-force host oracle of one POST: every ordered pair of the batch
+    through the port's f64 ``Processor.compare``, as each query of the
+    batch asserts its links -- a pair links when a direction clears the
+    threshold or the maybe threshold, and the later query's confidence is
+    the link's (PersonName is not symmetric)."""
     from sesam_duke_microservice_tpu_torch.engine.processor import Processor
 
     records = workload.datasources["crm"].records_for_batch(entities)
-    proc = Processor(workload.config.duke)
-    threshold = workload.config.duke.threshold
+    duke = workload.config.duke
+    proc = Processor(duke)
+    maybe = duke.maybe_threshold
     links = {}
-    for i, r1 in enumerate(records):
-        for r2 in records[i + 1:]:
+    for r1 in records:
+        for r2 in records:
+            if r2 is r1:
+                continue
             p = proc.compare(r1, r2)
-            if p > threshold:
+            if p > duke.threshold or (maybe and p > maybe):
                 a, b = sorted((r1.record_id, r2.record_id))
                 links[f"{a}_{b}".replace(":", "_")] = p
     return links
 
 
+def check_oracle(port, app, name, entities):
+    post(port, f"/deduplication/{name}/crm", entities)
+    got = {r["_id"]: r["confidence"]
+           for r in feed(port, f"/deduplication/{name}")}
+    want = oracle_links(app.deduplications[name], entities)
+    if got != want:
+        raise AssertionError(
+            f"{name}: oracle feed differs: {len(got)} links vs {len(want)} "
+            f"expected; missing {sorted(set(want) - set(got))[:5]}, "
+            f"extra {sorted(set(got) - set(want))[:5]}")
+    print(f"oracle: {name}'s {len(entities)}-record feed equals the host "
+          f"oracle ({len(want)} links)", flush=True)
+
+
 def rescore_plain(workload, records):
     """Score ``records`` as one block twice on the workload's device
-    tensors -- through the kernels, then with the kernel wrapper swapped
+    tensors -- through the kernels, then with every kernel wrapper swapped
     for its plain version -- and fail unless count_above, top_index and
-    top_logit are equal."""
+    top_logit are equal.  Returns the kernels' resolved block."""
     from sesam_duke_microservice_tpu_torch.engine import device_matcher as DM
-    from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
 
     cache = workload.index.scorer_cache
 
@@ -328,8 +462,7 @@ def rescore_plain(workload, records):
 
     with workload.lock:
         k_count, kernel = score()
-        with mock.patch.object(ck, "myers_distance_tiles",
-                               ck.myers_distance_tiles_reference):
+        with plain_versions():
             p_count, plain = score()
     if not ((k_count == p_count).all()
             and (kernel.top_index == plain.top_index).all()
@@ -339,125 +472,402 @@ def rescore_plain(workload, records):
     print(f"{workload.name}: final block re-scored with the plain functions:"
           f" equal count_above/top_index/top_logit over {len(records)} "
           f"queries x {workload.index.corpus.capacity} rows", flush=True)
+    return kernel
 
 
-def phase_main_path(line):
-    """Drive the port's main path over HTTP on the card; returns the launch
-    counts and the wrapper's CUDA calls by (Q, C, L) shape."""
+def rescore_dd_on_cpu(workload, block):
+    """Run the dd program of a resolved block on the card and on CPU
+    copies of the same tensors; (hi, lo, unsafe) must be equal (IEEE f32
+    ``+ - * /`` round alike on both, and the gathered Myers kernel's
+    distances equal its plain version's)."""
+    import torch
+
+    from sesam_duke_microservice_tpu_torch.engine import device_matcher as DM
+    from sesam_duke_microservice_tpu_torch.ops import bounds as B
+    from sesam_duke_microservice_tpu_torch.ops import scoring as S
+
+    plan = workload.index.plan
+    qfeats, from_rows, query_row = block.dd_ctx
+    fn = S.dd_rescorer(plan, queries_from_rows=from_rows,
+                       value_slots_cap=DM._VALUE_SLOTS_MAX)
+    with workload.lock:
+        feats = workload.index.corpus.device_arrays()[0]
+        cfeats = {s.name: feats[s.name] for s in B.dd_plan_specs(plan)}
+        top = torch.from_numpy(block.top_index).to(DEVICE)
+        card = [t.cpu() for t in fn(qfeats, cfeats, query_row, top)]
+        cpu = fn({p: {n: t.cpu() for n, t in f.items()}
+                  for p, f in qfeats.items()},
+                 {p: {n: t.cpu() for n, t in f.items()}
+                  for p, f in cfeats.items()}, query_row.cpu(), top.cpu())
+    for name, a, b in zip(("hi", "lo", "unsafe"), card, cpu):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{workload.name}: dd {name} on the card "
+                                 "differs from the CPU run")
+    lanes = int((block.top_logit > block.min_logit).sum())
+    print(f"{workload.name}: dd program of the final block ({top.shape[0]} x "
+          f"{top.shape[1]} pairs, {lanes} survivors) equals its CPU run: hi, "
+          f"lo and unsafe bit for bit ({int(card[2].sum())} unsafe lanes)",
+          flush=True)
+
+
+# -- the main paths -------------------------------------------------------------
+
+
+def split_line(stats, wall, line):
+    wait = stats.retrieval_seconds
+    final = stats.compare_seconds
+    return (f"wall {wall:.3f} s: waiting on the device's block results "
+            f"{wait:.3f} s, the dd rescore {stats.dd_seconds:.3f} s, host "
+            f"finalization {final - stats.dd_seconds:.3f} s, the rest (HTTP, "
+            f"JSON, extraction, upload, kernel launches) "
+            f"{wall - wait - final:.3f} s (host clock) [{line}]")
+
+
+def phase_slice1(app, port, line):
+    """Slice 1's main path: the stresstest ingest, the query POST and the
+    long-name workload; returns (launches, shapes)."""
+    from sesam_duke_microservice_tpu_torch.engine import device_matcher as DM
+    from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
+
+    people = app.deduplications["people"]
+    entities = stresstest_entities(INGEST_RECORDS, 1234, "p")
+    queries = with_copies(stresstest_entities(QUERY_BATCH, 4321, "q"),
+                          entities, 16, 1)
+    addresses = stresstest_entities(LONG_RECORDS, 99, "a", long_names=True)
+    addresses = with_copies(addresses, addresses[: LONG_RECORDS // 2], 8, 2)
+
+    with recording_shapes() as shapes:
+        ck.reset_launch_counts()
+        latencies, ingest_s = ingest(port, "/deduplication/people/crm",
+                                     entities)
+        stats = people.processor.stats
+        split = split_line(stats, ingest_s, line)
+        pairs0 = stats.pairs_compared
+        query_s = post(port, "/deduplication/people/crm", queries)
+        query_pairs = stats.pairs_compared - pairs0
+        ingest(port, "/deduplication/addresses/crm", addresses)
+        people_rows = feed(port, "/deduplication/people")
+        address_rows = feed(port, "/deduplication/addresses")
+        launches = dict(ck.LAUNCHES)
+
+    print(f"slice-1 path: launches {launches}; wrapper calls by shape "
+          f"{ {k: dict(sorted(v.items())) for k, v in shapes.items() if v} }",
+          flush=True)
+    for name in ("myers_tile", "myersN_tile"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on slice 1's "
+                                 "main path")
+    check_rows(people_rows, "people")
+    check_rows(address_rows, "addresses")
+    widths = {s.name: s.chars
+              for s in app.deduplications["addresses"].index.plan
+              .device_props}
+    print(f"feeds: people {len(people_rows)} links, addresses "
+          f"{len(address_rows)} links (char widths {widths})", flush=True)
+    rescore_plain(people, people.datasources["crm"].records_for_batch(
+        queries[-DM.query_buckets()[-1]:]))
+    long_wl = app.deduplications["addresses"]
+    rescore_plain(long_wl, long_wl.datasources["crm"].records_for_batch(
+        addresses[-INGEST_BATCH:]))
+
+    print(f"records/s (stresstest ingest, {INGEST_RECORDS} records in "
+          f"{INGEST_BATCH}-record POSTs): {INGEST_RECORDS / ingest_s:.1f} "
+          f"[{line}]")
+    print(f"pairs scored/s ({QUERY_BATCH}-record query POST, "
+          f"{query_pairs} pairs in {query_s:.3f} s): "
+          f"{query_pairs / query_s:.1f} [{line}]")
+    print(f"p50 POST latency (stresstest ingest POSTs): "
+          f"{statistics.median(latencies) * 1e3:.1f} ms [{line}]")
+    print(f"stresstest ingest {split}", flush=True)
+    return launches, shapes
+
+
+def phase_mixed(app, port, line):
+    """The ``mixed`` main path; returns (launches, shapes)."""
+    from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
+
+    mixed = app.deduplications["mixed"]
+    entities = mixed_entities(MIXED_RECORDS, 2024, "m")
+    with recording_shapes() as shapes:
+        ck.reset_launch_counts()
+        latencies, ingest_s = ingest(port, "/deduplication/mixed/crm",
+                                     entities)
+        launches = dict(ck.LAUNCHES)
+    rows = feed(port, "/deduplication/mixed")
+    stats = mixed.processor.stats
+    print(f"mixed path: launches {launches}; wrapper calls by shape "
+          f"{ {k: dict(sorted(v.items())) for k, v in shapes.items() if v} }",
+          flush=True)
+    for name in ("myers_tile", "jw_tile", "intersect_tile",
+                 "myers_gathered"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the mixed "
+                                 "main path")
+    check_rows(rows, "mixed")
+    residue = (stats.dd_residue_margin + stats.dd_residue_kind
+               + stats.dd_residue_truncation)
+    print(f"mixed: {len(rows)} links; survivors {stats.candidates_retrieved}, "
+          f"dd blocks dispatched {stats.dd_blocks} of {stats.batches}; "
+          f"certified rejects {stats.pairs_device_certified}; host "
+          f"compares {stats.pairs_rescored}: residue {residue} (margin "
+          f"{stats.dd_residue_margin}, kind {stats.dd_residue_kind}, "
+          f"truncation or JW branch guard {stats.dd_residue_truncation}), "
+          f"the other {stats.pairs_rescored - residue} certified events or "
+          f"survivors of blocks the gate skipped; decisive-band skips "
+          f"{stats.pairs_skipped}", flush=True)
+    if stats.pairs_device_certified <= 0:
+        raise AssertionError("mixed: no pair was certified on the dd path")
+    print(f"records/s (mixed ingest, {MIXED_RECORDS} records in "
+          f"{INGEST_BATCH}-record POSTs): {MIXED_RECORDS / ingest_s:.1f} "
+          f"[{line}]")
+    print(f"p50 POST latency (mixed ingest POSTs): "
+          f"{statistics.median(latencies) * 1e3:.1f} ms [{line}]")
+    print(f"mixed ingest {split_line(stats, ingest_s, line)}", flush=True)
+
+    block = rescore_plain(mixed, mixed.datasources["crm"].records_for_batch(
+        entities[-INGEST_BATCH:]))
+    rescore_dd_on_cpu(mixed, block)
+    return launches, shapes
+
+
+def phase_main_paths(line):
     import torch
 
     from sesam_duke_microservice_tpu_torch.core.config import parse_config
-    from sesam_duke_microservice_tpu_torch.engine import device_matcher as DM
-    from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
     from sesam_duke_microservice_tpu_torch.service.app import DukeApp, serve
 
-    app = DukeApp(parse_config(config_xml(["people", "addresses", "oracle"])),
-                  device="cuda")
+    app = DukeApp(parse_config(config_xml({
+        "people": STRESS_SCHEMA, "addresses": STRESS_SCHEMA,
+        "oracle": STRESS_SCHEMA, "mixed": MIXED_SCHEMA,
+        "mixed_oracle": MIXED_SCHEMA})), device="cuda")
     server = serve(app, port=0, host="127.0.0.1")
     port = server.server_address[1]
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     try:
-        people = app.deduplications["people"]
-        ingest = stresstest_entities(INGEST_RECORDS, 1234, "p")
-        queries = with_copies(stresstest_entities(QUERY_BATCH, 4321, "q"),
-                              ingest, 16, 1)
-        addresses = stresstest_entities(LONG_RECORDS, 99, "a",
-                                        long_names=True)
-        addresses = with_copies(addresses, addresses[: LONG_RECORDS // 2],
-                                8, 2)
-
-        # the kernel wrapper's CUDA calls by shape; the wrapper itself
-        # counts the launches
-        shapes = {}
-        wrapper = ck.myers_distance_tiles
-
-        def recording(qchars, qlen, cchars, clen):
-            if qchars.is_cuda:
-                key = (qchars.shape[0], cchars.shape[0], qchars.shape[1])
-                shapes[key] = shapes.get(key, 0) + 1
-            return wrapper(qchars, qlen, cchars, clen)
-
-        with mock.patch.object(ck, "myers_distance_tiles", recording):
-            ck.reset_launch_counts()
-            t0 = time.perf_counter()
-            latencies = [post(port, "/deduplication/people/crm",
-                              ingest[s:s + INGEST_BATCH])
-                         for s in range(0, INGEST_RECORDS, INGEST_BATCH)]
-            ingest_s = time.perf_counter() - t0
-            stats = people.processor.stats
-            split = (stats.retrieval_seconds, stats.compare_seconds)
-            pairs0 = people.processor.stats.pairs_compared
-            query_s = post(port, "/deduplication/people/crm", queries)
-            query_pairs = people.processor.stats.pairs_compared - pairs0
-            for s in range(0, LONG_RECORDS, INGEST_BATCH):
-                post(port, "/deduplication/addresses/crm",
-                     addresses[s:s + INGEST_BATCH])
-            people_rows = feed(port, "/deduplication/people")
-            address_rows = feed(port, "/deduplication/addresses")
-            launches = dict(ck.LAUNCHES)
-
-        print(f"main path: launches {launches}; wrapper calls by (Q, C, L) "
-              f"{dict(sorted(shapes.items()))}", flush=True)
-        for name, count in launches.items():
-            if count <= 0:
-                raise AssertionError(f"kernel {name} never launched on the "
-                                     "main path")
-        check_rows(people_rows, "people")
-        check_rows(address_rows, "addresses")
-        widths = {s.name: s.chars
-                  for s in app.deduplications["addresses"].index.plan
-                  .device_props}
-        print(f"feeds: people {len(people_rows)} links, addresses "
-              f"{len(address_rows)} links (char widths {widths})",
-              flush=True)
-
-        # each workload's final block again (the 1-word kernel on the
-        # query POST's last 4,096-query block, the 4-word kernel on the
-        # last 2,048-record address POST), kernels vs plain functions on
-        # the same device tensors
-        rescore_plain(people, people.datasources["crm"].records_for_batch(
-            queries[-DM.query_buckets()[-1]:]))
-        long_wl = app.deduplications["addresses"]
-        rescore_plain(long_wl, long_wl.datasources["crm"].records_for_batch(
-            addresses[-INGEST_BATCH:]))
-
+        slice1 = phase_slice1(app, port, line)
+        mixed = phase_mixed(app, port, line)
         # a sixth of the batch copies one entity: more candidates per
         # query than the initial top-K, so K-escalation runs too
-        oracle_entities = with_copies(
+        check_oracle(port, app, "oracle", with_copies(
             stresstest_entities(ORACLE_RECORDS, 7, "o"),
-            stresstest_entities(1, 8, "x"), 6, 3)
-        post(port, "/deduplication/oracle/crm", oracle_entities)
-        got = {r["_id"]: r["confidence"]
-               for r in feed(port, "/deduplication/oracle")}
-        want = oracle_links(app.deduplications["oracle"], oracle_entities)
-        if got != want:
-            raise AssertionError(
-                f"oracle feed differs: {len(got)} links vs {len(want)} "
-                f"expected; missing {sorted(set(want) - set(got))[:5]}, "
-                f"extra {sorted(set(got) - set(want))[:5]}")
-        print(f"oracle: {ORACLE_RECORDS}-record feed equals the host "
-              f"oracle ({len(want)} links)", flush=True)
+            stresstest_entities(1, 8, "x"), 6, 3))
+        check_oracle(port, app, "mixed_oracle",
+                     mixed_entities(ORACLE_RECORDS, 77, "mo"))
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=30)
         app.close()
     torch.cuda.synchronize()
+    return slice1, mixed
 
-    records_per_s = INGEST_RECORDS / ingest_s
-    print(f"records/s (ingest, {INGEST_RECORDS} records in "
-          f"{INGEST_BATCH}-record POSTs): {records_per_s:.1f} [{line}]")
-    print(f"pairs scored/s ({QUERY_BATCH}-record query POST, "
-          f"{query_pairs} pairs in {query_s:.3f} s): "
-          f"{query_pairs / query_s:.1f} [{line}]")
-    print(f"p50 POST latency ({INGEST_BATCH}-record ingest POSTs): "
-          f"{statistics.median(latencies) * 1e3:.1f} ms [{line}]")
-    print(f"ingest wall {ingest_s:.3f} s: waiting on the device's block "
-          f"results {split[0]:.3f} s, host finalization {split[1]:.3f} s, "
-          f"the rest (HTTP, JSON, extraction, upload, kernel launches) "
-          f"{ingest_s - sum(split):.3f} s (host clock) [{line}]")
-    return launches, shapes
+
+# -- the kernel phase -------------------------------------------------------------
+
+
+def char_inputs(q, c, l, seed):
+    """Small-alphabet chars so matches are real; random lengths with the
+    edge cases (empty and full-width patterns and texts) forced in."""
+    import torch
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    qc = torch.randint(97, 102, (q, l), generator=g, device=DEVICE,
+                       dtype=torch.int32)
+    cc = torch.randint(97, 102, (c, l), generator=g, device=DEVICE,
+                       dtype=torch.int32)
+    ql = torch.randint(0, l + 1, (q,), generator=g, device=DEVICE,
+                       dtype=torch.int32)
+    cl = torch.randint(0, l + 1, (c,), generator=g, device=DEVICE,
+                       dtype=torch.int32)
+    ql[:3] = torch.tensor([0, l, 1], dtype=torch.int32)
+    cl[:3] = torch.tensor([l, 0, l], dtype=torch.int32)
+    cc[2] = qc[1]
+    pos = torch.arange(l, device=DEVICE)
+    qc = torch.where(pos[None, :] < ql[:, None], qc, 0).contiguous()
+    cc = torch.where(pos[None, :] < cl[:, None], cc, 0).contiguous()
+    return qc, ql, cc, cl
+
+
+def set_inputs(rows, g, seed):
+    """Sorted distinct ids (strictly increasing with small steps from a
+    small base, so rows intersect) in the first n of g slots, SET_PAD
+    after; n from 0 to g with the empty and full sets forced in."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    base = torch.randint(0, 8, (rows, 1), generator=gen, device=DEVICE)
+    steps = torch.randint(1, 4, (rows, g), generator=gen, device=DEVICE)
+    ids = (base + steps.cumsum(dim=1)).to(torch.int32)
+    n = torch.randint(0, g + 1, (rows,), generator=gen, device=DEVICE,
+                      dtype=torch.int32)
+    n[:2] = torch.tensor([0, g], dtype=torch.int32)
+    pos = torch.arange(g, device=DEVICE)
+    ids = torch.where(pos[None, :] < n[:, None], ids, SET_PAD).contiguous()
+    return ids, n
+
+
+def bound(nbytes, ops, peak_ops):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the int32 operations over the int32 ALU peak."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / peak_ops * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def myers_bound(qc, ql, cc, cl, peak_ops):
+    """Inputs read once and the (Q, C) int32 output written once; a pair
+    with a non-empty pattern needs cl text steps of W words."""
+    from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
+
+    q, l = qc.shape
+    c = cc.shape[0]
+    nbytes = 4 * (q * l + q + c * l + c) + 4 * q * c
+    steps = float(cl.double().sum()) * float((ql > 0).sum())
+    ops = steps * (OPS_PER_WORD_STEP * ck.kernel_words(l) + OPS_PER_STEP)
+    return bound(nbytes, ops, peak_ops)
+
+
+def jw_bound(qc, ql, cc, cl, max_prefix, peak_ops):
+    """Inputs once, the (Q, C) f32 output once; per pair with a non-empty
+    text the lookup-based match over its l1 query chars, plus the walk over
+    this run's matches and the common prefix (both counted by the flat
+    ``pairwise`` Jaro)."""
+    from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
+    from sesam_duke_microservice_tpu_torch.ops import pairwise as pw
+
+    q, l = qc.shape
+    c = cc.shape[0]
+    nbytes = 4 * (q * l + q + c * l + c) + 4 * q * c
+    matches = prefix = 0
+    for s, e in ck.row_blocks(q, c * l):
+        n = e - s
+        c1 = qc[s:e, None].expand(n, c, l).reshape(-1, l)
+        l1 = ql[s:e, None].expand(n, c).reshape(-1)
+        c2 = cc[None].expand(n, c, l).reshape(-1, l)
+        l2 = cl[None].expand(n, c).reshape(-1)
+        matches += int(pw.jaro_counts(c1, l1, c2, l2)[0].sum())
+        prefix += int(pw.common_prefix_count(c1, c2, l1, l2,
+                                             max_prefix=max_prefix).sum())
+    chars = float(ql.double().clamp(0, l).sum()) * float((cl > 0).sum())
+    ops = (JW_OPS_PER_CHAR * chars + JW_OPS_PER_MATCH * matches
+           + JW_OPS_PER_PREFIX * prefix)
+    return bound(nbytes, ops, peak_ops)
+
+
+def gathered_bound(qc, ql, cc, cl, peak_ops):
+    """Inputs once (the gathered (Q, K, L) chars dominate), the (Q, K)
+    int32 output once; a pair with a non-empty pattern needs cl steps."""
+    q, l = qc.shape
+    k = cc.shape[1]
+    nbytes = 4 * (q * l + q + q * k * l + q * k) + 4 * q * k
+    steps = float((cl.double() * (ql > 0).double()[:, None]).sum())
+    return bound(nbytes, steps * (OPS_PER_WORD_STEP + OPS_PER_STEP),
+                 peak_ops)
+
+
+def intersect_bound(qg, qn, cg, cn, common, peak_ops):
+    """Inputs once, the (Q, C) int32 output once; the merge of two
+    non-empty sorted sets takes #{a <= max b} + #{b <= max a} - |A ∩ B|
+    steps (the entries each side consumes before one runs out)."""
+    import torch
+
+    q, g = qg.shape
+    c = cg.shape[0]
+    nbytes = 4 * (q * g + q + c * g + c) + 4 * q * c
+    qmax = qg.gather(1, (qn.long() - 1).clamp_min(0)[:, None])   # (Q, 1)
+    cmax = cg.gather(1, (cn.long() - 1).clamp_min(0)[:, None])   # (C, 1)
+    a_used = torch.searchsorted(qg, cmax.reshape(1, c).expand(q, c)
+                                .contiguous(), right=True)
+    b_used = torch.searchsorted(cg, qmax.reshape(1, q).expand(c, q)
+                                .contiguous(), right=True).t()
+    a_used = torch.minimum(a_used, qn.long()[:, None])
+    b_used = torch.minimum(b_used, cn.long()[None, :])
+    both = (qn > 0)[:, None] & (cn > 0)[None, :]
+    merge = torch.where(both, a_used + b_used - common.long(), 0)
+    return bound(nbytes, MERGE_OPS_PER_STEP * float(merge.double().sum()),
+                 peak_ops)
+
+
+def measure(name, shape, run, plain, bound_of, equal=None):
+    """Hold ``run()`` against ``plain()``, time both; one row of numbers."""
+    import torch
+
+    got = run()
+    torch.cuda.synchronize()
+    want = plain()
+    if got.dtype == torch.float32:
+        err = float((got.double() - want.double()).abs().max()) \
+            if got.numel() else 0.0
+    else:
+        err = int((got.long() - want.long()).abs().max()) \
+            if got.numel() else 0
+    if err != 0:
+        raise AssertionError(f"{name} differs from its plain version at "
+                             f"{shape}: max |err| = {err}")
+    ms = cuda_ms(run, 10)
+    plain_ms = cuda_ms(plain, 2)
+    bound_ms, bound_by = bound_of(got)
+    print(f"kernel {name} {shape}: exact, {ms:.3f} ms (plain "
+          f"{plain_ms:.1f} ms, bound {bound_ms:.3f} ms by {bound_by}, "
+          f"{bound_ms / ms:.1%} of it)", flush=True)
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_kernels(shapes, peak_ops):
+    """Every kernel against its plain version at each recorded shape;
+    returns {wrapper: {shape: row}}."""
+    import torch
+
+    from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
+
+    rows = {name: {} for name in WRAPPER_SHAPES}
+    for q, c, l in sorted(shapes["myers_distance_tiles"]):
+        qc, ql, cc, cl = char_inputs(q, c, l, seed=q + l)
+        rows["myers_distance_tiles"][q, c, l] = measure(
+            f"myers_tile W={ck.kernel_words(l)}", (q, c, l),
+            lambda: ck.myers_distance_tiles(qc, ql, cc, cl),
+            lambda: ck.myers_distance_tiles_reference(qc, ql, cc, cl),
+            lambda _: myers_bound(qc, ql, cc, cl, peak_ops))
+    kw = dict(prefix_scale=0.1, boost_threshold=0.7, max_prefix=4)
+    for q, c, l in sorted(shapes["jaro_winkler_sim_tiles"]):
+        qc, ql, cc, cl = char_inputs(q, c, l, seed=7 + l)
+        cc[::3, :2] = qc[0, :2]               # shared prefixes: the boost
+        none = torch.zeros((q, c), dtype=torch.bool, device=DEVICE)
+        rows["jaro_winkler_sim_tiles"][q, c, l] = measure(
+            "jw_tile", (q, c, l),
+            lambda: ck.jaro_winkler_sim_tiles(qc, ql, cc, cl, none, **kw),
+            lambda: ck.jaro_winkler_sim_tiles_reference(qc, ql, cc, cl,
+                                                        none, **kw),
+            lambda _: jw_bound(qc, ql, cc, cl, kw["max_prefix"], peak_ops))
+    for q, k, l in sorted(shapes["myers_distance_gathered"]):
+        qc, ql, pool, pool_len = char_inputs(q, 4096, l, seed=11 + k)
+        gen = torch.Generator(device=DEVICE).manual_seed(k)
+        pick = torch.randint(0, 4096, (q, k), generator=gen, device=DEVICE)
+        cc = pool[pick].contiguous()
+        cl = pool_len[pick].contiguous()
+        rows["myers_distance_gathered"][q, k, l] = measure(
+            "myers_gathered", (q, k, l),
+            lambda: ck.myers_distance_gathered(qc, ql, cc, cl),
+            lambda: ck.myers_distance_gathered_reference(qc, ql, cc, cl),
+            lambda _: gathered_bound(qc, ql, cc, cl, peak_ops))
+    for q, c, g in sorted(shapes["set_intersection_tiles"]):
+        qg, qn = set_inputs(q, g, seed=g)
+        cg, cn = set_inputs(c, g, seed=g + 1)
+        rows["set_intersection_tiles"][q, c, g] = measure(
+            "intersect_tile", (q, c, g),
+            lambda: ck.set_intersection_tiles(qg, qn, cg, cn),
+            lambda: ck.set_intersection_tiles_reference(qg, qn, cg, cn),
+            lambda common: intersect_bound(qg, qn, cg, cn, common, peak_ops))
+    return rows
+
+
+def busiest(calls, pred=lambda s: True):
+    """The recorded shape with the most calls (among those ``pred``
+    keeps)."""
+    return max((n, s) for s, n in calls.items() if pred(s))[1]
 
 
 def main() -> int:
@@ -473,43 +883,61 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
 
+    t_start = time.perf_counter()
     line = card_line()
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
           f"{torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.perf_counter()
-    ck.build_library()
-    print(f"build: csrc/myers_tile.cu with nvcc for sm_90a in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    built = ck.build_library()
+    print(f"build: {sorted(f'csrc/{s}.cu' for s in built)} with nvcc for "
+          f"sm_90a in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    launches, shapes = phase_main_path(line)
+    (launches1, shapes1), (launches2, shapes2) = phase_main_paths(line)
 
     peak_ops = int32_peak_ops_per_s()
     print(f"int32 ALU peak: {peak_ops / 1e12:.2f} Top/s ({INT32_LANES_PER_SM}"
           f" lanes x {torch.cuda.get_device_properties(0).multi_processor_count}"
           f" SMs x max SM clock) [{line}]", flush=True)
-    chunk = max(c for _, c, _ in shapes)
-    extra = [(EXTRA_Q, chunk, l) for l in EXTRA_WIDTHS]
-    rows = phase_kernels(sorted(set(shapes) | set(extra)), peak_ops)
+    shapes = {name: {} for name in WRAPPER_SHAPES}
+    for recorded in (shapes1, shapes2):
+        for name, calls in recorded.items():
+            for s, n in calls.items():
+                shapes[name][s] = shapes[name].get(s, 0) + n
+    myers = dict(shapes["myers_distance_tiles"])
+    chunk = max(c for _, c, _ in myers)
+    for l in EXTRA_WIDTHS:
+        myers.setdefault((EXTRA_Q, chunk, l), 0)
+    rows = phase_kernels(dict(shapes, myers_distance_tiles=myers), peak_ops)
 
-    def busiest(one_word):
-        """The main-path shape of the 1-word (or N-word) kernel with the
-        most launches."""
-        return max((n, s) for s, n in shapes.items()
-                   if (ck.kernel_words(s[2]) == 1) == one_word)[1]
+    def one_word(s):
+        return ck.kernel_words(s[2]) == 1
 
-    print(f"kernels line: myers_tile at (Q, C, L) = {busiest(True)}, "
-          f"myersN_tile at {busiest(False)}", flush=True)
-
-    source = f"{PACKAGE}/csrc/myers_tile.cu"
-    pallas = "sesam_duke_microservice_tpu/ops/pallas_kernels.py"
-    kernels = [
-        dict(name="myers_tile", route="cuda", source=source,
-             replaces=f"{pallas}:151", launches=launches["myers_tile"],
-             library_ms=None, **rows[busiest(True)]),
-        dict(name="myersN_tile", route="cuda", source=source,
-             replaces=f"{pallas}:265", launches=launches["myersN_tile"],
-             library_ms=None, **rows[busiest(False)]),
-    ]
+    picks = {
+        "myers_tile": ("myers_distance_tiles",
+                       busiest(shapes1["myers_distance_tiles"], one_word),
+                       launches1, "myers_tile.cu", 151),
+        "myersN_tile": ("myers_distance_tiles",
+                        busiest(shapes1["myers_distance_tiles"],
+                                lambda s: not one_word(s)),
+                        launches1, "myers_tile.cu", 265),
+        "jw_tile": ("jaro_winkler_sim_tiles",
+                    busiest(shapes2["jaro_winkler_sim_tiles"]),
+                    launches2, "jw_tile.cu", 387),
+        "myers_gathered": ("myers_distance_gathered",
+                           busiest(shapes2["myers_distance_gathered"]),
+                           launches2, "myers_gathered.cu", 539),
+        "intersect_tile": ("set_intersection_tiles",
+                           busiest(shapes2["set_intersection_tiles"]),
+                           launches2, "intersect_tile.cu", 653),
+    }
+    kernels = []
+    for name, (wrapper, shape, launches, source, line_no) in picks.items():
+        print(f"kernels line: {name} at {shape}", flush=True)
+        kernels.append(dict(
+            name=name, route="cuda", source=f"{PACKAGE}/csrc/{source}",
+            replaces=f"{PALLAS}:{line_no}", launches=launches[name],
+            library_ms=None, **rows[wrapper][shape]))
+    print(f"total wall {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(line)
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,8 @@ tensors (see ``ops.tokenize`` / ``engine.device_matcher``), never on these.
 from __future__ import annotations
 
 import enum
+import hashlib
+import json
 from typing import Dict, List, Optional, Sequence
 
 # Hidden property names the service injects into every schema
@@ -108,9 +110,8 @@ class Record:
 
     def __init__(self, values: Optional[Dict[str, List[str]]] = None):
         self._values: Dict[str, List[str]] = {}
-        # memoized content digest (store.records.record_digest): the
-        # persistent ingest path digests every record twice (store row +
-        # index fold); mutation invalidates
+        # memoized content digest (record_digest below): the finalizer's
+        # confidence memo keys records by it; mutation invalidates
         self._digest_cache: Optional[bytes] = None
         # memoized record_id: the ingest bookkeeping path (corpus append,
         # id_to_row, digests, listeners) reads it several times per record
@@ -173,3 +174,21 @@ class Record:
 
     def __repr__(self) -> str:
         return f"Record({self._values!r})"
+
+
+def record_digest(record: Record) -> bytes:
+    """SHA-256 over the record id and its canonical JSON serialization (a
+    copy of the JAX package's ``store.records.record_digest``), memoized on
+    the record until its next mutation."""
+    if record._digest_cache is not None:
+        return record._digest_cache
+    rid = record.record_id
+    if rid is None:
+        raise ValueError("record has no ID property")
+    h = hashlib.sha256()
+    h.update(rid.encode("utf-8", "surrogatepass"))
+    h.update(b"\x00")
+    h.update(json.dumps(record._values, separators=(",", ":")).encode(
+        "utf-8", "surrogatepass"))
+    record._digest_cache = h.digest()
+    return record._digest_cache

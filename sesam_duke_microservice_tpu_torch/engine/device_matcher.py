@@ -3,8 +3,10 @@
 Counterpart of the JAX package's ``engine/device_matcher.py``: the whole
 corpus lives on the device as padded feature tensors (``ops.features``),
 the blockwise scorer (``ops.scoring.build_corpus_scorer``) scores every
-query against every corpus row in chunks keeping a running top-K, and the
-host finalizes only the surviving K pairs per query (``engine.finalize``).
+query against every corpus row in chunks keeping a running top-K, the dd
+rescorer (``ops.scoring.dd_rescorer``) re-scores a block's survivors in
+double-double when one of them could be a certified reject, and the host
+finalizes the surviving K pairs per query (``engine.finalize``).
 
 Semantics contract (held to the JAX backend by tests/test_torch_slice.py):
 
@@ -253,9 +255,11 @@ class DeviceIndex(CandidateIndex):
             raise SchemaError(
                 "the device backend needs at least one comparison property "
                 "with a device kernel (all configured comparators are "
-                "host-only)"
+                "host-only: "
+                + ", ".join(sorted({type(p.comparator).__name__
+                                    for p in self.plan.host_props}))
+                + ")"
             )
-        S.check_plan(self.plan)
         self.corpus = DeviceCorpus(self.plan, self.device)
         self.records: Dict[str, Record] = {}     # id -> latest record
         self.id_to_row: Dict[str, int] = {}
@@ -456,13 +460,16 @@ class DeviceIndex(CandidateIndex):
 
 class _BlockResult:
     """Scored query block: per-query candidate rows above the survivor
-    bound."""
+    bound.  ``dd_ctx`` carries the query side the scorer used (for the dd
+    rescore); ``dd`` the block's (hi, lo, unsafe) dd rescore, or None."""
 
     def __init__(self, top_logit: np.ndarray, top_index: np.ndarray,
-                 min_logit: float):
+                 min_logit: float, dd_ctx=None):
         self.top_logit = top_logit
         self.top_index = top_index
         self.min_logit = min_logit
+        self.dd_ctx = dd_ctx
+        self.dd = None
 
     def survivor_triples(self, q: int) -> List[Tuple[int, int, float]]:
         """(k_position, corpus_row, device_logit) survivors of query q."""
@@ -507,12 +514,13 @@ class _Fetch:
 class _PendingBlock:
     """In-flight scoring call; ``call(k)`` re-runs the scorer at width k."""
 
-    def __init__(self, capacity, n, min_logit, k, call):
+    def __init__(self, capacity, n, min_logit, k, call, dd_ctx):
         self.capacity = capacity
         self.n = n
         self.min_logit = min_logit
         self.k = k
         self.call = call
+        self.dd_ctx = dd_ctx
         self.fetch = call(k)
 
 
@@ -527,7 +535,8 @@ def resolve_block(pending) -> _BlockResult:
         count, top_logit, top_index = fetch.result()
         cmax = int(count[: pending.n].max(initial=0))
         if k >= pending.capacity or cmax <= k:
-            return _BlockResult(top_logit, top_index, pending.min_logit)
+            return _BlockResult(top_logit, top_index, pending.min_logit,
+                                pending.dd_ctx)
         k = min(k * 2, pending.capacity)
         logger.info("escalation: %d candidates at the bound, retrying with "
                     "width=%d", cmax, k)
@@ -629,7 +638,37 @@ class _ScorerCache:
             return _Fetch(*out)
 
         k = min(_INITIAL_TOP_K, corpus.capacity)
-        return _PendingBlock(corpus.capacity, n, min_logit, k, call)
+        # the query side the scorer used, for the post-resolve dd rescore
+        return _PendingBlock(corpus.capacity, n, min_logit, k, call,
+                             (qfeats, from_rows, query_row))
+
+    def dd_rescore(self, result: _BlockResult):
+        """The dd survivor rescore of a resolved block: (hi, lo, unsafe)
+        numpy arrays aligned with ``result.top_index``, or None when the
+        block cannot ride it (empty corpus, nothing certifiable) or the
+        gate skips it: only a survivor whose f32 logit sits at or below
+        ``dd_gate_bound`` can be a certified reject, and certified events
+        and residue take the host compare either way."""
+        ctx = result.dd_ctx
+        if ctx is None:
+            return None
+        index = self.index
+        plan = index.plan
+        gate = B.dd_gate_bound(index.schema, plan)
+        candidates = ((result.top_logit > result.min_logit)
+                      & (result.top_logit <= gate))
+        if not bool(candidates.any()):
+            return None
+        fn = S.dd_rescorer(plan, queries_from_rows=ctx[1],
+                           value_slots_cap=_VALUE_SLOTS_MAX)
+        if fn is None:
+            return None
+        qfeats, _, query_row = ctx
+        cfeats_all = index.corpus.device_arrays()[0]
+        cfeats = {s.name: cfeats_all[s.name] for s in B.dd_plan_specs(plan)}
+        top_index = _to_device(result.top_index, index.device)
+        hi, lo, unsafe = fn(qfeats, cfeats, query_row, top_index)
+        return hi.cpu().numpy(), lo.cpu().numpy(), unsafe.cpu().numpy()
 
 
 class DeviceProcessor:
@@ -688,6 +727,13 @@ class DeviceProcessor:
             pending = nxt
             t2 = time.monotonic()
             self.stats.retrieval_seconds += t2 - t1
+            if self.finalizer.device:
+                # certified finalization: one more device program over the
+                # resolved (Q, K) survivors
+                result.dd = self._scorers.dd_rescore(result)
+                if result.dd is not None:
+                    self.stats.dd_blocks += 1
+                self.stats.dd_seconds += time.monotonic() - t2
             outcomes = self.finalizer.finalize_block(self, block, result)
             for record, out in zip(block, outcomes):
                 for event, candidate, prob in out.events:
@@ -700,6 +746,10 @@ class DeviceProcessor:
                 self.stats.candidates_retrieved += out.survivors
                 self.stats.pairs_rescored += out.rescored
                 self.stats.pairs_skipped += out.skipped
+                self.stats.pairs_device_certified += out.device_certified
+                self.stats.dd_residue_margin += out.residue_margin
+                self.stats.dd_residue_kind += out.residue_kind
+                self.stats.dd_residue_truncation += out.residue_truncation
                 # the device scored this query against every live row
                 self.stats.pairs_compared += live_rows
             self.stats.compare_seconds += time.monotonic() - t2

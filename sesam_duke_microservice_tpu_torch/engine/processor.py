@@ -26,8 +26,24 @@ class ProfileStats:
     # compare vs survivors skipped by decisive-band pruning
     pairs_rescored: int = 0
     pairs_skipped: int = 0
+    # device-certified finalization (DUKE_DEVICE_FINALIZE): certified
+    # rejects that skipped the host compare, and the survivors left to
+    # the host residue by reason -- inside the dd margin band, no
+    # certifiable property, or an ``unsafe`` dd lane (tensors that may
+    # have truncated the record, or a Jaro-Winkler value on a branch
+    # boundary)
+    pairs_device_certified: int = 0
+    dd_blocks: int = 0           # blocks the dd rescore program ran on
+    dd_residue_margin: int = 0
+    dd_residue_kind: int = 0
+    dd_residue_truncation: int = 0
     retrieval_seconds: float = 0.0
+    # host clock of finalization, of which the dd rescore (gate, program,
+    # copy back) is dd_seconds; on a POST of several query blocks the next
+    # block's scan is queued ahead of the dd program, so dd_seconds then
+    # also holds the wait for that scan and retrieval_seconds reads low
     compare_seconds: float = 0.0
+    dd_seconds: float = 0.0
 
 
 class Processor:

@@ -1,20 +1,28 @@
-"""Hand-written CUDA kernels for the pair-matrix hot op, and their wrappers.
+"""Hand-written CUDA kernels for the pair-matrix hot ops, and their wrappers.
 
-Counterpart of the JAX package's ``ops/pallas_kernels.py`` for the two
-kernels on the brute-force Levenshtein path:
+Counterpart of the JAX package's ``ops/pallas_kernels.py`` for the five
+Pallas kernels on the ``device`` backend's path:
 
-  * ``_myers_tile_kernel`` (one uint32 word, patterns of at most 32 chars)
-  * ``_myersN_tile_kernel`` (W = ceil(L/32) <= 8 words, carries through the
-    add chain and the shifts)
+  * ``_myers_tile_kernel`` and ``_myersN_tile_kernel`` -- all-pairs
+    Levenshtein distance -- become one CUDA kernel templated on the word
+    count, ``csrc/myers_tile.cu`` (``myers_distance_tiles``);
+  * ``_jw_tile_kernel`` -- all-pairs Jaro-Winkler similarity --
+    ``csrc/jw_tile.cu`` (``jaro_winkler_sim_tiles``);
+  * ``_myers_gathered_kernel`` -- Levenshtein distance of each query to
+    its own gathered candidates, the dd rescorer's layout --
+    ``csrc/myers_gathered.cu`` (``myers_distance_gathered``);
+  * ``_intersect_tile_kernel`` -- all-pairs |A ∩ B| of hashed q-gram /
+    token sets -- ``csrc/intersect_tile.cu`` (``set_intersection_tiles``).
 
-both of which become one CUDA kernel templated on W in ``csrc/myers_tile.cu``.
-It is compiled with ``nvcc`` for ``sm_90a`` on first use into ``_build/``
-(beside this package's sources) and bound through ``ctypes``.
+Every ``csrc/*.cu`` is compiled with ``nvcc`` for ``sm_90a`` on first use,
+one process per source, all started together, into ``_build/`` (beside this
+package's sources, keyed by a digest of all of them), and bound through
+``ctypes``.
 
-``myers_distance_tiles`` launches it for CUDA tensors and runs
-``myers_distance_tiles_reference`` -- the same DP in plain PyTorch -- for
-tensors on the CPU; there is no fallback from one to the other.  Launch
-counts per kernel live in ``LAUNCHES``.
+Each wrapper launches its kernel for CUDA tensors and runs its plain
+PyTorch version (``*_reference``, beside it) for tensors on the CPU; there
+is no fallback from one to the other.  Launch counts per kernel live in
+``LAUNCHES``, keyed by the TPU kernel each one ports.
 """
 
 from __future__ import annotations
@@ -29,20 +37,45 @@ from pathlib import Path
 
 import torch
 
+from . import pairwise as pw
 from .pairwise import MASK32, levenshtein_sim_from_distance
 
 # Longest pattern the tiled Myers kernel covers (8 words); wider
 # properties take the scan-DP path in ops.scoring.
 MYERS_MAX_CHARS = 256
+# The Jaro-Winkler tile and the gathered Myers kernels keep one uint32
+# mask / DP word per pair.
+JW_MAX_CHARS = 32
+GATHERED_MAX_CHARS = 32
+# Widest gram / token set the intersection kernel takes (the JAX package's
+# tile-path guard).
+SET_MAX_WIDTH = 256
 
 # Kernel launches since the last reset, by the TPU kernel each one ports.
-LAUNCHES = {"myers_tile": 0, "myersN_tile": 0}
+LAUNCHES = {"myers_tile": 0, "myersN_tile": 0, "jw_tile": 0,
+            "myers_gathered": 0, "intersect_tile": 0}
 
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "myers_tile.cu"
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC"]
-_LIB = None
+# entry point of each source's library: (C function, argument types)
+_ENTRY = {
+    "myers_tile": ("myers_tiles",
+                   [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4),
+    "jw_tile": ("jw_tiles",
+                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                + [ctypes.c_float] * 2),
+    "myers_gathered": ("myers_gathered",
+                       [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3),
+    "intersect_tile": ("intersect_tiles",
+                       [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3),
+}
+# the plain versions here and the flat scoring paths (ops.scoring) work
+# through row slices of at most this many pair elements (pairs x char or
+# set width), so the main path's shapes fit on the card
+BLOCK_ELEMENTS = 1 << 24
+_LIBS = {}
 _LIB_LOCK = threading.Lock()
 # HTTP handler threads of different workloads launch concurrently
 _COUNT_LOCK = threading.Lock()
@@ -71,46 +104,88 @@ def _nvcc() -> str:
     return "/usr/local/cuda/bin/nvcc"
 
 
-def build_library() -> Path:
-    """Compile ``csrc/myers_tile.cu`` (once per source content) and return
-    the shared library's path.  Safe against concurrent builds: each
+def build_library() -> dict:
+    """Compile every ``csrc/*.cu`` (once per content of all of them) and
+    return ``{source stem: shared library path}``.  One ``nvcc`` per
+    source, all running at once.  Safe against concurrent builds: each
     compiles to a private name and renames into place."""
-    digest = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()[:16]
-    target = _BUILD_DIR / f"libmyers_tile-{digest}.so"
-    if target.exists():
-        return target
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {_SOURCE.name}:\n"
-            f"{proc.stderr}")
-    os.replace(tmp, target)
-    return target
+    sources = sorted(_CSRC.glob("*.cu"))
+    digest = hashlib.sha256()
+    for src in sources:
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    tag = digest.hexdigest()[:16]
+    targets = {src.stem: _BUILD_DIR / f"lib{src.stem}-{tag}.so"
+               for src in sources}
+    todo = [src for src in sources if not targets[src.stem].exists()]
+    if todo:
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = []
+        for src in todo:
+            target = targets[src.stem]
+            tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
+            cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(src)]
+            procs.append((src, tmp, target, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        failed = []
+        for src, tmp, target, proc in procs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{src.name} ({proc.returncode}):\n{err}")
+            else:
+                os.replace(tmp, target)
+        if failed:
+            raise RuntimeError("nvcc failed building " + "\n".join(failed))
+    return targets
 
 
-def _library():
-    global _LIB
+def _kernel(stem: str):
+    """The bound C entry point of ``csrc/<stem>.cu``."""
     with _LIB_LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(str(build_library()))
-            fn = lib.myers_tiles
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-                ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            _LIB = lib
-        return _LIB
+        if stem not in _LIBS:
+            paths = build_library()
+            for name, path in paths.items():
+                if name in _LIBS:
+                    continue
+                fname, argtypes = _ENTRY[name]
+                fn = getattr(ctypes.CDLL(str(path)), fname)
+                fn.argtypes = argtypes + [ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+                _LIBS[name] = fn
+        return _LIBS[stem]
 
 
-def _check_operands(qchars, qlen, cchars, clen) -> None:
-    tensors = (qchars, qlen, cchars, clen)
-    if any(t.device != qchars.device for t in tensors):
-        raise ValueError("myers_distance_tiles operands must share a device")
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _launched(name: str, err: int) -> None:
+    """Raise on a refused launch, else count it."""
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
+
+
+def _check_common(what: str, tensors) -> None:
+    """Shared operand checks: one device, int32, contiguous, and a device
+    this module has a path for."""
+    device = tensors[0].device
+    if any(t.device != device for t in tensors):
+        raise ValueError(f"{what} operands must share a device")
     if any(t.dtype != torch.int32 for t in tensors):
-        raise TypeError("myers_distance_tiles takes int32 chars and lengths, "
-                        f"got {[str(t.dtype) for t in tensors]}")
+        raise TypeError(f"{what} takes int32 operands, got "
+                        f"{[str(t.dtype) for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what} operands must be contiguous")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no {what} kernel for device {device}")
+
+
+def _check_pair_operands(what, qchars, qlen, cchars, clen, max_chars):
+    """(Q, L) x (C, L) chars with (Q,) / (C,) lengths, L <= max_chars."""
+    _check_common(what, (qchars, qlen, cchars, clen))
     if qchars.dim() != 2 or cchars.dim() != 2:
         raise ValueError("chars must be (rows, L) matrices")
     l = qchars.shape[1]
@@ -118,11 +193,8 @@ def _check_operands(qchars, qlen, cchars, clen) -> None:
         raise ValueError(f"query width {l} != corpus width {cchars.shape[1]}")
     if qlen.shape != (qchars.shape[0],) or clen.shape != (cchars.shape[0],):
         raise ValueError("lengths must be (rows,) vectors")
-    if l > MYERS_MAX_CHARS:
-        raise ValueError(
-            f"Myers tile kernels need L <= {MYERS_MAX_CHARS}, got {l}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("myers_distance_tiles operands must be contiguous")
+    if l > max_chars:
+        raise ValueError(f"{what} needs L <= {max_chars}, got {l}")
 
 
 def myers_distance_tiles(qchars, qlen, cchars, clen):
@@ -133,26 +205,20 @@ def myers_distance_tiles(qchars, qlen, cchars, clen):
     pattern gives the text length.  Mirrors the JAX package's
     ``pallas_kernels.myers_distance_tiles``.
     """
-    _check_operands(qchars, qlen, cchars, clen)
+    _check_pair_operands("myers_distance_tiles", qchars, qlen, cchars, clen,
+                         MYERS_MAX_CHARS)
     if qchars.device.type == "cpu":
         return myers_distance_tiles_reference(qchars, qlen, cchars, clen)
-    if qchars.device.type != "cuda":
-        raise ValueError(f"no Myers kernel for device {qchars.device}")
     q, l = qchars.shape
     c = cchars.shape[0]
     out = torch.empty((q, c), dtype=torch.int32, device=qchars.device)
     if q == 0 or c == 0:
         return out
     words = kernel_words(l)
-    err = _library().myers_tiles(
+    err = _kernel("myers_tile")(
         qchars.data_ptr(), qlen.data_ptr(), cchars.data_ptr(),
-        clen.data_ptr(), out.data_ptr(), q, c, l, words,
-        torch.cuda.current_stream(qchars.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"myers_tiles launch failed: CUDA error {err}")
-    with _COUNT_LOCK:
-        LAUNCHES["myers_tile" if words == 1 else "myersN_tile"] += 1
+        clen.data_ptr(), out.data_ptr(), q, c, l, words, _stream(qchars))
+    _launched("myers_tile" if words == 1 else "myersN_tile", err)
     return out
 
 
@@ -238,3 +304,165 @@ def levenshtein_sim_tiles(qchars, qlen, cchars, clen, equal):
     dist = myers_distance_tiles(qchars, qlen, cchars, clen)
     return levenshtein_sim_from_distance(dist, qlen[:, None], clen[None, :],
                                          equal)
+
+
+def row_blocks(rows: int, per_row: int):
+    """Row ranges whose (rows x per_row) elements fit BLOCK_ELEMENTS."""
+    step = max(1, BLOCK_ELEMENTS // max(1, per_row))
+    return [(s, min(rows, s + step)) for s in range(0, rows, step)]
+
+
+# -- Jaro-Winkler, all pairs ---------------------------------------------------
+
+
+def jaro_winkler_sim_tiles(qchars, qlen, cchars, clen, equal, *,
+                           prefix_scale=0.1, boost_threshold=0.7,
+                           max_prefix=4):
+    """All-pairs Jaro-Winkler similarity -> (Q, C) f32 (mirrors the JAX
+    package's ``pallas_kernels.jaro_winkler_sim_tiles``).
+
+    Same layout as ``myers_distance_tiles`` with L <= JW_MAX_CHARS;
+    ``equal`` is the (Q, C) exact-equality mask, which gives 1.0 outside
+    the kernel.
+    """
+    _check_pair_operands("jaro_winkler_sim_tiles", qchars, qlen, cchars,
+                         clen, JW_MAX_CHARS)
+    if qchars.device.type == "cpu":
+        return jaro_winkler_sim_tiles_reference(
+            qchars, qlen, cchars, clen, equal, prefix_scale=prefix_scale,
+            boost_threshold=boost_threshold, max_prefix=max_prefix)
+    q, l = qchars.shape
+    c = cchars.shape[0]
+    out = torch.empty((q, c), dtype=torch.float32, device=qchars.device)
+    if q and c:
+        err = _kernel("jw_tile")(
+            qchars.data_ptr(), qlen.data_ptr(), cchars.data_ptr(),
+            clen.data_ptr(), out.data_ptr(), q, c, l, int(max_prefix),
+            float(prefix_scale), float(boost_threshold), _stream(qchars))
+        _launched("jw_tile", err)
+    return torch.where(equal, 1.0, out)
+
+
+def jaro_winkler_sim_tiles_reference(qchars, qlen, cchars, clen, equal, *,
+                                     prefix_scale=0.1, boost_threshold=0.7,
+                                     max_prefix=4):
+    """The plain PyTorch version of ``jaro_winkler_sim_tiles`` (any
+    device): the flat ``pairwise.jaro_winkler_sim`` over the expanded pairs
+    of each block of query rows; (Q, C) f32."""
+    q, l = qchars.shape
+    c = cchars.shape[0]
+    parts = [torch.zeros((0, c), dtype=torch.float32, device=qchars.device)]
+    for s, e in row_blocks(q, c * l):
+        n = e - s
+        parts.append(pw.jaro_winkler_sim(
+            qchars[s:e, None].expand(n, c, l).reshape(-1, l),
+            qlen[s:e, None].expand(n, c).reshape(-1),
+            cchars[None].expand(n, c, l).reshape(-1, l),
+            clen[None].expand(n, c).reshape(-1), equal[s:e].reshape(-1),
+            prefix_scale=prefix_scale, boost_threshold=boost_threshold,
+            max_prefix=max_prefix).reshape(n, c))
+    return torch.cat(parts)
+
+
+# -- Levenshtein for gathered candidates (the dd rescorer's layout) ------------
+
+
+def myers_distance_gathered(qchars, qlen, cchars, clen):
+    """Levenshtein distance of each query to its own candidates -> (Q, K)
+    int32 (mirrors ``pallas_kernels.myers_distance_gathered``).
+
+    qchars: (Q, L) int32, L <= GATHERED_MAX_CHARS; qlen: (Q,);
+    cchars: (Q, K, L) int32, candidate k of query q; clen: (Q, K).  An
+    empty pattern gives the text length.
+    """
+    _check_common("myers_distance_gathered", (qchars, qlen, cchars, clen))
+    if qchars.dim() != 2 or cchars.dim() != 3:
+        raise ValueError("chars must be (Q, L) and (Q, K, L)")
+    q, l = qchars.shape
+    k = cchars.shape[1]
+    if cchars.shape != (q, k, l):
+        raise ValueError(f"candidate chars {tuple(cchars.shape)} do not "
+                         f"match queries {(q, l)}")
+    if qlen.shape != (q,) or clen.shape != (q, k):
+        raise ValueError("lengths must be (Q,) and (Q, K)")
+    if l > GATHERED_MAX_CHARS:
+        raise ValueError(f"myers_distance_gathered needs L <= "
+                         f"{GATHERED_MAX_CHARS}, got {l}")
+    if qchars.device.type == "cpu":
+        return myers_distance_gathered_reference(qchars, qlen, cchars, clen)
+    out = torch.empty((q, k), dtype=torch.int32, device=qchars.device)
+    if q and k:
+        err = _kernel("myers_gathered")(
+            qchars.data_ptr(), qlen.data_ptr(), cchars.data_ptr(),
+            clen.data_ptr(), out.data_ptr(), q, k, l, _stream(qchars))
+        _launched("myers_gathered", err)
+    return out
+
+
+def myers_distance_gathered_reference(qchars, qlen, cchars, clen):
+    """The plain PyTorch version of the gathered Myers kernel (any device):
+    the flat one-word Myers DP over each query's (K, L) candidates."""
+    q, l = qchars.shape
+    k = cchars.shape[1]
+    parts = [torch.zeros((0, k), dtype=torch.int32, device=qchars.device)]
+    for s, e in row_blocks(q, k * l):
+        n = e - s
+        c1 = qchars[s:e, None].expand(n, k, l).reshape(-1, l)
+        l1 = qlen[s:e, None].expand(n, k).reshape(-1)
+        dist = pw.levenshtein_distance_myers(
+            c1, l1, cchars[s:e].reshape(-1, l), clen[s:e].reshape(-1))
+        parts.append(dist.reshape(n, k))
+    return torch.cat(parts)
+
+
+# -- set intersection (q-grams / token sets), all pairs -----------------------
+
+
+def set_intersection_tiles(qgrams, qn, cgrams, cn):
+    """All-pairs |set_i ∩ set_j| -> (Q, C) int32 (mirrors
+    ``pallas_kernels.set_intersection_tiles``).
+
+    qgrams: (Q, G) int32 hashed ids, sorted ascending and distinct in the
+    first qn entries (``ops.features`` GRAM_SET / TOKEN_SET, SET_PAD
+    after); qn: (Q,); cgrams: (C, G); cn: (C,); G <= SET_MAX_WIDTH.  Only
+    the first n entries of a row count, whatever its padding holds.
+    """
+    _check_pair_operands("set_intersection_tiles", qgrams, qn, cgrams, cn,
+                         SET_MAX_WIDTH)
+    if qgrams.device.type == "cpu":
+        return set_intersection_tiles_reference(qgrams, qn, cgrams, cn)
+    q, g = qgrams.shape
+    c = cgrams.shape[0]
+    out = torch.empty((q, c), dtype=torch.int32, device=qgrams.device)
+    if q and c:
+        err = _kernel("intersect_tile")(
+            qgrams.data_ptr(), qn.data_ptr(), cgrams.data_ptr(),
+            cn.data_ptr(), out.data_ptr(), q, c, g, _stream(qgrams))
+        _launched("intersect_tile", err)
+    return out
+
+
+def set_intersection_tiles_reference(qgrams, qn, cgrams, cn):
+    """The plain PyTorch version of the intersection kernel (any device):
+    the flat ``pairwise.set_intersection_count`` over the expanded pairs of
+    each block of query rows; only the first n ids of a row count."""
+    q, g = qgrams.shape
+    c = cgrams.shape[0]
+    parts = [torch.zeros((0, c), dtype=torch.int32, device=qgrams.device)]
+    for s, e in row_blocks(q, c * g):
+        n = e - s
+        parts.append(pw.set_intersection_count(
+            qgrams[s:e, None].expand(n, c, g).reshape(-1, g),
+            qn[s:e, None].expand(n, c).reshape(-1),
+            cgrams[None].expand(n, c, g).reshape(-1, g),
+            cn[None].expand(n, c).reshape(-1)).reshape(n, c))
+    return torch.cat(parts)
+
+
+def set_sim_tiles(qids, qn, cids, cn, equal, *, formula):
+    """Set-comparator similarity over all query x corpus pairs: (Q, C) f32
+    for QGram (its formula), JaccardIndex ('jaccard') and DiceCoefficient
+    ('dice'), through the shared ``pairwise.sim_from_set_intersection``."""
+    common = set_intersection_tiles(qids, qn, cids, cn)
+    return pw.sim_from_set_intersection(common, qn[:, None], cn[None, :],
+                                        equal, formula=formula)

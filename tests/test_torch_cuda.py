@@ -1,5 +1,8 @@
-"""Card tests of the PyTorch port: the CUDA Myers kernel against its plain
-PyTorch version, and the service on ``cuda`` against the service on ``cpu``.
+"""Card tests of the PyTorch port: each CUDA kernel against its plain
+PyTorch version at odd sizes (Q, C and K multiples of no tile, every width,
+empty strings and sets, garbage set padding), the dd rescorer on ``cuda``
+against the same program on ``cpu``, and the service on ``cuda`` against
+the service on ``cpu``.
 
 Every test here needs an NVIDIA GPU and skips without one.  The module
 imports no JAX, so on a machine without it run::
@@ -64,6 +67,70 @@ def test_kernel_equals_plain_version(l, cuda_device):
     assert torch.equal(got.cpu(), cpu)
 
 
+@pytest.mark.parametrize("l", [1, 2, 7, 16, 24, 31, 32])
+def test_jw_kernel_equals_plain_version(l, cuda_device):
+    qc, ql, cc, cl = _inputs(45, 301, l, 100 + l, cuda_device)
+    cc[5, :2] = qc[5, :2]                 # shared prefixes: the boost
+    equal = torch.zeros((45, 301), dtype=torch.bool, device=cuda_device)
+    equal[3, 7] = True
+    kw = dict(prefix_scale=0.1, boost_threshold=0.7, max_prefix=4)
+    ck.reset_launch_counts()
+    got = ck.jaro_winkler_sim_tiles(qc, ql, cc, cl, equal, **kw)
+    torch.cuda.synchronize()
+    want = ck.jaro_winkler_sim_tiles_reference(qc, ql, cc, cl, equal, **kw)
+    # separate IEEE operations in both, in the same order: bit for bit
+    assert torch.equal(got, want)
+    assert ck.LAUNCHES["jw_tile"] == 1
+    cpu = ck.jaro_winkler_sim_tiles(*(t.cpu() for t in (qc, ql, cc, cl,
+                                                        equal)), **kw)
+    assert torch.equal(got.cpu(), cpu)
+
+
+@pytest.mark.parametrize("l,k", [(1, 3), (8, 37), (24, 64), (32, 129)])
+def test_gathered_myers_kernel_equals_plain_version(l, k, cuda_device):
+    qc, ql, pool, pool_len = _inputs(19, 77, l, 200 + l, cuda_device)
+    g = torch.Generator().manual_seed(l)
+    rows = torch.randint(0, 77, (19, k), generator=g).to(cuda_device)
+    cc = pool[rows].contiguous()
+    cl = pool_len[rows].contiguous()
+    ck.reset_launch_counts()
+    got = ck.myers_distance_gathered(qc, ql, cc, cl)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ck.myers_distance_gathered_reference(
+        qc, ql, cc, cl))
+    assert ck.LAUNCHES["myers_gathered"] == 1
+
+
+def _sets(q, g, seed, device, garbage):
+    gen = torch.Generator().manual_seed(seed)
+    n = torch.randint(0, g + 1, (q,), generator=gen, dtype=torch.int32)
+    n[:2] = torch.tensor([0, g])
+    ids = torch.full((q, g), 2**31 - 1, dtype=torch.int32)
+    for i in range(q):
+        row = torch.randperm(4 * g, generator=gen)[: int(n[i])] - 2 * g
+        ids[i, : int(n[i])] = torch.sort(row).values.to(torch.int32)
+        if garbage:
+            ids[i, int(n[i]):] = torch.randint(
+                -2 * g, 2 * g, (g - int(n[i]),), generator=gen,
+                dtype=torch.int32)
+    return ids.to(device), n.to(device)
+
+
+@pytest.mark.parametrize("g,garbage", [(16, False), (64, False), (64, True),
+                                       (256, False)])
+def test_intersection_kernel_equals_plain_version(g, garbage, cuda_device):
+    qg, qn = _sets(23, g, g, cuda_device, garbage)
+    cg, cn = _sets(141, g, g + 1, cuda_device, garbage)
+    cg[4], cn[4] = qg[1], qn[1]
+    ck.reset_launch_counts()
+    got = ck.set_intersection_tiles(qg, qn, cg, cn)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ck.set_intersection_tiles_reference(qg, qn,
+                                                                cg, cn))
+    assert int(got[1, 4]) == g
+    assert ck.LAUNCHES["intersect_tile"] == 1
+
+
 def test_kernel_rejects_what_it_cannot_take(cuda_device):
     qc, ql, cc, cl = _inputs(4, 4, 8, 0, cuda_device)
     with pytest.raises(TypeError, match="int32"):
@@ -97,6 +164,73 @@ CONFIG = """
   </Deduplication>
 </DukeMicroService>
 """
+
+
+MIXED = """
+<DukeMicroService>
+  <Deduplication name="mixed" link-database-type="in-memory">
+    <duke>
+      <schema>
+        <threshold>0.8</threshold>
+        <maybe-threshold>0.6</maybe-threshold>
+        <property><name>NAME</name>
+          <comparator>levenshtein</comparator><low>0.3</low><high>0.9</high>
+        </property>
+        <property><name>GIVEN</name>
+          <comparator>jaro-winkler</comparator><low>0.35</low><high>0.88</high>
+        </property>
+        <property><name>ADDRESS</name>
+          <comparator>qgram</comparator><low>0.3</low><high>0.85</high>
+        </property>
+        <property><name>PERSON</name>
+          <comparator>person-name</comparator><low>0.4</low><high>0.8</high>
+        </property>
+      </schema>
+      <data-source class="io.sesam.dukemicroservice.IncrementalDeduplicationDataSource">
+        <param name="dataset-id" value="crm"/>
+        <column name="name" property="NAME"/>
+        <column name="given" property="GIVEN"/>
+        <column name="address" property="ADDRESS"/>
+        <column name="person" property="PERSON"/>
+      </data-source>
+    </duke>
+  </Deduplication>
+</DukeMicroService>
+"""
+
+
+def test_mixed_service_on_cuda_matches_cpu_and_certifies(cuda_device):
+    """A JW / q-gram / host-only schema: the scan kernels and the dd
+    program's gathered Myers kernel all launch, the feed equals the CPU
+    run's, and both certify the same pairs on the dd path."""
+    g = torch.Generator().manual_seed(9)
+    words = ["ole", "ola", "kari", "hansen", "olsen", "gate", "vei"]
+
+    def pick(n):
+        return " ".join(words[int(k)] for k in
+                        torch.randint(0, len(words), (n,), generator=g))
+
+    batch = [{"_id": f"m{i}", "name": pick(2), "given": pick(1),
+              "address": pick(2), "person": pick(2)} for i in range(300)]
+    feeds, certified = [], []
+    for device in (cuda_device, "cpu"):
+        app = DukeApp(parse_config(MIXED), device=device)
+        wl = app.deduplications["mixed"]
+        ck.reset_launch_counts()
+        with wl.lock:
+            wl.process_batch("crm", batch)
+            rows = wl.links_since(0)
+        if device != "cpu":
+            assert all(ck.LAUNCHES[k] > 0 for k in
+                       ("myers_tile", "jw_tile", "intersect_tile",
+                        "myers_gathered"))
+        for r in rows:
+            r.pop("_updated")
+        feeds.append(json.dumps(rows))
+        certified.append(wl.processor.stats.pairs_device_certified)
+        app.close()
+    assert feeds[0] == feeds[1]
+    assert certified[0] == certified[1] > 0
 
 
 def test_service_on_cuda_matches_service_on_cpu(cuda_device, monkeypatch):

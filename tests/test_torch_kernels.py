@@ -1,10 +1,14 @@
-"""The port's Myers tile kernels against the JAX package's Pallas kernels.
+"""The port's kernel wrappers against the JAX package's Pallas kernels.
 
-On the CPU ``cuda_kernels.myers_distance_tiles`` runs its plain PyTorch
-version; it must equal the Pallas kernel (interpret mode, as
-tests/test_pallas.py runs it) exactly, at one-word and N-word widths, with
-empty patterns, full-width strings, and Q/C that are multiples of no tile.
-The kernel itself is held against the plain version on the card by
+On the CPU every wrapper in ``cuda_kernels`` runs its plain PyTorch
+version; each must equal its Pallas kernel (interpret mode, as
+tests/test_pallas.py runs it): Myers distances (one-word and N-word
+widths), gathered Myers distances and set-intersection counts exactly,
+Jaro-Winkler similarities within the reference's CHARS similarity budget
+(XLA on the CPU may contract the boost into a fused multiply-add).  Inputs
+carry empty strings and sets, full-width rows, SET_PAD and garbage padding,
+and Q / C / K that are multiples of no tile.  The CUDA kernels themselves
+are held against the plain versions on the card by
 tests/test_torch_cuda.py.
 """
 
@@ -16,7 +20,7 @@ import jax.numpy as jnp
 
 from sesam_duke_microservice_tpu.ops import pallas_kernels as pk
 from sesam_duke_microservice_tpu.ops import scoring as jax_scoring
-from sesam_duke_microservice_tpu.ops.features import CHARS
+from sesam_duke_microservice_tpu.ops.features import CHARS, SET_PAD
 from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
 
 SIM_TOL = jax_scoring._SIM_ERROR_BOUND[CHARS]
@@ -91,5 +95,108 @@ def test_wrapper_rejects_bad_operands():
 
 def test_cpu_path_counts_no_launch():
     ck.reset_launch_counts()
-    ck.myers_distance_tiles(*_torch(*_inputs(1, 3, 5, 32)))
-    assert ck.LAUNCHES == {"myers_tile": 0, "myersN_tile": 0}
+    qc, ql, cc, cl = _torch(*_inputs(1, 3, 5, 32))
+    ck.myers_distance_tiles(qc, ql, cc, cl)
+    ck.jaro_winkler_sim_tiles(qc, ql, cc, cl,
+                              torch.zeros((3, 5), dtype=torch.bool))
+    ck.myers_distance_gathered(qc, ql, cc[None].expand(3, 5, 32).contiguous(),
+                               cl[None].expand(3, 5).contiguous())
+    ck.set_intersection_tiles(qc, ql, cc, cl)
+    assert ck.LAUNCHES == {"myers_tile": 0, "myersN_tile": 0, "jw_tile": 0,
+                           "myers_gathered": 0, "intersect_tile": 0}
+
+
+# the Pallas JW kernel unrolls O(L^2) compares statically: interpret mode
+# compiles for about a minute at L=32, so the widest case here is 16 and
+# tests/test_torch_pairwise.py holds the 32-char flat path to the JAX one
+@pytest.mark.parametrize("l", [1, 8, 16])
+def test_plain_jw_equals_pallas_kernel(l):
+    qc, ql, cc, cl = _inputs(200 + l, 9, 13, l)
+    equal = np.random.default_rng(l).random((9, 13)) < 0.1
+    kw = dict(prefix_scale=0.1, boost_threshold=0.7, max_prefix=4)
+    want = np.asarray(pk.jaro_winkler_sim_tiles(
+        jnp.asarray(qc), jnp.asarray(ql), jnp.asarray(cc), jnp.asarray(cl),
+        jnp.asarray(equal), interpret=True, **kw))
+    got = ck.jaro_winkler_sim_tiles(*_torch(qc, ql, cc, cl),
+                                    torch.from_numpy(equal), **kw).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=0, atol=SIM_TOL)
+    assert (got[~equal] < 1.0).any() and (got[~equal] > 0.0).any()
+
+
+@pytest.mark.parametrize("l,k", [(1, 5), (24, 37), (32, 130)])
+def test_plain_gathered_myers_equals_pallas_kernel(l, k):
+    qc, ql, pool, pool_len = _inputs(300 + l, 7, 50, l)
+    rng = np.random.default_rng(l)
+    rows = rng.integers(0, 50, size=(7, k))
+    cc = pool[rows]                       # (Q, K, L): candidate k of q
+    cl = pool_len[rows]
+    want = np.asarray(pk.myers_distance_gathered(
+        jnp.asarray(qc), jnp.asarray(ql), jnp.asarray(cc), jnp.asarray(cl),
+        interpret=True))
+    got = ck.myers_distance_gathered(*_torch(qc, ql, cc, cl)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def _sets(seed, rows, g, *, garbage=False):
+    """Sorted distinct ids from a small range (so sets intersect), counts
+    from 0 to g with the empty and full sets forced in; the padding is
+    SET_PAD, or random ids past each row's count."""
+    rng = np.random.default_rng(seed)
+    ids = np.full((rows, g), SET_PAD, dtype=np.int32)
+    n = rng.integers(0, g + 1, size=rows).astype(np.int32)
+    n[:2] = [0, g]
+    for i in range(rows):
+        ids[i, :n[i]] = np.sort(rng.choice(np.arange(-2 * g, 2 * g),
+                                           size=n[i], replace=False))
+        if garbage:
+            ids[i, n[i]:] = rng.integers(-2 * g, 2 * g, size=g - n[i])
+    return ids, n
+
+
+@pytest.mark.parametrize("g,garbage", [(16, False), (64, False), (64, True),
+                                       (256, False)])
+def test_plain_intersection_equals_pallas_kernel(g, garbage):
+    qg, qn = _sets(g, 5, g, garbage=garbage)
+    cg, cn = _sets(g + 1, 11, g, garbage=garbage)
+    cg[3], cn[3] = qg[1], qn[1]           # a full-width identical pair
+    want = np.asarray(pk.set_intersection_tiles(
+        jnp.asarray(qg), jnp.asarray(qn), jnp.asarray(cg), jnp.asarray(cn),
+        interpret=True))
+    got = ck.set_intersection_tiles(*_torch(qg, qn, cg, cn)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert want[1, 3] == g and (want > 0).sum() > 5
+
+
+@pytest.mark.parametrize("formula", ["overlap", "jaccard", "dice"])
+def test_set_sim_tiles_matches_pallas_path(formula):
+    qg, qn = _sets(7, 6, 16)
+    cg, cn = _sets(8, 9, 16)
+    equal = np.random.default_rng(3).random((6, 9)) < 0.1
+    want = np.asarray(pk.set_sim_tiles(
+        jnp.asarray(qg), jnp.asarray(qn), jnp.asarray(cg), jnp.asarray(cn),
+        jnp.asarray(equal), formula=formula, interpret=True))
+    got = ck.set_sim_tiles(*_torch(qg, qn, cg, cn), torch.from_numpy(equal),
+                           formula=formula).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=SIM_TOL)
+
+
+def test_new_wrappers_reject_bad_operands():
+    qc, ql, cc, cl = _torch(*_inputs(0, 4, 4, 8))
+    eq = torch.zeros((4, 4), dtype=torch.bool)
+    wide = torch.zeros((4, 33), dtype=torch.int32)
+    with pytest.raises(ValueError, match="L <= 32"):
+        ck.jaro_winkler_sim_tiles(wide, ql, wide, cl, eq)
+    with pytest.raises(TypeError, match="int32"):
+        ck.jaro_winkler_sim_tiles(qc.long(), ql, cc, cl, eq)
+    with pytest.raises(ValueError, match=r"\(Q, K, L\)"):
+        ck.myers_distance_gathered(qc, ql, cc, cl)
+    with pytest.raises(ValueError, match="match queries"):
+        ck.myers_distance_gathered(qc, ql, cc[None].expand(3, 4, 8)
+                                   .contiguous(), cl[None].expand(3, 4)
+                                   .contiguous())
+    with pytest.raises(ValueError, match="L <= 256"):
+        big = torch.zeros((4, 257), dtype=torch.int32)
+        ck.set_intersection_tiles(big, ql, big, cl)
+    with pytest.raises(ValueError, match="contiguous"):
+        ck.set_intersection_tiles(qc.t().contiguous().t(), ql, cc, cl)

@@ -156,3 +156,102 @@ def test_extract_batch_equals_jax():
         for name in want[prop]:
             np.testing.assert_array_equal(got[prop][name], want[prop][name])
             assert got[prop][name].dtype == want[prop][name].dtype
+
+
+@pytest.mark.parametrize("l", [1, 16, 32, 48])
+def test_jaro_counts_and_prefix_equal_jax(l):
+    c1, l1, c2, l2, _ = _pairs(400 + l, 300, l)
+    c2[5:40] = c1[5:40]                 # equal strings: full matches
+    l2[5:40] = l1[5:40]
+    want = [np.asarray(x) for x in jpw.jaro_counts(*_j(c1, l1, c2, l2))]
+    got = [x.numpy() for x in tpw.jaro_counts(*_t(c1, l1, c2, l2))]
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g, w)
+    assert l == 1 or want[1].max() > 0  # transpositions really occur
+    for mp in (0, 4):
+        np.testing.assert_array_equal(
+            tpw.common_prefix_count(*_t(c1, c2, l1, l2), max_prefix=mp)
+            .numpy(),
+            np.asarray(jpw.common_prefix_count(*_j(c1, c2, l1, l2),
+                                               max_prefix=mp)))
+
+
+@pytest.mark.parametrize("l", [8, 32, 48])
+def test_jaro_winkler_sim_equals_jax(l):
+    c1, l1, c2, l2, equal = _pairs(500 + l, 300, l)
+    c2[::3, :2] = c1[::3, :2]           # shared prefixes: the boost
+    kw = dict(prefix_scale=0.1, boost_threshold=0.7, max_prefix=4)
+    want = np.asarray(jpw.jaro_winkler_sim(*_j(c1, l1, c2, l2, equal), **kw))
+    got = tpw.jaro_winkler_sim(*_t(c1, l1, c2, l2, equal), **kw).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=CHARS_TOL)
+
+
+@pytest.mark.parametrize("weights", [(1.0, 1.0, 1.0), (2.0, 1.0, 0.5)])
+def test_weighted_levenshtein_sim_equals_jax(weights):
+    c1, l1, c2, l2, equal = _pairs(600, 200, 20)
+    rng = np.random.default_rng(6)
+    k1 = rng.integers(0, 3, size=c1.shape).astype(np.int32)
+    k2 = rng.integers(0, 3, size=c2.shape).astype(np.int32)
+    kw = dict(digit_weight=weights[0], letter_weight=weights[1],
+              other_weight=weights[2])
+    want = np.asarray(jpw.weighted_levenshtein_sim(
+        *_j(c1, k1, l1, c2, k2, l2, equal), **kw))
+    got = tpw.weighted_levenshtein_sim(
+        *_t(c1, k1, l1, c2, k2, l2, equal), **kw).numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=jax_scoring._SIM_ERROR_BOUND[
+                                   JF.CHARS_WEIGHTED])
+
+
+@pytest.mark.parametrize("formula", ["overlap", "jaccard", "dice"])
+def test_set_sims_equal_jax(formula):
+    rng = np.random.default_rng(len(formula))
+    p, g = 200, 12
+    ids = np.full((2, p, g), JF.SET_PAD, dtype=np.int32)
+    counts = rng.integers(0, g + 1, size=(2, p)).astype(np.int32)
+    for side in range(2):
+        for i in range(p):
+            ids[side, i, :counts[side, i]] = np.sort(rng.choice(
+                40, size=counts[side, i], replace=False))
+    equal = rng.random(p) < 0.1
+    args = (ids[0], counts[0], ids[1], counts[1])
+    np.testing.assert_array_equal(
+        tpw.set_intersection_count(*_t(*args)).numpy(),
+        np.asarray(jpw.set_intersection_count(*_j(*args))))
+    want = np.asarray(jpw.qgram_sim(*_j(*args, equal), formula=formula))
+    got = tpw.qgram_sim(*_t(*args, equal), formula=formula).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=CHARS_TOL)
+    want = np.asarray(jpw.token_set_sim(*_j(*args, equal),
+                                        dice=formula == "dice"))
+    got = tpw.token_set_sim(*_t(*args, equal),
+                            dice=formula == "dice").numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=CHARS_TOL)
+
+
+def test_phonetic_sim_equals_jax():
+    rng = np.random.default_rng(4)
+    equal, code_eq, valid = (rng.random(300) < f for f in (0.1, 0.5, 0.8))
+    want = np.asarray(jpw.phonetic_sim(*_j(equal, code_eq, valid)))
+    got = tpw.phonetic_sim(*_t(equal, code_eq, valid)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=HASH_TOL)
+
+
+@pytest.mark.parametrize("max_distance", [0.0, 5000.0])
+def test_geoposition_sim_equals_jax(max_distance):
+    """Geoposition is not certifiable (f32 lat/lon quantization, and the
+    math libraries' sin/cos/asin differ), so the bar is the distance
+    computed to about a meter on the 6,371 km radius."""
+    rng = np.random.default_rng(8)
+    p = 300
+    lat1 = np.radians(rng.uniform(58, 60, p)).astype(np.float32)
+    lon1 = np.radians(rng.uniform(9, 11, p)).astype(np.float32)
+    lat2 = (lat1 + rng.normal(0, 2e-4, p)).astype(np.float32)
+    lon2 = (lon1 + rng.normal(0, 2e-4, p)).astype(np.float32)
+    lat2[:20], lon2[:20] = lat1[:20], lon1[:20]
+    v1, v2 = rng.random(p) < 0.9, rng.random(p) < 0.9
+    args = (lat1, lon1, v1, lat2, lon2, v2)
+    want = np.asarray(jpw.geoposition_sim(*_j(*args),
+                                          max_distance=max_distance))
+    got = tpw.geoposition_sim(*_t(*args), max_distance=max_distance).numpy()
+    atol = 2.0 / max_distance if max_distance else 0.0
+    np.testing.assert_allclose(got, want, rtol=0, atol=atol)

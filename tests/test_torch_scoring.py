@@ -207,15 +207,110 @@ def test_bounds_equal_jax_on_every_kind(geo, maybe):
 
 
 def test_unsupported_kind_raises_naming_the_comparator():
+    """Every device comparator kind now scores on the device; the one
+    schema the device backend refuses is one with no device property at
+    all, and the error names the host-only comparators."""
     from sesam_duke_microservice_tpu_torch.core.records import SchemaError
+    from sesam_duke_microservice_tpu_torch.engine.device_matcher import (
+        DeviceIndex,
+    )
 
     tschema = TSchema(threshold=0.85, maybe_threshold=None,
                       properties=_every_kind_props(TC, TProperty, geo=True),
                       data_sources=[])
-    with pytest.raises(SchemaError, match="WeightedLevenshtein"):
-        TS.check_plan(TF.SchemaFeatures.plan(tschema))
-    jw = TSchema(threshold=0.85, maybe_threshold=None, data_sources=[],
-                 properties=[TProperty(ID_PROPERTY_NAME, id_property=True),
-                             TProperty("n", TC.JaroWinkler(), 0.2, 0.9)])
-    with pytest.raises(SchemaError, match="JaroWinkler"):
-        TS.build_pair_logits(TF.SchemaFeatures.plan(jw))
+    DeviceIndex(tschema, device="cpu")
+    host_only = TSchema(
+        threshold=0.85, maybe_threshold=None, data_sources=[],
+        properties=[TProperty(ID_PROPERTY_NAME, id_property=True),
+                    TProperty("n", TC.PersonName(), 0.2, 0.9)])
+    with pytest.raises(SchemaError, match="PersonName"):
+        DeviceIndex(host_only, device="cpu")
+
+
+_POOLS = {
+    "lev": ["acme corp", "acme corporation", "globex", "globex inc",
+            "initech", "umbrella", "umbrela", "stark industries"],
+    "jw": ["ole olsen", "ola olsen", "kari nordmann", "k nordmann",
+           "per hansen", "pär hansen"],
+    "wlev": ["oslo 0150", "oslo 0151", "bergen 5003", "bergen 5004"],
+    "qgram": ["holmenkollveien 12", "holmenkollveien 21", "kirkeveien 5",
+              "kirkeveien 50", "tollbugata 1"],
+    "tokens": ["red green blue", "green blue", "red blue yellow", "cyan"],
+    "dice": ["red green blue", "green blue", "red blue yellow", "cyan"],
+    "exact": ["a1", "a2", "a3"],
+    "sound": ["smith", "smyth", "johnson", "jonson"],
+    "num": ["1", "2", "3", "5"],
+    "person": ["ole olsen", "kari nordmann"],
+    "geo": ["59.91,10.75", "59.92,10.76", "60.39,5.32"],
+}
+
+
+def _mixed_records(n, seed, geo):
+    """Records with every property, drawn from small pools with noise:
+    plenty of exact ties and near duplicates."""
+    from sesam_duke_microservice_tpu.core.records import Record as JRecord
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        r = JRecord()
+        r.add_value(ID_PROPERTY_NAME, f"m{i}")
+        for prop, pool in _POOLS.items():
+            if prop == "geo" and not geo:
+                continue
+            value = pool[int(rng.integers(len(pool)))]
+            if prop != "geo" and rng.random() < 0.3:
+                pos = int(rng.integers(len(value)))
+                value = value[:pos] + "x" + value[pos + 1:]
+            r.add_value(prop, value)
+        out.append(r)
+    return out
+
+
+@pytest.mark.parametrize("geo", [False, True])
+def test_mixed_kind_scan_equals_jax(geo):
+    """Every device comparator kind in one schema: the port's scorer
+    (the JW and set kernels' plain versions on the CPU) against the JAX
+    scorer (its flat XLA paths) on one corpus: ``count_above`` and
+    ``top_index`` equal, logits within the certified f32 margin (capped
+    per property, which is what Geoposition's infinite budget gives)."""
+    def props(C, Property):
+        return _every_kind_props(C, Property, geo=geo) + [
+            Property("jw", C.JaroWinkler(), 0.35, 0.88),
+            Property("dice", C.DiceCoefficient(), 0.3, 0.8)]
+
+    jschema = JSchema(threshold=0.85, maybe_threshold=0.6, data_sources=[],
+                      properties=props(JC, JProperty))
+    tschema = TSchema(threshold=0.85, maybe_threshold=0.6, data_sources=[],
+                      properties=props(TC, TProperty))
+    index = JDeviceIndex(jschema)
+    for r in _mixed_records(200, 5, geo):
+        index.index(r)
+    index.commit()
+    jplan = index.plan
+    corpus = index.corpus
+    tplan = _port_plan(tschema, jplan)
+    tcorpus = DeviceCorpus.from_numpy(
+        tplan, corpus.feats, corpus.row_valid, corpus.row_deleted,
+        corpus.row_group, "cpu")
+    nq = 24
+    query_row = (np.arange(nq, dtype=np.int32) * 7)
+    query_group = np.full((nq,), -2, np.int32)
+    min_logit = JS.emit_bound_logit(jschema, jplan, 1e-3)
+    jscore = JS.build_corpus_scorer(jplan, chunk=CHUNK, top_k=TOP_K,
+                                    queries_from_rows=True)
+    jf, jv, jd, jg = corpus.device_arrays()
+    want = [np.asarray(x) for x in jscore(
+        {}, jf, jv, jd, jg, jnp.asarray(query_group), jnp.asarray(query_row),
+        jnp.float32(min_logit))]
+    tscore = TS.build_corpus_scorer(tplan, chunk=CHUNK, top_k=TOP_K,
+                                    queries_from_rows=True)
+    tf_, tv, td, tg = tcorpus.device_arrays()
+    got = [x.numpy() for x in tscore(
+        {}, tf_, tv, td, tg, torch.from_numpy(query_group),
+        torch.from_numpy(query_row), min_logit)]
+    np.testing.assert_array_equal(got[2], want[2])
+    np.testing.assert_array_equal(got[1], want[1])
+    margin = JS.certified_f32_margin(jplan)
+    np.testing.assert_allclose(got[0], want[0], rtol=0, atol=margin)
+    assert (want[2] > 0).all()
