@@ -26,11 +26,22 @@ Phases, each fatal on failure:
    on CPU copies of its tensors; a 512-record workload of each schema must
    give the feed of a brute-force host oracle.  The kernel wrappers'
    shapes are recorded on the main paths;
-5. hold every kernel against its plain PyTorch version on the card at
+5. the ``ann`` main path: a second app with ``backend="ann"`` and its
+   corpus pre-sized to 524,288 rows takes slice 1's 131,072 stresstest
+   records in 2,048-record POSTs (the fused retrieval: the segment-max
+   kernel must launch once per POST) and its 8,192-record query POST (the
+   scan route); every link of its feed must be in slice 1's brute-force
+   feed with an equal confidence, and its final block is re-scored with
+   the plain functions (retrieval scores within ``4 D 2^-24``, the rows
+   equal except where neighbouring scores differ by less than it, logits
+   of equal rows within ``certified_f32_margin``);
+6. hold every kernel against its plain PyTorch version on the card at
    every shape the main paths gave it (Myers also at L=64 and 256) --
-   results must be exactly equal -- and time both with CUDA events beside
-   the kernel's bound;
-6. print the per-kernel JSON line, the card's name and power limit, and
+   integer results exactly, the segment max within ``4 D 2^-24`` with its
+   argmax equal wherever a bin's best leads by more -- and time both with
+   CUDA events beside the kernel's bound (and the segment max beside
+   ``torch.matmul`` of its bare bf16 product);
+7. print the per-kernel JSON line, the card's name and power limit, and
    the result line ``{"ok": true, "device": {...}}`` last.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -91,6 +102,9 @@ QUERY_BATCH = 8192
 LONG_RECORDS = 16384
 ORACLE_RECORDS = 512
 MIXED_RECORDS = 65536
+# the ann workload's pre-sized corpus: the fused retrieval needs
+# 64 / (1 - 0.99) = 6,400 bins of 64 rows at production knobs
+ANN_CAPACITY = 524288
 SET_PAD = 2**31 - 1
 # where the kernel phase makes its inputs
 DEVICE = "cuda"
@@ -318,16 +332,20 @@ def cuda_ms(fn, runs):
 
 # -- the kernel wrappers' shapes on the main paths -----------------------------
 
-# wrapper name -> the shape key of one call (its args)
+# wrapper name -> the shape key of one call (its args and keywords)
 WRAPPER_SHAPES = {
     "myers_distance_tiles":
-        lambda a: (a[0].shape[0], a[2].shape[0], a[0].shape[1]),
+        lambda a, kw: (a[0].shape[0], a[2].shape[0], a[0].shape[1]),
     "jaro_winkler_sim_tiles":
-        lambda a: (a[0].shape[0], a[2].shape[0], a[0].shape[1]),
+        lambda a, kw: (a[0].shape[0], a[2].shape[0], a[0].shape[1]),
     "myers_distance_gathered":
-        lambda a: (a[0].shape[0], a[2].shape[1], a[0].shape[1]),
+        lambda a, kw: (a[0].shape[0], a[2].shape[1], a[0].shape[1]),
     "set_intersection_tiles":
-        lambda a: (a[0].shape[0], a[2].shape[0], a[0].shape[1]),
+        lambda a, kw: (a[0].shape[0], a[2].shape[0], a[0].shape[1]),
+    # (Q, N, D, tc, seg, group_filtering)
+    "retrieval_segmax":
+        lambda a, kw: (a[0].shape[0], a[1].shape[0], a[0].shape[1], kw["tc"],
+                       kw["seg"], kw["group_filtering"]),
 }
 
 
@@ -343,7 +361,7 @@ def recording_shapes():
             def recording(*args, _wrapper=getattr(ck, name), _key=key,
                           _seen=shapes[name], **kwargs):
                 if args[0].is_cuda:
-                    k = _key(args)
+                    k = _key(args, kwargs)
                     _seen[k] = _seen.get(k, 0) + 1
                 return _wrapper(*args, **kwargs)
 
@@ -364,7 +382,8 @@ def plain_versions():
                 ("myers_distance_gathered",
                  ck.myers_distance_gathered_reference),
                 ("set_intersection_tiles",
-                 ck.set_intersection_tiles_reference)):
+                 ck.set_intersection_tiles_reference),
+                ("retrieval_segmax", ck.retrieval_segmax_reference)):
             stack.enter_context(mock.patch.object(ck, name, plain))
         yield
 
@@ -579,7 +598,7 @@ def phase_slice1(app, port, line):
     print(f"p50 POST latency (stresstest ingest POSTs): "
           f"{statistics.median(latencies) * 1e3:.1f} ms [{line}]")
     print(f"stresstest ingest {split}", flush=True)
-    return launches, shapes
+    return launches, shapes, people_rows
 
 
 def phase_mixed(app, port, line):
@@ -663,6 +682,184 @@ def phase_main_paths(line):
     return slice1, mixed
 
 
+# -- the ann backend's main path -------------------------------------------------
+
+
+def rescore_ann_plain(workload, records):
+    """Score ``records`` as one block of the ``ann`` workload through the
+    kernels and through their plain versions, on the same device tensors:
+    the retrieval scores must agree within the segment-max bar, the
+    retrieved rows wherever neighbouring scores are further apart than it,
+    and the rescored logits of equal rows within ``certified_f32_margin``."""
+    import torch
+
+    from sesam_duke_microservice_tpu_torch.engine import device_matcher as DM
+    from sesam_duke_microservice_tpu_torch.ops import bounds as B
+    from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
+    from sesam_duke_microservice_tpu_torch.ops import encoder as E
+
+    index = workload.index
+    cache = index.scorer_cache
+    with workload.lock:
+        _, _, query_row, query_group = cache._prepare_queries(records, False)
+        feats, valid, deleted, group = index.corpus.device_arrays()
+        emb = feats[E.ANN_PROP]
+        q_tree = {n: t.index_select(0, query_row.clamp_min(0))
+                  for n, t in emb.items()}
+
+        def retrieve():
+            return E.retrieval_scan(
+                q_tree, emb, valid, deleted, group, query_group, query_row,
+                chunk=DM._CHUNK, top_c=index.initial_top_c,
+                group_filtering=False)
+
+        def block():
+            return DM.resolve_block(cache.dispatch_block(
+                records, group_filtering=False))
+
+        k_sim, k_idx = retrieve()
+        kernel = block()
+        with plain_versions():
+            p_sim, p_idx = retrieve()
+            plain = block()
+    n = len(records)
+    tol = ck.segmax_tolerance(emb[E.ANN_TENSOR].shape[1])
+    k_sim, p_sim = k_sim[:n].double(), p_sim[:n].double()
+    # neighbours closer than the bar, but not exactly tied, may swap
+    gap = (p_sim[:, 1:] - p_sim[:, :-1]).abs()
+    gaps = (gap == 0) | (gap > tol)
+    decided = torch.ones(p_sim.shape, dtype=torch.bool, device=p_sim.device)
+    decided[:, 1:] &= gaps
+    decided[:, :-1] &= gaps
+    sim_err = float((k_sim - p_sim).abs().max())
+    moved = int((decided & (k_idx[:n] != p_idx[:n])).sum())
+    if sim_err > tol or moved:
+        raise AssertionError(f"{workload.name}: kernel and plain retrieval "
+                             f"disagree (max |sim err| {sim_err}, {moved} "
+                             "decided rows differ)")
+    if kernel.top_index.shape != plain.top_index.shape:
+        raise AssertionError(f"{workload.name}: kernel and plain blocks "
+                             "escalated to different widths")
+    same = kernel.top_index[:n] == plain.top_index[:n]
+    margin = B.certified_f32_margin(index.plan)
+    logit_err = float(abs(kernel.top_logit[:n][same].astype("float64")
+                          - plain.top_logit[:n][same]).max(initial=0.0))
+    if logit_err > margin:
+        raise AssertionError(f"{workload.name}: rescored logits differ by "
+                             f"{logit_err} > certified_f32_margin {margin}")
+    print(f"{workload.name}: final block re-scored with the plain functions: "
+          f"retrieval within {sim_err:.3g} (bar {tol:.3g}), rows equal where "
+          f"decided ({int(decided.sum())} of {decided.numel()} slots), "
+          f"{int(same.sum())} of {same.size} rows equal after rescoring, "
+          f"logits within {logit_err:.3g} (margin {margin:.3g})", flush=True)
+
+
+def copy_pairs(rows, entities):
+    """The feed rows linking two entities with identical values."""
+    values = {e["_id"]: (e["name"], e["area"], e["ssn"]) for e in entities}
+    return {r["_id"] for r in rows
+            if values[r["entity1"]] == values[r["entity2"]]}
+
+
+def phase_ann(line, device_rows):
+    """The ``ann`` backend's main path: a second app, its corpus pre-sized
+    to ANN_CAPACITY rows (the knob set for it alone), takes slice 1's
+    131,072 stresstest records in 2,048-record POSTs and its 8,192-record
+    query POST; its feed must be a subset of slice 1's brute-force feed
+    with equal confidences.  Returns (launches, shapes)."""
+    import os
+
+    import torch
+
+    from sesam_duke_microservice_tpu_torch.core.config import parse_config
+    from sesam_duke_microservice_tpu_torch.engine import device_matcher as DM
+    from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
+    from sesam_duke_microservice_tpu_torch.ops import encoder as E
+    from sesam_duke_microservice_tpu_torch.service.app import DukeApp, serve
+
+    entities = stresstest_entities(INGEST_RECORDS, 1234, "p")
+    queries = with_copies(stresstest_entities(QUERY_BATCH, 4321, "q"),
+                          entities, 16, 1)
+    with mock.patch.dict(os.environ,
+                         {"DEVICE_INITIAL_CAPACITY": str(ANN_CAPACITY)}):
+        app = DukeApp(parse_config(config_xml({"people": STRESS_SCHEMA})),
+                      backend="ann", device="cuda")
+    server = serve(app, port=0, host="127.0.0.1")
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    people = app.deduplications["people"]
+    stats = people.processor.stats
+    try:
+        with recording_shapes() as shapes:
+            ck.reset_launch_counts()
+            for name in E.ROUTES:
+                E.ROUTES[name] = 0
+            escalations = DM.ESCALATIONS["top_c"]
+            latencies, ingest_s = ingest(port, "/deduplication/people/crm",
+                                         entities)
+            ingest_launches = dict(ck.LAUNCHES)
+            ingest_routes = dict(E.ROUTES)
+            split = split_line(stats, ingest_s, line)
+            pairs0 = stats.pairs_compared
+            query_s = post(port, "/deduplication/people/crm", queries)
+            query_pairs = stats.pairs_compared - pairs0
+            launches = dict(ck.LAUNCHES)
+            routes = dict(E.ROUTES)
+            escalations = DM.ESCALATIONS["top_c"] - escalations
+        rows = feed(port, "/deduplication/people")
+        capacity = people.index.corpus.capacity
+        rescore_ann_plain(people, people.datasources["crm"]
+                          .records_for_batch(entities[-INGEST_BATCH:]))
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        app.close()
+    torch.cuda.synchronize()
+
+    print(f"ann path (capacity {capacity}): launches {launches} (ingest "
+          f"{ingest_launches}); retrieval routes {routes} (ingest "
+          f"{ingest_routes}); C-escalations {escalations}; wrapper calls by "
+          f"shape { {k: dict(sorted(v.items())) for k, v in shapes.items() if v} }",
+          flush=True)
+    if capacity != ANN_CAPACITY:
+        raise AssertionError(f"ann corpus capacity {capacity}, expected the "
+                             f"pre-sized {ANN_CAPACITY}")
+    for name in ("retrieval_segmax", "myers_gathered"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the ann "
+                                 "main path")
+    if ingest_launches["retrieval_segmax"] < INGEST_RECORDS // INGEST_BATCH:
+        raise AssertionError("retrieval_segmax launched fewer times than "
+                             "there were ingest POSTs")
+    check_rows(rows, "ann")
+    device = {r["_id"]: r["confidence"] for r in device_rows
+              if not r["_deleted"]}
+    ann = {r["_id"]: r["confidence"] for r in rows}
+    stray = [k for k, v in ann.items() if device.get(k) != v]
+    if stray:
+        raise AssertionError(f"ann: {len(stray)} links not in the "
+                             f"brute-force feed with equal confidence, e.g. "
+                             f"{[(k, ann[k], device.get(k)) for k in stray[:3]]}")
+    everyone = entities + queries
+    copies = copy_pairs(device_rows, everyone)
+    print(f"ann feed: {len(ann)} links, all in the brute-force feed with "
+          f"equal confidences; recall {len(ann) / len(device):.4f} of "
+          f"{len(device)} brute-force links, on exact-copy pairs "
+          f"{len(copies & set(ann)) / max(1, len(copies)):.4f} of "
+          f"{len(copies)}", flush=True)
+    print(f"records/s (ann ingest, {INGEST_RECORDS} records in "
+          f"{INGEST_BATCH}-record POSTs): {INGEST_RECORDS / ingest_s:.1f} "
+          f"[{line}]")
+    print(f"ann query POST ({QUERY_BATCH} records): {query_s:.3f} s, "
+          f"{query_pairs} pairs rescored [{line}]")
+    print(f"p50 POST latency (ann ingest POSTs): "
+          f"{statistics.median(latencies) * 1e3:.1f} ms [{line}]")
+    print(f"ann ingest {split}; pairs rescored {pairs0}", flush=True)
+    return launches, shapes
+
+
 # -- the kernel phase -------------------------------------------------------------
 
 
@@ -709,7 +906,7 @@ def set_inputs(rows, g, seed):
 
 def bound(nbytes, ops, peak_ops):
     """(bound_ms, bound_by): the larger of the bytes over the memory rate
-    and the int32 operations over the int32 ALU peak."""
+    and the operations over the card's peak rate for their type."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / peak_ops * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -864,6 +1061,85 @@ def phase_kernels(shapes, peak_ops):
     return rows
 
 
+# -- the segment-max kernel ------------------------------------------------------
+
+# bf16 dense tensor-core operations per clock per SM on Hopper (a multiply
+# and an add each; NVIDIA H100 architecture whitepaper: 1,024 dense bf16
+# FMA per clock per SM); the peak is that x SMs x the card's max SM clock
+BF16_FLOPS_PER_CLOCK_PER_SM = 4096
+# one odd shape off the main path, with group filtering on
+SEGMAX_ODD = (333, 3 * 1024, 256, 1024, 8, True)
+
+
+def bf16_peak_flops_per_s() -> float:
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(nvidia_smi("clocks.max.sm", "csv,noheader,nounits"))
+    return BF16_FLOPS_PER_CLOCK_PER_SM * sms * mhz * 1e6
+
+
+def segmax_inputs(q, n, d, seed):
+    """Unit rows in bf16 (queries and corpus), ~5% invalid and ~5%
+    tombstoned rows, two groups, half the queries on a row of their own."""
+    import torch
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def unit(rows):
+        x = torch.randn((rows, d), generator=g, device=DEVICE)
+        return (x / x.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+
+    valid = torch.rand((n,), generator=g, device=DEVICE) > 0.05
+    deleted = torch.rand((n,), generator=g, device=DEVICE) < 0.05
+    group = torch.randint(1, 3, (n,), generator=g, device=DEVICE,
+                          dtype=torch.int32)
+    qgroup = torch.randint(1, 3, (q,), generator=g, device=DEVICE,
+                           dtype=torch.int32)
+    qrow = torch.where(torch.rand((q,), generator=g, device=DEVICE) < 0.5,
+                       torch.randint(0, n, (q,), generator=g, device=DEVICE),
+                       -1).to(torch.int32)
+    return unit(q), unit(n), valid, deleted, group, qrow, qgroup
+
+
+def measure_segmax(shape, peak_flops, runs=10):
+    """Hold the segment-max kernel against its plain version at ``shape``
+    (``seg_max`` within the bar, ``seg_arg`` equal where decided), time
+    both and the bare bf16 product; one row of numbers."""
+    import torch
+
+    from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
+
+    q, n, d, tc, seg, gf = shape
+    args = segmax_inputs(q, n, d, seed=q + seg)
+    kw = dict(tc=tc, seg=seg, group_filtering=gf)
+    got = ck.retrieval_segmax(*args, **kw)
+    torch.cuda.synchronize()
+    want = ck.retrieval_segmax_reference(*args, runner_up=True, **kw)
+    err, bad = ck.segmax_disagreement(*got, *want, d)
+    tol = ck.segmax_tolerance(d)
+    if err > tol or bad:
+        raise AssertionError(f"retrieval_segmax differs from its plain "
+                             f"version at {shape}: max |err| {err} (bar "
+                             f"{tol}), {bad} decided bins with another row")
+    del want
+    ms = cuda_ms(lambda: ck.retrieval_segmax(*args, **kw), runs)
+    plain_ms = cuda_ms(lambda: ck.retrieval_segmax_reference(*args, **kw), 2)
+    qe, ce = args[0], args[1]
+    matmul_ms = cuda_ms(lambda: torch.matmul(ce, qe.T), runs)
+    nbytes = (2 * (q + n) * d + 6 * n + 8 * q) + 8 * q * (n // seg)
+    bound_ms, bound_by = bound(nbytes, 2.0 * n * d * q, peak_flops)
+    print(f"kernel retrieval_segmax {shape}: max |seg_max err| {err:.3g} "
+          f"(bar {tol:.3g}), seg_arg equal where decided; {ms:.3f} ms (plain "
+          f"{plain_ms:.1f} ms, torch.matmul of the bf16 product alone "
+          f"{matmul_ms:.3f} ms, bound {bound_ms:.3f} ms by {bound_by}, "
+          f"{bound_ms / ms:.1%} of it)", flush=True)
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "matmul_ms": matmul_ms}
+
+
 def busiest(calls, pred=lambda s: True):
     """The recorded shape with the most calls (among those ``pred``
     keeps)."""
@@ -892,7 +1168,9 @@ def main() -> int:
     print(f"build: {sorted(f'csrc/{s}.cu' for s in built)} with nvcc for "
           f"sm_90a in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    (launches1, shapes1), (launches2, shapes2) = phase_main_paths(line)
+    (launches1, shapes1, device_rows), (launches2, shapes2) = \
+        phase_main_paths(line)
+    launches3, shapes3 = phase_ann(line, device_rows)
 
     peak_ops = int32_peak_ops_per_s()
     print(f"int32 ALU peak: {peak_ops / 1e12:.2f} Top/s ({INT32_LANES_PER_SM}"
@@ -908,6 +1186,14 @@ def main() -> int:
     for l in EXTRA_WIDTHS:
         myers.setdefault((EXTRA_Q, chunk, l), 0)
     rows = phase_kernels(dict(shapes, myers_distance_tiles=myers), peak_ops)
+    peak_flops = bf16_peak_flops_per_s()
+    print(f"bf16 dense peak: {peak_flops / 1e12:.1f} TFLOP/s "
+          f"({BF16_FLOPS_PER_CLOCK_PER_SM} flops/clock/SM x "
+          f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs x "
+          f"max SM clock) [{line}]", flush=True)
+    segmax_rows = {shape: measure_segmax(shape, peak_flops)
+                   for shape in sorted(shapes3["retrieval_segmax"])}
+    measure_segmax(SEGMAX_ODD, peak_flops, runs=3)
 
     def one_word(s):
         return ck.kernel_words(s[2]) == 1
@@ -937,6 +1223,17 @@ def main() -> int:
             name=name, route="cuda", source=f"{PACKAGE}/csrc/{source}",
             replaces=f"{PALLAS}:{line_no}", launches=launches[name],
             library_ms=None, **rows[wrapper][shape]))
+    # no single PyTorch call computes the masked strided segment max: the
+    # bare product's time is printed beside it, not reported as library_ms
+    shape = busiest(shapes3["retrieval_segmax"])
+    print(f"kernels line: retrieval_segmax at {shape}", flush=True)
+    row = dict(segmax_rows[shape])
+    row.pop("matmul_ms")
+    kernels.append(dict(
+        name="retrieval_segmax", route="cuda",
+        source=f"{PACKAGE}/csrc/retrieval_segmax.cu",
+        replaces=f"{PALLAS}:798", launches=launches3["retrieval_segmax"],
+        library_ms=None, **row))
     print(f"total wall {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(line)

@@ -18,10 +18,15 @@ Semantics contract (held to the JAX backend by tests/test_torch_slice.py):
   * K-escalation keeps the top-K exact: if any query had more candidates
     above the bound than K, the block re-runs with doubled K.
 
+The ``ann`` backend (``engine.ann_matcher``) reuses the corpus, the block
+pipeline and the processor with its own scoring program and escalation
+predicate.
+
 Mutation model: the corpus is append-only with tombstone masks.  Re-indexing
 an id tombstones the old row and appends a new one; deleted records stay
 resolvable by id (the feed needs them) but carry a deleted bit that keeps
-them out of scoring.  Capacity doubles in ``DEVICE_CHUNK`` granules.
+them out of scoring.  Capacity doubles in ``DEVICE_CHUNK`` granules, from
+``DEVICE_INITIAL_CAPACITY`` rows when that is set.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from ..core.records import GROUP_NO_PROPERTY_NAME, Record, SchemaError
 from ..env import env_int, env_int_tuple, env_str
 from ..index.base import CandidateIndex
 from ..ops import bounds as B
+from ..ops import encoder as E
 from ..ops import features as F
 from ..ops import scoring as S
 from .finalize import FinalizeExecutor
@@ -73,10 +79,16 @@ def bucket_for(n: int) -> int:
     return _QUERY_BUCKETS[-1]
 
 
-def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Host mirror -> device tensor; uint16 chars widen to int32 here.
-    Non-blocking: a pageable source is staged by the copy call itself, and
-    a blocking copy would synchronize the stream behind queued scoring."""
+def _to_device(arr: np.ndarray, device: torch.device,
+               prop: str = None) -> torch.Tensor:
+    """Host mirror -> device tensor; uint16 chars widen to int32 here,
+    while the uint16 bf16 bit patterns of the embeddings (``prop`` is
+    ``ANN_PROP``) are reinterpreted as ``torch.bfloat16``.  Non-blocking: a
+    pageable source is staged by the copy call itself, and a blocking copy
+    would synchronize the stream behind queued scoring."""
+    if arr.dtype == np.uint16 and prop == E.ANN_PROP:
+        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).to(
+            device, non_blocking=True).view(torch.bfloat16)
     if arr.dtype == np.uint16:
         arr = arr.astype(np.int32)
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device,
@@ -107,6 +119,9 @@ class DeviceCorpus:
         self.plan = plan  # the feature plan whose tensors the rows hold
         self.device = torch.device(device)
         self.granule = _CHUNK
+        # pre-sized capacity: read per corpus, so one process can pre-size
+        # one workload and not another
+        self.initial_capacity = env_int("DEVICE_INITIAL_CAPACITY", 0)
         self.capacity = 0
         self.size = 0
         self.live_rows = 0
@@ -146,7 +161,10 @@ class DeviceCorpus:
     # -- growth --------------------------------------------------------------
 
     def _grow(self, needed: int) -> None:
-        cap = max(self.capacity, self.granule)
+        g = self.granule
+        cap = max(self.capacity, g)
+        if self.initial_capacity > 0:  # rounded up to the granule
+            cap = max(cap, -(-self.initial_capacity // g) * g)
         while cap < needed:
             cap *= 2
         if cap == self.capacity:
@@ -205,7 +223,7 @@ class DeviceCorpus:
         """(feats, valid, deleted, group) as tensors on ``self.device``."""
         if self._device_feats is None or self._dirty_full:
             self._device_feats = {
-                prop: {name: _to_device(arr, self.device)
+                prop: {name: _to_device(arr, self.device, prop)
                        for name, arr in tensors.items()}
                 for prop, tensors in self.feats.items()
             }
@@ -222,7 +240,7 @@ class DeviceCorpus:
                 for prop, tensors in self.feats.items():
                     for name, arr in tensors.items():
                         self._device_feats[prop][name][lo:hi] = _to_device(
-                            arr[lo:hi], self.device)
+                            arr[lo:hi], self.device, prop)
                 for dev, arr in zip(self._device_masks,
                                     (self.row_valid, self.row_deleted,
                                      self.row_group)):
@@ -512,21 +530,35 @@ class _Fetch:
 
 
 class _PendingBlock:
-    """In-flight scoring call; ``call(k)`` re-runs the scorer at width k."""
+    """In-flight scoring call; ``call(k)`` re-runs the scorer at width k.
+    ``needs_escalation(count_max, k)`` is the backend's saturation
+    predicate (brute force: some query overflowed K; ``ann``: retrieval
+    saturated at C), ``stage`` the name ESCALATIONS counts it under."""
 
-    def __init__(self, capacity, n, min_logit, k, call, dd_ctx):
+    def __init__(self, capacity, n, min_logit, k, call, dd_ctx, *,
+                 needs_escalation=lambda cmax, k: cmax > k,
+                 stage: str = "top_k"):
         self.capacity = capacity
         self.n = n
         self.min_logit = min_logit
         self.k = k
         self.call = call
         self.dd_ctx = dd_ctx
+        self.needs_escalation = needs_escalation
+        self.stage = stage
         self.fetch = call(k)
 
 
+# Width escalations since the last reset, by stage ("top_k": brute force,
+# "top_c": ann retrieval); workloads resolve blocks on their own threads.
+ESCALATIONS = {"top_k": 0, "top_c": 0}
+_ESCALATIONS_LOCK = threading.Lock()
+
+
 def resolve_block(pending) -> _BlockResult:
-    """Wait for a dispatched block; re-run with doubled K while some query
-    had more candidates above the bound than K (the exactness contract)."""
+    """Wait for a dispatched block; re-run with doubled width while the
+    backend's saturation predicate fires (the exactness / recall
+    contract)."""
     if isinstance(pending, _BlockResult):  # empty-corpus short-circuit
         return pending
     k = pending.k
@@ -534,10 +566,12 @@ def resolve_block(pending) -> _BlockResult:
     while True:
         count, top_logit, top_index = fetch.result()
         cmax = int(count[: pending.n].max(initial=0))
-        if k >= pending.capacity or cmax <= k:
+        if k >= pending.capacity or not pending.needs_escalation(cmax, k):
             return _BlockResult(top_logit, top_index, pending.min_logit,
                                 pending.dd_ctx)
         k = min(k * 2, pending.capacity)
+        with _ESCALATIONS_LOCK:
+            ESCALATIONS[pending.stage] += 1
         logger.info("escalation: %d candidates at the bound, retrying with "
                     "width=%d", cmax, k)
         fetch = pending.call(k)
@@ -597,7 +631,7 @@ class _ScorerCache:
             qfeats_np = index._extract(records,
                                        plan=index._query_plan(records))
             qfeats = {
-                prop: {name: _to_device(_pad_rows(arr, bucket), device)
+                prop: {name: _to_device(_pad_rows(arr, bucket), device, prop)
                        for name, arr in tensors.items()}
                 for prop, tensors in qfeats_np.items()
             }
@@ -674,7 +708,12 @@ class _ScorerCache:
 class DeviceProcessor:
     """The device counterpart of the host engine's ``deduplicate``: block
     the queries, run one device scoring program per block, finalize the
-    surviving top-K pairs on the host, emit listener events in order."""
+    surviving top-K pairs on the host, emit listener events in order.
+    ``exhaustive``: the comparator kernels score every live row per query
+    (brute force); otherwise ``pairs_compared`` counts the retrieved rows
+    they rescored."""
+
+    exhaustive = True
 
     def __init__(self, schema: DukeSchema, database: DeviceIndex, *,
                  group_filtering: bool = False, threads: int = 1):
@@ -735,7 +774,7 @@ class DeviceProcessor:
                     self.stats.dd_blocks += 1
                 self.stats.dd_seconds += time.monotonic() - t2
             outcomes = self.finalizer.finalize_block(self, block, result)
-            for record, out in zip(block, outcomes):
+            for qi, (record, out) in enumerate(zip(block, outcomes)):
                 for event, candidate, prob in out.events:
                     for listener in self.listeners:
                         getattr(listener, event)(record, candidate, prob)
@@ -750,6 +789,10 @@ class DeviceProcessor:
                 self.stats.dd_residue_margin += out.residue_margin
                 self.stats.dd_residue_kind += out.residue_kind
                 self.stats.dd_residue_truncation += out.residue_truncation
-                # the device scored this query against every live row
-                self.stats.pairs_compared += live_rows
+                if self.exhaustive:
+                    # the device scored this query against every live row
+                    self.stats.pairs_compared += live_rows
+                else:
+                    self.stats.pairs_compared += int(
+                        (result.top_index[qi] >= 0).sum())
             self.stats.compare_seconds += time.monotonic() - t2

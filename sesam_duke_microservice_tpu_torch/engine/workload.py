@@ -1,8 +1,8 @@
 """Per-workload runtime bundle and the ingest/feed flows.
 
 Counterpart of the JAX package's ``engine/workload.py`` for the ``device``
-backend: each workload owns its datasources, the device index and
-processor, the match listener and an in-memory link database, plus a lock
+and ``ann`` backends: each workload owns its datasources, the device index
+and processor, the match listener and an in-memory link database, plus a lock
 serializing access (writers block; the HTTP layer gives readers 1 s).
 
 Flow (App.java:924-1028 / 1065-1179): parse -> records -> partition
@@ -139,20 +139,31 @@ class Workload:
         self.processor.finalizer.shutdown()
 
 
+BACKENDS = ("device", "ann")
+
+
 def build_workload(wc: WorkloadConfig, sc: ServiceConfig, *,
                    backend: str = "device", device="cuda") -> Workload:
     """Assemble a workload: device index + processor + listener + link DB.
 
-    ``backend`` must be ``"device"`` (exact brute-force scoring on the
-    torch ``device``, engine.device_matcher); links live in memory.
+    ``backend``: ``"device"`` (exact brute-force scoring,
+    engine.device_matcher) or ``"ann"`` (embedding cosine blocking + exact
+    rescoring, engine.ann_matcher), on the torch ``device``; links live in
+    memory.
     """
-    if backend != "device":
+    if backend not in BACKENDS:
         raise ValueError(
             f"unknown backend {backend!r}: the PyTorch port serves only the "
-            "'device' backend")
+            "'device' and 'ann' backends")
     dev = resolve_device(device)
-    index = DeviceIndex(wc.duke, device=dev)
-    processor = DeviceProcessor(
+    if backend == "ann":
+        from .ann_matcher import AnnIndex, AnnProcessor
+
+        index, processor_cls = AnnIndex(wc.duke, device=dev), AnnProcessor
+    else:
+        index, processor_cls = DeviceIndex(wc.duke, device=dev), \
+            DeviceProcessor
+    processor = processor_cls(
         wc.duke, index, group_filtering=wc.is_record_linkage,
         threads=sc.threads,
     )

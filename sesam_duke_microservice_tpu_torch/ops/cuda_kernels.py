@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels for the pair-matrix hot ops, and their wrappers.
 
-Counterpart of the JAX package's ``ops/pallas_kernels.py`` for the five
-Pallas kernels on the ``device`` backend's path:
+Counterpart of the JAX package's ``ops/pallas_kernels.py``, all six of its
+Pallas kernels:
 
   * ``_myers_tile_kernel`` and ``_myersN_tile_kernel`` -- all-pairs
     Levenshtein distance -- become one CUDA kernel templated on the word
@@ -12,7 +12,10 @@ Pallas kernels on the ``device`` backend's path:
     its own gathered candidates, the dd rescorer's layout --
     ``csrc/myers_gathered.cu`` (``myers_distance_gathered``);
   * ``_intersect_tile_kernel`` -- all-pairs |A ∩ B| of hashed q-gram /
-    token sets -- ``csrc/intersect_tile.cu`` (``set_intersection_tiles``).
+    token sets -- ``csrc/intersect_tile.cu`` (``set_intersection_tiles``);
+  * ``_retrieval_segmax_kernel`` -- the ``ann`` backend's fused cosine
+    product, candidate mask and strided segment max --
+    ``csrc/retrieval_segmax.cu`` (``retrieval_segmax``).
 
 Every ``csrc/*.cu`` is compiled with ``nvcc`` for ``sm_90a`` on first use,
 one process per source, all started together, into ``_build/`` (beside this
@@ -53,7 +56,7 @@ SET_MAX_WIDTH = 256
 
 # Kernel launches since the last reset, by the TPU kernel each one ports.
 LAUNCHES = {"myers_tile": 0, "myersN_tile": 0, "jw_tile": 0,
-            "myers_gathered": 0, "intersect_tile": 0}
+            "myers_gathered": 0, "intersect_tile": 0, "retrieval_segmax": 0}
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -70,6 +73,8 @@ _ENTRY = {
                        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3),
     "intersect_tile": ("intersect_tiles",
                        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3),
+    "retrieval_segmax": ("retrieval_segmax",
+                         [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6),
 }
 # the plain versions here and the flat scoring paths (ops.scoring) work
 # through row slices of at most this many pair elements (pairs x char or
@@ -466,3 +471,161 @@ def set_sim_tiles(qids, qn, cids, cn, equal, *, formula):
     common = set_intersection_tiles(qids, qn, cids, cn)
     return pw.sim_from_set_intersection(common, qn[:, None], cn[None, :],
                                         equal, formula=formula)
+
+
+# -- the ann backend's fused retrieval: product + mask + strided segment max ---
+
+# Masked score (the JAX kernel's ``neg``); a bin whose rows are all masked
+# reports it with its smallest row.
+SEGMAX_NEG = -3.0e38
+# The retrieval mask compares groups clipped to this range, as the JAX
+# package's int8 encoding of the mask does (``pallas_kernels.GROUP_OFFSET``).
+GROUP_CLIP = (-1, 100)
+# the plain version works through corpus blocks of at most this many
+# (query x row) scores (256 MB of f32), in whole tiles
+_SEGMAX_BLOCK = 1 << 26
+
+
+def segmax_tolerance(d: int) -> float:
+    """Bar between two f32 summation orders of D exact bf16 products of
+    unit vectors: ``4 * D * 2^-24`` (6.1e-5 at D = 256)."""
+    return 4.0 * d * 2.0 ** -24
+
+
+def _check_segmax_operands(q_emb, corpus, valid, deleted, group, qrow, qgroup,
+                           tc: int, seg: int) -> None:
+    tensors = (q_emb, corpus, valid, deleted, group, qrow, qgroup)
+    device = q_emb.device
+    if any(t.device != device for t in tensors):
+        raise ValueError("retrieval_segmax operands must share a device")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no retrieval_segmax kernel for device {device}")
+    if q_emb.dtype != torch.bfloat16 or corpus.dtype != torch.bfloat16:
+        raise TypeError("retrieval_segmax takes bf16 embeddings, got "
+                        f"{q_emb.dtype} and {corpus.dtype}")
+    masks = (torch.bool, torch.int8, torch.uint8)
+    if valid.dtype not in masks or deleted.dtype not in masks:
+        raise TypeError("valid / deleted must be bool or int8 (0 / 1) rows")
+    if any(t.dtype != torch.int32 for t in (group, qrow, qgroup)):
+        raise TypeError("group, query rows and query groups must be int32")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("retrieval_segmax operands must be contiguous")
+    if q_emb.dim() != 2 or corpus.dim() != 2:
+        raise ValueError("embeddings must be (Q, D) and (N, D) matrices")
+    q, d = q_emb.shape
+    n = corpus.shape[0]
+    if corpus.shape[1] != d or d % 128:
+        raise ValueError(f"embedding widths {d} / {corpus.shape[1]} must be "
+                         "equal multiples of 128")
+    if tuple(valid.shape) != (n,) or tuple(deleted.shape) != (n,) \
+            or tuple(group.shape) != (n,):
+        raise ValueError("valid / deleted / group must be (N,) rows")
+    if tuple(qrow.shape) != (q,) or tuple(qgroup.shape) != (q,):
+        raise ValueError("query rows / groups must be (Q,) vectors")
+    if seg <= 0 or tc % seg or tc <= 0 or n % tc:
+        raise ValueError(f"need seg | tc | N, got seg={seg} tc={tc} N={n}")
+
+
+def retrieval_segmax(q_emb, corpus, valid, deleted, group, qrow, qgroup, *,
+                     tc: int, seg: int, group_filtering: bool):
+    """Per query and per strided bin: the largest masked cosine score and
+    the smallest row reaching it -> ``(seg_max (Q, N/seg) f32, seg_arg
+    (Q, N/seg) int32)`` (the JAX package's ``pallas_kernels.
+    retrieval_segmax``, written query-major).
+
+    q_emb: (Q, D) bf16; corpus: (N, D) bf16, D a multiple of 128, N of
+    ``tc``; valid / deleted: (N,) bool; group: (N,) int32; qrow: (Q,) the
+    query's own corpus row (-1 none); qgroup: (Q,).  A row is a candidate
+    when valid and not deleted, not the query's own row and, with
+    ``group_filtering``, of another group (both clipped to GROUP_CLIP);
+    other scores are SEGMAX_NEG.  Bin ``i * (tc/seg) + j`` holds rows
+    ``i * tc + j + k * (tc/seg)``, k < seg.
+    """
+    _check_segmax_operands(q_emb, corpus, valid, deleted, group, qrow,
+                           qgroup, tc, seg)
+    if q_emb.device.type == "cpu":
+        return retrieval_segmax_reference(
+            q_emb, corpus, valid, deleted, group, qrow, qgroup, tc=tc,
+            seg=seg, group_filtering=group_filtering)
+    q, d = q_emb.shape
+    n = corpus.shape[0]
+    seg_max = torch.empty((q, n // seg), dtype=torch.float32,
+                          device=q_emb.device)
+    seg_arg = torch.empty((q, n // seg), dtype=torch.int32,
+                          device=q_emb.device)
+    if any(t.data_ptr() % 16 for t in (q_emb, corpus)):
+        raise ValueError("retrieval_segmax needs 16-byte aligned embeddings")
+    if q:
+        err = _kernel("retrieval_segmax")(
+            q_emb.data_ptr(), corpus.data_ptr(), valid.data_ptr(),
+            deleted.data_ptr(), group.data_ptr(), qrow.data_ptr(),
+            qgroup.data_ptr(), seg_max.data_ptr(), seg_arg.data_ptr(), q, n,
+            d, tc, seg, int(bool(group_filtering)), _stream(q_emb))
+        _launched("retrieval_segmax", err)
+    return seg_max, seg_arg
+
+
+def retrieval_segmax_reference(q_emb, corpus, valid, deleted, group, qrow,
+                               qgroup, *, tc: int, seg: int,
+                               group_filtering: bool, runner_up: bool = False):
+    """The plain PyTorch version of ``retrieval_segmax`` (any device).
+
+    Scores are the f32 matrix product of the bf16 values (each product
+    exact, summed in the matmul's own order), in corpus blocks of whole
+    tiles; the mask, the max over each bin's seg rows and the smallest row
+    at the max follow.  ``runner_up`` adds a third (Q, N/seg) output: the
+    bin's second-best score (equal to the best on a tie; -inf when seg is
+    1), which the kernel checks use to tell a decided argmax from one that
+    rounding may move.
+    """
+    q, d = q_emb.shape
+    n = corpus.shape[0]
+    bins = tc // seg
+    device = q_emb.device
+    qf = q_emb.float()
+    live = valid.bool() & ~deleted.bool()
+    cgroup = group.clamp(*GROUP_CLIP)
+    qg = qgroup.clamp(*GROUP_CLIP)
+    seg_max = torch.empty((q, n // seg), dtype=torch.float32, device=device)
+    seg_arg = torch.empty((q, n // seg), dtype=torch.int32, device=device)
+    second = torch.empty_like(seg_max) if runner_up else None
+    step = max(tc, _SEGMAX_BLOCK // max(q, 1) // tc * tc)
+    for s in range(0, n, step):
+        e = min(n, s + step)
+        tiles = (e - s) // tc
+        scores = qf @ corpus[s:e].float().T                     # (Q, R)
+        rows = torch.arange(s, e, dtype=torch.int32, device=device)
+        mask = live[None, s:e] & (rows[None, :] != qrow[:, None])
+        if group_filtering:
+            mask = mask & (cgroup[None, s:e] != qg[:, None])
+        scores = torch.where(mask, scores, SEGMAX_NEG)
+        s4 = scores.view(q, tiles, seg, bins)
+        best = s4.amax(dim=2)                                   # (Q, T, B)
+        rid = rows.view(1, tiles, seg, bins)
+        top = s4 == best[:, :, None, :]
+        arg = torch.where(top, rid, torch.iinfo(torch.int32).max).amin(dim=2)
+        out = slice(s // seg, e // seg)
+        seg_max[:, out] = best.reshape(q, -1)
+        seg_arg[:, out] = arg.reshape(q, -1)
+        if runner_up and seg > 1:
+            second[:, out] = s4.topk(2, dim=2).values[:, :, 1].reshape(q, -1)
+        elif runner_up:
+            second[:, out] = float("-inf")
+    if runner_up:
+        return seg_max, seg_arg, second
+    return seg_max, seg_arg
+
+
+def segmax_disagreement(got_max, got_arg, want_max, want_arg, want_second,
+                        d: int):
+    """(max |seg_max error|, bins whose seg_arg differs although the bin's
+    best leads its runner-up by more than ``segmax_tolerance(d)``) of a
+    kernel result against the plain version's.  Ties of identical
+    embeddings are equal in both and must resolve to the same smallest
+    row; the tests check that on duplicate clusters."""
+    err = float((got_max.double() - want_max.double()).abs().max()) \
+        if got_max.numel() else 0.0
+    lead = want_max.double() - want_second.double()
+    decided = lead > segmax_tolerance(d)
+    bad = int((decided & (got_arg != want_arg)).sum())
+    return err, bad

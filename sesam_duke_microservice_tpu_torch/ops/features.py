@@ -461,11 +461,13 @@ def extract_property(
 
 
 def extract_batch(
-    plan: SchemaFeatures, records: Sequence[Record]
+    plan: SchemaFeatures, records: Sequence[Record], *, encoder=None
 ) -> Dict[str, Dict[str, np.ndarray]]:
     """Extract all device-scored properties for a batch of records.
 
-    Returns ``{property_name: {tensor_name: (N, V, ...) array}}``.
+    Returns ``{property_name: {tensor_name: (N, V, ...) array}}``; with an
+    ``encoder`` (the ``ann`` backend's ``ops.encoder.RecordEncoder``) the
+    embedding tensors ride under its pseudo-property ``ANN_PROP``.
     """
     out: Dict[str, Dict[str, np.ndarray]] = {}
     empty: List[str] = []
@@ -474,6 +476,10 @@ def extract_batch(
         # call); stored values are never empty (Record.add_value drops them)
         values = [r._values.get(spec.name, empty) for r in records]
         out[spec.name] = extract_property(spec, values)
+    if encoder is not None:
+        from .encoder import ANN_PROP
+
+        out[ANN_PROP] = encoder.corpus_tensors(records)
     return out
 
 

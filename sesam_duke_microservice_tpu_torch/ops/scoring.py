@@ -19,6 +19,10 @@ q-gram / Jaccard / Dice sets (the intersection kernel up to 256 ids), and
 the flat ``ops.pairwise`` paths for wider text and sets, weighted
 Levenshtein, exact / different, phonetic, numeric and geoposition.
 
+``build_ann_scorer`` is the ``ann`` backend's program: cosine retrieval
+(``ops.encoder``) of a top-C per query, then exact rescoring of those
+gathered rows through the same per-property paths.
+
 Host-only comparators contribute an optimistic constant bound through the
 survivor filter (``ops.bounds``).  ``build_dd_rescorer`` re-scores a
 resolved block's surviving (Q, K) pairs in double-double (``ops.dd``) for
@@ -38,14 +42,16 @@ from ..core import comparators as C
 from . import bounds as B
 from . import cuda_kernels as ck
 from . import dd as D
+from . import encoder as E
 from . import features as F
 from . import pairwise as pw
 from .bounds import _EPS, NEG_INF
 
 __all__ = [
-    "NEG_INF", "build_corpus_scorer", "build_dd_rescorer",
-    "build_pair_logits", "candidate_mask", "dd_rescorer", "gather_rows",
-    "scan_topk",
+    "NEG_INF", "build_ann_scorer", "build_corpus_scorer", "build_dd_rescorer",
+    "build_gathered_pair_logits", "build_pair_logits", "candidate_mask",
+    "dd_rescorer", "gather_rows", "rescore_retrieved", "retrieval_amb_eps",
+    "saturation_count", "scan_topk",
 ]
 
 
@@ -98,22 +104,22 @@ def _set_names(spec) -> tuple:
     return "tokens", "token_count", formula
 
 
-def _flat_sim(spec, qf: Dict, cf: Dict, equal) -> torch.Tensor:
+def _flat_sim(spec, qf: Dict, cf: Dict, equal, expand=_pair_expand):
     """Flat-path similarity of the kinds with a char or set axis, over
     the expanded (Q*C*Vq*Vc, width) pairs."""
     kind = spec.kind
     cmp = spec.comparator
     if kind in (F.GRAM_SET, F.TOKEN_SET):
         ids, count, formula = _set_names(spec)
-        g1, g2 = _pair_expand(qf[ids], cf[ids])
-        n1, n2 = _pair_expand(qf[count], cf[count])
+        g1, g2 = expand(qf[ids], cf[ids])
+        n1, n2 = expand(qf[count], cf[count])
         common = pw.set_intersection_count(g1, n1, g2, n2)
         return pw.sim_from_set_intersection(common, n1, n2, equal,
                                             formula=formula)
-    c1, c2 = _pair_expand(qf["chars"], cf["chars"])
-    l1, l2 = _pair_expand(qf["length"], cf["length"])
+    c1, c2 = expand(qf["chars"], cf["chars"])
+    l1, l2 = expand(qf["length"], cf["length"])
     if kind == F.CHARS_WEIGHTED:
-        k1, k2 = _pair_expand(qf["classes"], cf["classes"])
+        k1, k2 = expand(qf["classes"], cf["classes"])
         return pw.weighted_levenshtein_sim(
             c1, k1, l1, c2, k2, l2, equal, digit_weight=cmp.digit_weight,
             letter_weight=cmp.letter_weight, other_weight=cmp.other_weight)
@@ -125,30 +131,96 @@ def _flat_sim(spec, qf: Dict, cf: Dict, equal) -> torch.Tensor:
     return pw.levenshtein_sim(c1, l1, c2, l2, equal)
 
 
-def _flat_sim_blocked(spec, qf: Dict, cf: Dict, equal, width: int):
+def _flat_sim_blocked(spec, qf: Dict, cf: Dict, equal, width: int,
+                      gathered: bool = False):
     """``_flat_sim`` over query sub-blocks of at most
     ``cuda_kernels.BLOCK_ELEMENTS`` expanded (pair x width) elements: the
     same per-pair arithmetic, in pieces that fit on the card (at
-    DEVICE_CHUNK=8192, one value slot and 64 chars: 32 queries)."""
+    DEVICE_CHUNK=8192, one value slot and 64 chars: 32 queries).
+    ``gathered``: ``cf`` holds each query's own (Q, C, Vc, ...) candidates
+    and is cut with the queries."""
     q, vq = qf["valid"].shape
-    c, vc = cf["valid"].shape
+    c, vc = cf["valid"].shape[-2:]
+    expand = _pair_expand_gathered if gathered else _pair_expand
     eq = equal.reshape(q, -1)
     parts = []
     for s, e in ck.row_blocks(q, c * vq * vc * width):
         sub = {name: t[s:e] for name, t in qf.items()}
-        parts.append(_flat_sim(spec, sub, cf, eq[s:e].reshape(-1)))
+        csub = {name: t[s:e] for name, t in cf.items()} if gathered else cf
+        parts.append(_flat_sim(spec, sub, csub, eq[s:e].reshape(-1), expand))
     return torch.cat(parts)
 
 
-def _property_sim(spec: F.PropertyFeatureSpec, qf: Dict, cf: Dict) -> tuple:
+def _gathered_sim(spec, qf: Dict, cf: Dict, equal) -> torch.Tensor:
+    """Flat (Q*C*Vq*Vc,) similarity of each query against its own gathered
+    (Q, C, Vc, ...) candidates (the ``ann`` rescoring layout).  A
+    single-slot Levenshtein property of at most 32 chars takes the
+    gathered Myers kernel, as the JAX package's Pallas branch does; every
+    other kind takes the flat paths."""
+    kind = spec.kind
+    cmp = spec.comparator
+    if (kind == F.CHARS and not isinstance(cmp, C.JaroWinkler)
+            and qf["chars"].shape[1] == 1 and cf["chars"].shape[2] == 1
+            and qf["chars"].shape[2] <= ck.GATHERED_MAX_CHARS):
+        q = qf["valid"].shape[0]
+        c = cf["valid"].shape[1]
+        qlen = qf["length"][:, 0].contiguous()
+        clen = cf["length"][:, :, 0].contiguous()
+        dist = ck.myers_distance_gathered(
+            qf["chars"][:, 0].contiguous(), qlen,
+            cf["chars"][:, :, 0].contiguous(), clen)
+        return pw.levenshtein_sim_from_distance(
+            dist, qlen[:, None], clen, equal.reshape(q, c)).reshape(-1)
+    if kind in (F.CHARS, F.CHARS_WEIGHTED):
+        return _flat_sim_blocked(spec, qf, cf, equal, qf["chars"].shape[2],
+                                 gathered=True)
+    if kind in (F.GRAM_SET, F.TOKEN_SET):
+        return _flat_sim_blocked(spec, qf, cf, equal,
+                                 qf[_set_names(spec)[0]].shape[2],
+                                 gathered=True)
+    return _plain_sim(spec, qf, cf, equal, _pair_expand_gathered)
+
+
+def _plain_sim(spec, qf: Dict, cf: Dict, equal, expand) -> torch.Tensor:
+    """Similarity of the kinds without a char or set axis (exact /
+    different, phonetic, numeric, geoposition) over expanded pairs."""
+    kind = spec.kind
+    cmp = spec.comparator
+    if kind == F.HASH:
+        return (pw.different_sim(equal) if isinstance(cmp, C.Different)
+                else pw.exact_sim(equal))
+    if kind == F.PHONETIC:
+        ch1, ch2 = expand(qf["code_hi"], cf["code_hi"])
+        cl1, cl2 = expand(qf["code_lo"], cf["code_lo"])
+        cv1, cv2 = expand(qf["code_valid"], cf["code_valid"])
+        return pw.phonetic_sim(equal, (ch1 == ch2) & (cl1 == cl2), cv1 & cv2)
+    if kind == F.NUMERIC:
+        d1, d2 = expand(qf["number"], cf["number"])
+        nv1, nv2 = expand(qf["number_valid"], cf["number_valid"])
+        return pw.numeric_sim(d1, nv1, d2, nv2, min_ratio=cmp.min_ratio)
+    if kind == F.GEO:
+        la1, la2 = expand(qf["lat"], cf["lat"])
+        lo1, lo2 = expand(qf["lon"], cf["lon"])
+        gv1, gv2 = expand(qf["geo_valid"], cf["geo_valid"])
+        return pw.geoposition_sim(la1, lo1, gv1, la2, lo2, gv2,
+                                  max_distance=cmp.max_distance)
+    raise ValueError(  # pragma: no cover - plan() never emits unknown kinds
+        f"no device kernel for feature kind {kind!r}")
+
+
+def _property_sim(spec: F.PropertyFeatureSpec, qf: Dict, cf: Dict,
+                  gathered: bool = False) -> tuple:
     """Pair similarity for one property: (sim, combo_valid), both flat
     (Q*C*Vq*Vc,).  Mirrors the JAX ``_property_sim`` with its tile
-    branches on."""
-    hh1, hh2 = _pair_expand(qf["hash_hi"], cf["hash_hi"])
-    hl1, hl2 = _pair_expand(qf["hash_lo"], cf["hash_lo"])
-    v1, v2 = _pair_expand(qf["valid"], cf["valid"])
+    branches on; ``gathered`` is its aligned-candidate layout."""
+    expand = _pair_expand_gathered if gathered else _pair_expand
+    hh1, hh2 = expand(qf["hash_hi"], cf["hash_hi"])
+    hl1, hl2 = expand(qf["hash_lo"], cf["hash_lo"])
+    v1, v2 = expand(qf["valid"], cf["valid"])
     combo_valid = v1 & v2
     equal = (hh1 == hh2) & (hl1 == hl2) & combo_valid
+    if gathered:
+        return _gathered_sim(spec, qf, cf, equal), combo_valid
 
     kind = spec.kind
     cmp = spec.comparator
@@ -189,31 +261,13 @@ def _property_sim(spec: F.PropertyFeatureSpec, qf: Dict, cf: Dict) -> tuple:
             sim = _flat_sim_blocked(spec, qf, cf, equal, width)
     elif kind == F.CHARS_WEIGHTED:
         sim = _flat_sim_blocked(spec, qf, cf, equal, qf["chars"].shape[2])
-    elif kind == F.HASH:
-        sim = (pw.different_sim(equal) if isinstance(cmp, C.Different)
-               else pw.exact_sim(equal))
-    elif kind == F.PHONETIC:
-        ch1, ch2 = _pair_expand(qf["code_hi"], cf["code_hi"])
-        cl1, cl2 = _pair_expand(qf["code_lo"], cf["code_lo"])
-        cv1, cv2 = _pair_expand(qf["code_valid"], cf["code_valid"])
-        sim = pw.phonetic_sim(equal, (ch1 == ch2) & (cl1 == cl2), cv1 & cv2)
-    elif kind == F.NUMERIC:
-        d1, d2 = _pair_expand(qf["number"], cf["number"])
-        nv1, nv2 = _pair_expand(qf["number_valid"], cf["number_valid"])
-        sim = pw.numeric_sim(d1, nv1, d2, nv2, min_ratio=cmp.min_ratio)
-    elif kind == F.GEO:
-        la1, la2 = _pair_expand(qf["lat"], cf["lat"])
-        lo1, lo2 = _pair_expand(qf["lon"], cf["lon"])
-        gv1, gv2 = _pair_expand(qf["geo_valid"], cf["geo_valid"])
-        sim = pw.geoposition_sim(la1, lo1, gv1, la2, lo2, gv2,
-                                 max_distance=cmp.max_distance)
-    else:  # pragma: no cover - plan() never emits unknown kinds
-        raise ValueError(f"no device kernel for feature kind {kind!r}")
+    else:
+        sim = _plain_sim(spec, qf, cf, equal, _pair_expand)
     return sim, combo_valid
 
 
 def _property_logit(spec: F.PropertyFeatureSpec, qf: Dict, cf: Dict,
-                    q: int, c: int) -> torch.Tensor:
+                    q: int, c: int, gathered: bool = False) -> torch.Tensor:
     """Per-pair clamped log-odds contribution of one property: (Q, C) f32.
 
     Duke's map: sim >= 0.5 -> (high-0.5)*sim^2 + 0.5, else -> low; the max
@@ -221,7 +275,7 @@ def _property_logit(spec: F.PropertyFeatureSpec, qf: Dict, cf: Dict,
     missing on either side is neutral (prob 0.5 -> logit 0).  The same f32
     operations in the same order as the JAX program.
     """
-    sim, combo_valid = _property_sim(spec, qf, cf)
+    sim, combo_valid = _property_sim(spec, qf, cf, gathered)
     # Python scalars, not device tensors: building a CUDA tensor from a
     # host value would synchronize the stream inside the chunk loop
     prob = torch.where(sim >= 0.5, (spec.high - 0.5) * sim * sim + 0.5,
@@ -349,6 +403,116 @@ def build_corpus_scorer(plan: F.SchemaFeatures, *, chunk: int = 512,
             corpus_group, query_group, query_row, min_logit,
             chunk=chunk, top_k=top_k, group_filtering=group_filtering,
         )
+
+    return score
+
+
+# -- the ann backend: cosine retrieval + exact rescoring ----------------------
+
+
+def build_gathered_pair_logits(plan: F.SchemaFeatures) -> Callable:
+    """Returns fn(qfeats (Q, ...), cfeats gathered (Q, C, ...)) -> (Q, C):
+    ``build_pair_logits`` for aligned candidates (candidate c of query q
+    is a specific corpus row), summed in plan order."""
+    specs = list(plan.device_props)
+
+    def pair_logits(qfeats: Dict[str, Dict],
+                    cfeats: Dict[str, Dict]) -> torch.Tensor:
+        first = next(iter(cfeats.values()))["valid"]
+        q, c = first.shape[0], first.shape[1]
+        total = torch.zeros((q, c), dtype=torch.float32, device=first.device)
+        for spec in specs:
+            total = total + _property_logit(
+                spec, qfeats[spec.name], cfeats[spec.name], q, c,
+                gathered=True)
+        return total
+
+    return pair_logits
+
+
+def retrieval_amb_eps(q_tree, emb_tree):
+    """int8 storage's certified per-block cosine error bound (the
+    escalation trigger's ambiguity credit), or None for bf16 storage."""
+    if E.is_int8_tree(emb_tree):
+        return E.int8_cosine_eps_dynamic(q_tree, emb_tree)
+    return None
+
+
+def saturation_count(logits, top_sim, retrieved, min_logit: float, amb_eps):
+    """The escalation count of every retrieval tail: candidates above
+    ``min_logit``, plus -- under int8 storage, when the retrieved set is
+    full -- the above-bound candidates whose cosine sits within
+    ``2 * amb_eps`` of the top-C cutoff (a candidate displaced by
+    quantization is cosine-adjacent to exactly these)."""
+    above = logits > min_logit
+    count = above.sum(dim=1).to(torch.int32)
+    if amb_eps is not None:
+        full = retrieved.all(dim=1)
+        cutoff = top_sim[:, -1:]  # sorted descending: the smallest kept
+        amb = ((top_sim < cutoff + 2.0 * amb_eps) & retrieved & above).sum(
+            dim=1).to(torch.int32)
+        count = count + torch.where(full, amb, 0)
+    return count
+
+
+def rescore_retrieved(pair_logits, qfeats, corpus_feats, top_sim, top_index,
+                      min_logit: float, *, amb_eps=None):
+    """Gather the retrieved rows' features, score them with the exact
+    per-property kernels and count for escalation: ``(logits (Q, C),
+    top_index, count (Q,))``; empty slots (-1) score NEG_INF."""
+    retrieved = top_index >= 0
+    q, top_c = top_index.shape
+    rows = top_index.clamp_min(0).reshape(-1)
+    cfeats = {
+        prop: {name: arr.index_select(0, rows).reshape(
+                   (q, top_c) + tuple(arr.shape[1:]))
+               for name, arr in tensors.items()}
+        for prop, tensors in corpus_feats.items()
+    }
+    logits = torch.where(retrieved, pair_logits(qfeats, cfeats), NEG_INF)
+    count = saturation_count(logits, top_sim, retrieved, min_logit, amb_eps)
+    return logits, top_index, count
+
+
+def build_ann_scorer(plan: F.SchemaFeatures, *, chunk: int = 512,
+                     top_c: int = 64, group_filtering: bool = False,
+                     queries_from_rows: bool = False) -> Callable:
+    """The two-stage ``ann`` program: cosine retrieval of the top ``top_c``
+    rows per query (``ops.encoder.retrieval_scan``), then exact rescoring
+    of those rows::
+
+        fn(q_emb, qfeats, corpus_emb, corpus_feats, corpus_valid,
+           corpus_deleted, corpus_group, query_group, query_row, min_logit)
+        -> (top_logit (Q, C), top_index (Q, C), count_above (Q,))
+
+    The logits are on ``build_corpus_scorer``'s scale; only the candidate
+    set is approximate, and ``count_above`` reaching ``top_c`` tells the
+    caller to escalate C.  ``corpus_emb`` / ``q_emb`` are ANN_PROP tensor
+    dicts; ``corpus_feats`` holds the other properties.  With
+    ``queries_from_rows`` both query sides are gathered from the corpus at
+    ``query_row`` and ``q_emb`` / ``qfeats`` are ignored.
+    """
+    pair_logits = build_gathered_pair_logits(plan)
+
+    def score(q_emb, qfeats, corpus_emb, corpus_feats, corpus_valid,
+              corpus_deleted, corpus_group, query_group, query_row,
+              min_logit):
+        emb_tree = E.as_emb_tree(corpus_emb)
+        if queries_from_rows:
+            qrows = query_row.clamp_min(0)
+            q_tree = {name: arr.index_select(0, qrows)
+                      for name, arr in emb_tree.items()}
+            qfeats = gather_rows(corpus_feats, qrows)
+        else:
+            q_tree = E.as_emb_tree(q_emb)
+        top_sim, top_index = E.retrieval_scan(
+            q_tree, emb_tree, corpus_valid, corpus_deleted, corpus_group,
+            query_group, query_row, chunk=chunk, top_c=top_c,
+            group_filtering=group_filtering)
+        return rescore_retrieved(
+            pair_logits, qfeats, corpus_feats, top_sim, top_index,
+            float(np.float32(min_logit)),
+            amb_eps=retrieval_amb_eps(q_tree, emb_tree))
 
     return score
 

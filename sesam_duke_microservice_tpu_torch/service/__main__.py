@@ -2,14 +2,17 @@
 
 Loads ``--config`` (an XML file), else ``CONFIG_STRING``, else the bundled
 demo config, and serves the REST surface on ``--port`` (default ``PORT`` or
-4567).  ``--device cuda`` (the default) scores on the GPU and fails without
-one; ``--device cpu`` runs the plain PyTorch path.
+4567).  ``--backend device`` (the default) scores by brute force,
+``--backend ann`` by embedding cosine retrieval + exact rescoring.
+``--device cuda`` (the default) scores on the GPU and fails without one;
+``--device cpu`` runs the plain PyTorch path.
 """
 
 import argparse
 import logging
 
 from ..core.config import load_default_config, parse_config
+from ..engine.workload import BACKENDS
 from ..env import env_int
 from .app import DEFAULT_PORT, create_app, serve
 
@@ -23,6 +26,7 @@ def main() -> None:
     parser.add_argument("--port", type=int,
                         default=env_int("PORT", DEFAULT_PORT))
     parser.add_argument("--host", default="0.0.0.0")
+    parser.add_argument("--backend", choices=BACKENDS, default="device")
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     args = parser.parse_args()
 
@@ -32,11 +36,11 @@ def main() -> None:
             config = parse_config(f.read())
     else:
         config = load_default_config()
-    app = create_app(config, device=args.device)
+    app = create_app(config, backend=args.backend, device=args.device)
     server = serve(app, port=args.port, host=args.host)
     logging.getLogger("duke-torch-service").info(
-        "Serving on %s:%d (device=%s)", args.host,
-        server.server_address[1], app.device)
+        "Serving on %s:%d (backend=%s, device=%s)", args.host,
+        server.server_address[1], app.backend, app.device)
     try:
         server.serve_forever()
     finally:

@@ -1,4 +1,4 @@
-"""The HTTP frontend: the reference REST surface for the device backend.
+"""The HTTP frontend: the reference REST surface for the device backends.
 
 Counterpart of the JAX package's ``service/app.py`` reduced to the
 matching routes (App.java:649-887) on the stdlib threading HTTP server:
@@ -45,18 +45,23 @@ _FEED_PATH = re.compile(r"^/(deduplication|recordlinkage)/([^/]*)$")
 
 class DukeApp:
     """Application state: the parsed config and its live workloads, each
-    scoring on the torch ``device`` (``cuda`` unless the caller asks for
-    ``cpu``)."""
+    scoring with ``backend`` (``device`` brute force unless the caller asks
+    for ``ann``) on the torch ``device`` (``cuda`` unless the caller asks
+    for ``cpu``)."""
 
-    def __init__(self, config: ServiceConfig, *, device="cuda"):
+    def __init__(self, config: ServiceConfig, *, backend: str = "device",
+                 device="cuda"):
         self.device = resolve_device(device)
+        self.backend = backend
         self.config = config
         self.deduplications: Dict[str, Workload] = {
-            name: build_workload(wc, config, device=self.device)
+            name: build_workload(wc, config, backend=backend,
+                                 device=self.device)
             for name, wc in config.deduplications.items()
         }
         self.record_linkages: Dict[str, Workload] = {
-            name: build_workload(wc, config, device=self.device)
+            name: build_workload(wc, config, backend=backend,
+                                 device=self.device)
             for name, wc in config.record_linkages.items()
         }
 
@@ -224,12 +229,12 @@ class DukeRequestHandler(BaseHTTPRequestHandler):
 
 
 def create_app(config: Optional[ServiceConfig] = None, *,
-               device="cuda") -> DukeApp:
+               backend: str = "device", device="cuda") -> DukeApp:
     """The app for ``config`` (default: ``CONFIG_STRING`` from the
     environment, else the bundled demo config)."""
     if config is None:
         config = load_default_config()
-    return DukeApp(config, device=device)
+    return DukeApp(config, backend=backend, device=device)
 
 
 def serve(app: DukeApp, port: int = DEFAULT_PORT,

@@ -1,8 +1,10 @@
 """Card tests of the PyTorch port: each CUDA kernel against its plain
 PyTorch version at odd sizes (Q, C and K multiples of no tile, every width,
-empty strings and sets, garbage set padding), the dd rescorer on ``cuda``
-against the same program on ``cpu``, and the service on ``cuda`` against
-the service on ``cpu``.
+empty strings and sets, garbage set padding; for the segment-max kernel
+two and three tiles, seg 1 / 8 / 64, group filtering on and off, masked
+bins and a duplicate cluster), the dd rescorer on ``cuda`` against the
+same program on ``cpu``, and the ``device`` and ``ann`` services on
+``cuda`` against the same services on ``cpu``.
 
 Every test here needs an NVIDIA GPU and skips without one.  The module
 imports no JAX, so on a machine without it run::
@@ -263,6 +265,119 @@ def test_service_on_cuda_matches_service_on_cpu(cuda_device, monkeypatch):
             r.pop("_updated")
         feeds.append(json.dumps(rows))
         assert wl.index.plan.device_props[0].chars > 32
+        app.close()
+    assert feeds[0] == feeds[1]
+    assert len(json.loads(feeds[0])) > 10
+
+
+# -- the ann backend's segment-max kernel ----------------------------------------
+
+
+def _segmax_problem(q, n, d, seed, device, *, cluster=False):
+    """Unit rows in bf16 with tombstones, invalid rows, two groups, self
+    rows and (``cluster``) 24 identical adjacent rows every query hits."""
+    g = torch.Generator().manual_seed(seed)
+    corpus = torch.randn((n, d), generator=g)
+    corpus = corpus / corpus.norm(dim=1, keepdim=True)
+    queries = torch.randn((q, d), generator=g)
+    queries = queries / queries.norm(dim=1, keepdim=True)
+    if cluster:
+        corpus[100:124] = corpus[100]
+        queries[:] = corpus[100]
+    valid = torch.rand((n,), generator=g) > 0.05
+    deleted = torch.rand((n,), generator=g) < 0.05
+    group = torch.randint(1, 3, (n,), generator=g, dtype=torch.int32)
+    qgroup = torch.randint(1, 3, (q,), generator=g, dtype=torch.int32)
+    qrow = torch.where(torch.rand((q,), generator=g) < 0.5,
+                       torch.randint(0, n, (q,), generator=g),
+                       -1).to(torch.int32)
+    return [t.contiguous().to(device) for t in (
+        queries.to(torch.bfloat16), corpus.to(torch.bfloat16), valid,
+        deleted, group, qrow, qgroup)]
+
+
+@pytest.mark.parametrize("q,tiles,seg,d,gf", [
+    (77, 2, 64, 256, False), (130, 3, 64, 256, True), (33, 2, 8, 128, True),
+    (200, 3, 8, 256, False), (19, 2, 1, 128, False), (64, 3, 1, 256, True),
+])
+def test_segmax_kernel_equals_plain_version(q, tiles, seg, d, gf,
+                                            cuda_device):
+    tc = 1024
+    args = _segmax_problem(q, tiles * tc, d, q + seg, cuda_device)
+    args[2][:tc:tc // seg] = False        # bin 0's rows: all masked
+    kw = dict(tc=tc, seg=seg, group_filtering=gf)
+    ck.reset_launch_counts()
+    got_max, got_arg = ck.retrieval_segmax(*args, **kw)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["retrieval_segmax"] == 1
+    want = ck.retrieval_segmax_reference(*args, runner_up=True, **kw)
+    err, bad = ck.segmax_disagreement(got_max, got_arg, *want, d)
+    assert err <= ck.segmax_tolerance(d) and bad == 0, (err, bad)
+    # the all-masked bin reports NEG and its smallest row
+    assert bool((got_max[:, 0] == ck.SEGMAX_NEG).all())
+    assert bool((got_arg[:, 0] == 0).all())
+    # the plain version on the CPU holds the same bar
+    cpu = ck.retrieval_segmax(*(t.cpu() for t in args), **kw)
+    err, bad = ck.segmax_disagreement(*(t.to(cuda_device) for t in cpu),
+                                      *want, d)
+    assert err <= ck.segmax_tolerance(d) and bad == 0, (err, bad)
+
+
+@pytest.mark.parametrize("seg", [8, 64])
+def test_segmax_kernel_resolves_duplicate_clusters_alike(seg, cuda_device):
+    args = _segmax_problem(70, 2048, 128, seg, cuda_device, cluster=True)
+    args[2][:] = True
+    args[3][:] = False
+    args[5][:] = -1
+    kw = dict(tc=1024, seg=seg, group_filtering=False)
+    got_max, got_arg = ck.retrieval_segmax(*args, **kw)
+    want = ck.retrieval_segmax_reference(*args, runner_up=True, **kw)
+    err, bad = ck.segmax_disagreement(got_max, got_arg, *want, 128)
+    assert err <= ck.segmax_tolerance(128) and bad == 0, (err, bad)
+    in_cluster = (want[1] >= 100) & (want[1] < 124)
+    assert bool((in_cluster.sum(dim=1) == min(24, 1024 // seg)).all())
+    # identical rows score bit-identically: ties go to the smallest row
+    assert torch.equal(got_arg[in_cluster], want[1][in_cluster])
+
+
+def test_segmax_kernel_rejects_what_it_cannot_take(cuda_device):
+    args = _segmax_problem(8, 1024, 128, 0, cuda_device)
+    kw = dict(tc=1024, seg=8, group_filtering=False)
+    with pytest.raises(TypeError, match="bf16"):
+        ck.retrieval_segmax(args[0].float(), *args[1:], **kw)
+    with pytest.raises(ValueError, match="seg"):
+        ck.retrieval_segmax(*args, tc=1000, seg=8, group_filtering=False)
+
+
+def test_ann_service_on_cuda_matches_cpu(cuda_device, monkeypatch):
+    """One ann POST on the card and on the CPU: the fused route launches
+    the segment-max kernel and the feeds are equal."""
+    for knob, value in (("DEVICE_INITIAL_CAPACITY", "2048"),
+                        ("DEVICE_ANN_SEG", "8"),
+                        ("DEVICE_ANN_RECALL_TARGET", "0.8"),
+                        ("DEVICE_ANN_CANDIDATES", "16")):
+        monkeypatch.setenv(knob, value)
+    g = torch.Generator().manual_seed(11)
+    words = ["ole", "kari", "hansen", "olsen", "nordre", "gate", "vest"]
+    batch = [{"_id": f"a{i}",
+              "name": " ".join(words[int(k)] for k in torch.randint(
+                  0, len(words), (3,), generator=g)),
+              "ssn": str(int(torch.randint(0, 40, (1,), generator=g)))}
+             for i in range(250)]
+    feeds = []
+    for device in (cuda_device, "cpu"):
+        app = DukeApp(parse_config(CONFIG), backend="ann", device=device)
+        wl = app.deduplications["people"]
+        ck.reset_launch_counts()
+        with wl.lock:
+            wl.process_batch("crm", batch)
+            rows = wl.links_since(0)
+        if device != "cpu":
+            assert ck.LAUNCHES["retrieval_segmax"] > 0
+            assert ck.LAUNCHES["myers_gathered"] > 0
+        for r in rows:
+            r.pop("_updated")
+        feeds.append(json.dumps(rows))
         app.close()
     assert feeds[0] == feeds[1]
     assert len(json.loads(feeds[0])) > 10

@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: it imports neither ``jax`` nor the JAX
-package, and its entry points refuse to run silently on the CPU."""
+"""The PyTorch port stands alone: it imports neither ``jax``, nor the JAX
+package, nor ``ml_dtypes`` (absent where the card is), and its entry
+points refuse to run silently on the CPU."""
 
 import ast
 import json
@@ -14,7 +15,7 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "sesam_duke_microservice_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "sesam_duke_microservice_tpu")
+FORBIDDEN = ("jax", "jaxlib", "sesam_duke_microservice_tpu", "ml_dtypes")
 
 
 def _forbidden(module: str) -> bool:
@@ -30,12 +31,14 @@ def test_importing_the_port_loads_no_jax():
         "import sesam_duke_microservice_tpu_torch.service.__main__\n"
         "import sesam_duke_microservice_tpu_torch.ops.cuda_kernels\n"
         "import sesam_duke_microservice_tpu_torch.engine.workload\n"
+        "import sesam_duke_microservice_tpu_torch.engine.ann_matcher\n"
         "print(json.dumps(sorted(set(sys.modules) - before)))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, check=True)
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert "sesam_duke_microservice_tpu_torch.ops.scoring" in loaded
+    assert "sesam_duke_microservice_tpu_torch.ops.encoder" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
 
@@ -83,10 +86,16 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
     wc = next(iter(sc.deduplications.values()))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_workload(wc, sc)
-    with pytest.raises(ValueError, match="only the 'device' backend"):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DukeApp(sc, backend="ann")
+    with pytest.raises(ValueError, match="only the 'device' and 'ann'"):
         build_workload(wc, sc, backend="host", device="cpu")
     app = DukeApp(sc, device="cpu")
     assert app.device.type == "cpu"
+    app.close()
+    app = create_app(sc, backend="ann", device="cpu")
+    assert {type(wl.processor).__name__ for wl in
+            app.deduplications.values()} == {"AnnProcessor"}
     app.close()
 
 

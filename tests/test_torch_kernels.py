@@ -102,8 +102,14 @@ def test_cpu_path_counts_no_launch():
     ck.myers_distance_gathered(qc, ql, cc[None].expand(3, 5, 32).contiguous(),
                                cl[None].expand(3, 5).contiguous())
     ck.set_intersection_tiles(qc, ql, cc, cl)
+    emb = torch.ones((8, 128), dtype=torch.bfloat16)
+    rows = torch.zeros((8,), dtype=torch.int32)
+    ck.retrieval_segmax(emb[:3], emb, rows.bool(), rows.bool(), rows,
+                        rows[:3], rows[:3], tc=8, seg=2,
+                        group_filtering=False)
     assert ck.LAUNCHES == {"myers_tile": 0, "myersN_tile": 0, "jw_tile": 0,
-                           "myers_gathered": 0, "intersect_tile": 0}
+                           "myers_gathered": 0, "intersect_tile": 0,
+                           "retrieval_segmax": 0}
 
 
 # the Pallas JW kernel unrolls O(L^2) compares statically: interpret mode
