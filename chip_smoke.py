@@ -36,8 +36,10 @@ Phases, each fatal on failure:
    equal except where neighbouring scores differ by less than it, logits
    of equal rows within ``certified_f32_margin``);
 6. hold every kernel against its plain PyTorch version on the card at
-   every shape the main paths gave it (Myers also at L=64 and 256) --
-   integer results exactly, the segment max within ``4 D 2^-24`` with its
+   every shape the main paths gave it (Myers also at L=64 and 256, and at
+   each of those shapes also on the wide UTF-16 alphabets of
+   tests/wide_units.py, and timed a second time on stresstest name rows)
+   -- integer results exactly, the segment max within ``4 D 2^-24`` with its
    argmax equal wherever a bin's best leads by more -- and time both with
    CUDA events beside the kernel's bound (and the segment max beside
    ``torch.matmul`` of its bare bf16 product);
@@ -96,6 +98,8 @@ MERGE_OPS_PER_STEP = 4
 # the ingest POST's 2,048-query block
 EXTRA_WIDTHS = (64, 256)
 EXTRA_Q = 2048
+# the Myers W=1 kernel is timed a second time on stresstest name rows here
+NAMES_SHAPE = (2048, 8192, 32)
 INGEST_RECORDS = 131072
 INGEST_BATCH = 2048
 QUERY_BATCH = 8192
@@ -564,7 +568,9 @@ def phase_slice1(app, port, line):
         pairs0 = stats.pairs_compared
         query_s = post(port, "/deduplication/people/crm", queries)
         query_pairs = stats.pairs_compared - pairs0
-        ingest(port, "/deduplication/addresses/crm", addresses)
+        _, long_s = ingest(port, "/deduplication/addresses/crm", addresses)
+        long_split = split_line(
+            app.deduplications["addresses"].processor.stats, long_s, line)
         people_rows = feed(port, "/deduplication/people")
         address_rows = feed(port, "/deduplication/addresses")
         launches = dict(ck.LAUNCHES)
@@ -598,6 +604,8 @@ def phase_slice1(app, port, line):
     print(f"p50 POST latency (stresstest ingest POSTs): "
           f"{statistics.median(latencies) * 1e3:.1f} ms [{line}]")
     print(f"stresstest ingest {split}", flush=True)
+    print(f"long-name ingest ({LONG_RECORDS} records) {long_split}",
+          flush=True)
     return launches, shapes, people_rows
 
 
@@ -886,6 +894,44 @@ def char_inputs(q, c, l, seed):
     return qc, ql, cc, cl
 
 
+def check_wide_units(name, q, c, l):
+    """Hold the Myers kernel exactly against its plain version on the
+    wide UTF-16 alphabets of tests/wide_units.py (units of 256 and up,
+    shared low bytes, surrogates, U+0000 inside the length, > 32 distinct
+    units, runs), every row kind meeting every other."""
+    import torch
+
+    from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
+    from wide_units import wide_unit_inputs
+
+    qc, ql, cc, cl = (torch.from_numpy(a).to(DEVICE)
+                      for a in wide_unit_inputs("all", q + l, q, c, l))
+    got = ck.myers_distance_tiles(qc, ql, cc, cl)
+    torch.cuda.synchronize()
+    if not torch.equal(got, ck.myers_distance_tiles_reference(qc, ql, cc, cl)):
+        raise AssertionError(f"{name} differs from its plain version on wide "
+                             f"UTF-16 units at {(q, c, l)}")
+    print(f"kernel {name} {(q, c, l)}: exact on wide UTF-16 units", flush=True)
+    torch.cuda.empty_cache()
+
+
+def name_inputs(q, c, l):
+    """Rows of the stresstest's name column (the bench's first and last
+    name pools, 15% perturbed; lowercase letters and a space), as 0-padded
+    UTF-16 units: q query rows, then c corpus rows."""
+    import torch
+
+    names = [e["name"][:l] for e in stresstest_entities(q + c, 5678, "n")]
+    chars = torch.zeros((q + c, l), dtype=torch.int32)
+    for i, name in enumerate(names):
+        chars[i, :len(name)] = torch.tensor([ord(ch) for ch in name],
+                                            dtype=torch.int32)
+    lens = torch.tensor([len(name) for name in names], dtype=torch.int32)
+    chars, lens = chars.to(DEVICE), lens.to(DEVICE)
+    return (chars[:q].contiguous(), lens[:q].contiguous(),
+            chars[q:].contiguous(), lens[q:].contiguous())
+
+
 def set_inputs(rows, g, seed):
     """Sorted distinct ids (strictly increasing with small steps from a
     small base, so rows intersect) in the first n of g slots, SET_PAD
@@ -1022,12 +1068,26 @@ def phase_kernels(shapes, peak_ops):
 
     rows = {name: {} for name in WRAPPER_SHAPES}
     for q, c, l in sorted(shapes["myers_distance_tiles"]):
+        name = f"myers_tile W={ck.kernel_words(l)}"
         qc, ql, cc, cl = char_inputs(q, c, l, seed=q + l)
         rows["myers_distance_tiles"][q, c, l] = measure(
-            f"myers_tile W={ck.kernel_words(l)}", (q, c, l),
+            name, (q, c, l),
             lambda: ck.myers_distance_tiles(qc, ql, cc, cl),
             lambda: ck.myers_distance_tiles_reference(qc, ql, cc, cl),
             lambda _: myers_bound(qc, ql, cc, cl, peak_ops))
+        check_wide_units(name, q, c, l)
+    q, c, l = NAMES_SHAPE
+    qc, ql, cc, cl = name_inputs(q, c, l)
+    names = measure(
+        "myers_tile W=1 (stresstest name rows)", NAMES_SHAPE,
+        lambda: ck.myers_distance_tiles(qc, ql, cc, cl),
+        lambda: ck.myers_distance_tiles_reference(qc, ql, cc, cl),
+        lambda _: myers_bound(qc, ql, cc, cl, peak_ops))
+    synthetic = rows["myers_distance_tiles"].get(NAMES_SHAPE)
+    if synthetic:
+        print(f"myers_tile W=1 at {NAMES_SHAPE}: {synthetic['ms']:.3f} ms on "
+              f"the synthetic rows, {names['ms']:.3f} ms on stresstest name "
+              "rows", flush=True)
     kw = dict(prefix_scale=0.1, boost_threshold=0.7, max_prefix=4)
     for q, c, l in sorted(shapes["jaro_winkler_sim_tiles"]):
         qc, ql, cc, cl = char_inputs(q, c, l, seed=7 + l)
@@ -1156,7 +1216,8 @@ def main() -> int:
         print(f"chip_smoke: {PACKAGE} is not beside this script",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(REPO))
+    # the package, and tests/wide_units.py for the kernel phase's inputs
+    sys.path[:0] = [str(REPO), str(REPO / "tests")]
     from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
 
     t_start = time.perf_counter()

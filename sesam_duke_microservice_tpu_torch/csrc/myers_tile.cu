@@ -8,17 +8,37 @@
 // kernels compute -- d(query_q[:ql], corpus_c[:cl]) for every (q, c) pair,
 // the text length for an empty pattern -- not a copy of their block layout.
 //
-// Design.  One thread owns one (query, corpus) pair and keeps the W words
-// of Pv and Mv in registers.  A block is TQ x TC = 8 x 32 pairs: the 32
-// lanes of a warp share one query (its pattern is read from shared memory
-// as a broadcast) and walk 32 corpus rows whose text tile sits transposed
-// in shared memory (lane-consecutive, conflict-free).  Per text step each
-// thread rebuilds its match words by comparing the text char against the
-// pattern's chars (only the first ql of them: bits above the pattern's
-// last bit never reach the score, since carries and shifts only move
-// up), then runs the Hyyro step with an explicit carry through the add
-// chain and the cross-word shifts.  The similarity / logit math stays in
-// torch, outside this kernel, so nvcc's FMA contraction never touches it.
+// Design.  One thread owns one corpus row and the DP of QW queries on it
+// (QW = 2 at W <= 2, else 1), the W words of Pv and Mv per query in
+// registers.  A block holds 8 warps of QW queries each and 32 x kTiles
+// corpus rows (kTiles = 4 at W = 1, 2 at W = 2, else 1), whose text tile
+// sits transposed in shared memory (lane-consecutive, conflict-free); each
+// warp walks the kTiles tiles of 32 rows in turn, one row per lane.
+//   * Match words come from a per-warp table of each of its queries, built
+//     once per block from the pattern's first ql units (bits above the
+//     pattern's last bit never reach the score, since carries and shifts
+//     only move up, so padding 0s and real U+0000s inside the length stay
+//     apart).  Units below 256 index it directly: 256 entries x W words,
+//     word-major, filled with shared atomicOr (repeated chars share an
+//     entry).  Pattern units of 256 and up (and negative ones) go, once
+//     per distinct unit, into a side list of (unit, W mask words), usually
+//     empty; a text unit of 256 or more searches it, so 'A' (0x41) never
+//     matches 'Ł' (0x141).  When no query of the warp has a side list,
+//     the step loop is compiled without the search.  Building costs
+//     O(256 W + ql) per query, once per block.
+//   * Per text step each thread loads its text unit once and, per query,
+//     W table words, then runs the Hyyro step: the add (eq & Pv) + Pv as
+//     one W-word add through the carry flag (PTX add.cc / addc; a plain
+//     32-bit add at W = 1), the horizontal shifts as funnel shifts, the
+//     score bit picked from the pattern's last word by a per-query mask.
+//     Two queries give each thread two independent chains to interleave.
+//   * Each lane steps only through its own row's text (min(cl, L) steps),
+//     so a warp takes as many steps as the longest of its 32 rows.  Where
+//     a block holds several tiles, a counting sort orders the block's rows
+//     by that step count before the text is staged, so each tile holds
+//     texts of about one length.
+// The similarity / logit math stays in torch, outside this kernel, so
+// nvcc's FMA contraction never touches it.
 //
 // Bound.  The DP needs, per pair, cl text steps of ~22 int32 operations
 // per word (a match-table lookup, then the Xv/Xh/Ph/Mh/Pv/Mv bit-ops, the
@@ -26,9 +46,19 @@
 // it writes one int32 per pair, and its inputs are O((Q + C) L).  At the
 // main path's shapes (Q >= 1024, C = 8192) that is hundreds of operations
 // per output byte, far above the H100's ops:bytes balance, so the bound is
-// the int32 ALU rate (64 lanes per SM), not device memory.  This kernel
-// has no match table: it spends up to ql extra compares per text step
-// building the match words, which is most of its distance from the bound.
+// the int32 ALU rate (64 lanes per SM), not device memory.  The kernel
+// issues fewer int32 instructions per pair and step than that count
+// (three-input logic fuses into one LOP3; two queries share a text load
+// and the loop control), so at W <= 2 it runs at about the bound.  At
+// W >= 4 a block holds one tile, so its rows go unsorted and lanes idle
+// behind the longest row of their warp, and shared memory allows fewer
+// warps per SM.
+//
+// Shared memory: the text tile (L x (32 kTiles + 1) units) plus, per
+// query, the table and the side list ((256 W + L + W L) words): 36.1 KB
+// at W = 1 (L 32), 60.3 KB at W = 2 (L 64), 68.5 KB at W = 4 (L 128),
+// 169 KB at W = 8 (L 256), past 48 KB through
+// cudaFuncAttributeMaxDynamicSharedMemorySize.
 //
 // Returns cudaGetLastError() after the launch (0 on success).
 
@@ -37,8 +67,23 @@
 
 namespace {
 
-constexpr int kTileQ = 8;   // queries per block (one per warp)
-constexpr int kTileC = 32;  // corpus rows per block (one per lane)
+constexpr int kWarps = 8;   // warps per block
+constexpr int kTileC = 32;  // corpus rows per tile (one per lane)
+constexpr int kDirect = 256;  // units indexing the match table directly
+constexpr unsigned kFull = 0xFFFFFFFFu;
+
+// corpus tiles per block: at narrow widths one table serves several tiles
+template <int W>
+__host__ __device__ constexpr int tiles() {
+  return W == 1 ? 4 : (W == 2 ? 2 : 1);
+}
+
+// queries per warp: at narrow widths each lane walks its text through two
+// queries' DPs, sharing the text loads and interleaving two chains
+template <int W>
+__host__ __device__ constexpr int queries_per_warp() {
+  return W <= 2 ? 2 : 1;
+}
 
 __device__ __forceinline__ uint32_t bits_below(int n) {
   // (1 << n) - 1 for n in [0, 32]; << 32 is undefined in C too
@@ -47,113 +92,291 @@ __device__ __forceinline__ uint32_t bits_below(int n) {
   return (1u << n) - 1u;
 }
 
+// s += b as W-word integers (word 0 lowest), the carry out of the top word
+// dropped
 template <int W>
-__global__ void __launch_bounds__(kTileQ * kTileC)
+__device__ __forceinline__ void add_words(uint32_t (&s)[W],
+                                          const uint32_t (&b)[W]) {
+  if constexpr (W == 1) {
+    s[0] += b[0];
+  } else if constexpr (W == 2) {
+    asm("add.cc.u32 %0, %0, %2;\n\t"
+        "addc.u32 %1, %1, %3;"
+        : "+r"(s[0]), "+r"(s[1])
+        : "r"(b[0]), "r"(b[1]));
+  } else if constexpr (W == 4) {
+    asm("add.cc.u32 %0, %0, %4;\n\t"
+        "addc.cc.u32 %1, %1, %5;\n\t"
+        "addc.cc.u32 %2, %2, %6;\n\t"
+        "addc.u32 %3, %3, %7;"
+        : "+r"(s[0]), "+r"(s[1]), "+r"(s[2]), "+r"(s[3])
+        : "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]));
+  } else {
+    static_assert(W == 8, "W is 1, 2, 4 or 8");
+    asm("add.cc.u32 %0, %0, %8;\n\t"
+        "addc.cc.u32 %1, %1, %9;\n\t"
+        "addc.cc.u32 %2, %2, %10;\n\t"
+        "addc.cc.u32 %3, %3, %11;\n\t"
+        "addc.cc.u32 %4, %4, %12;\n\t"
+        "addc.cc.u32 %5, %5, %13;\n\t"
+        "addc.cc.u32 %6, %6, %14;\n\t"
+        "addc.u32 %7, %7, %15;"
+        : "+r"(s[0]), "+r"(s[1]), "+r"(s[2]), "+r"(s[3]), "+r"(s[4]),
+          "+r"(s[5]), "+r"(s[6]), "+r"(s[7])
+        : "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]), "r"(b[4]), "r"(b[5]),
+          "r"(b[6]), "r"(b[7]));
+  }
+}
+
+template <int W>
+__host__ __device__ constexpr size_t words_per_query(int L) {
+  // match table [W][256], side-list units [L], side-list masks [W][L]
+  return (size_t)kDirect * W + (size_t)L + (size_t)W * L;
+}
+
+// Build one query's match table in shared memory from its first plen
+// units (the whole warp): zero it, then OR each position's bit into its
+// unit's entry; a wide unit gets one side-list slot, claimed by its first
+// position.  Returns the side list's length.
+template <int W>
+__device__ __forceinline__ int build_table(uint32_t* table,
+                                           const int32_t* pat, int plen,
+                                           int L, int lane) {
+  uint32_t* peq = table;                                       // [W][256]
+  int32_t* side_unit = reinterpret_cast<int32_t*>(table + kDirect * W);
+  uint32_t* side_mask = table + kDirect * W + L;               // [W][L]
+  for (int k = lane; k < kDirect * W; k += kTileC) peq[k] = 0u;
+  __syncwarp();
+  int nside = 0;
+  for (int j0 = 0; j0 < plen; j0 += kTileC) {
+    const int j = j0 + lane;
+    const uint32_t u = j < plen ? (uint32_t)pat[j] : 0u;
+    const bool wide = j < plen && u >= (uint32_t)kDirect;
+    if (j < plen && !wide) {
+      atomicOr(&peq[(j >> 5) * kDirect + u], 1u << (j & 31));
+    }
+    bool first = wide;
+    for (int k = 0; first && k < j; ++k) first = (uint32_t)pat[k] != u;
+    const unsigned firsts = __ballot_sync(kFull, first);
+    if (first) {
+      side_unit[nside + __popc(firsts & ((1u << lane) - 1u))] = (int32_t)u;
+    }
+    nside += __popc(firsts);
+  }
+  if (nside > 0) {
+    for (int k = lane; k < W * L; k += kTileC) side_mask[k] = 0u;
+    __syncwarp();
+    for (int j = lane; j < plen; j += kTileC) {
+      const uint32_t u = (uint32_t)pat[j];
+      if (u >= (uint32_t)kDirect) {
+        int s = 0;
+        while ((uint32_t)side_unit[s] != u) ++s;
+        atomicOr(&side_mask[(j >> 5) * L + s], 1u << (j & 31));
+      }
+    }
+  }
+  return nside;
+}
+
+// One text step of the W-word Myers/Hyyro recurrence on looked-up match
+// words; hib holds the pattern's last bit in its word, 0 in the others.
+template <int W>
+__device__ __forceinline__ void hyyro_step(const uint32_t (&eq)[W],
+                                           uint32_t (&pv)[W],
+                                           uint32_t (&mv)[W], int& score,
+                                           const uint32_t (&hib)[W]) {
+  // xh = (((eq & pv) + pv) ^ pv) | eq, the add carrying across words
+  uint32_t sum[W];
+#pragma unroll
+  for (int w = 0; w < W; ++w) sum[w] = eq[w] & pv[w];
+  add_words<W>(sum, pv);
+  uint32_t xv[W], ph[W], mh[W];
+  uint32_t up = 0u, down = 0u;
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    xv[w] = eq[w] | mv[w];
+    const uint32_t xh = (sum[w] ^ pv[w]) | eq[w];
+    ph[w] = mv[w] | ~(xh | pv[w]);
+    mh[w] = pv[w] & xh;
+    up |= ph[w] & hib[w];
+    down |= mh[w] & hib[w];
+  }
+  score += (int)(up != 0u) - (int)(down != 0u);
+  // horizontal shifts with cross-word carries
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    const uint32_t nph =
+        w == 0 ? (ph[0] << 1) | 1u : __funnelshift_l(ph[w - 1], ph[w], 1);
+    const uint32_t nmh =
+        w == 0 ? mh[0] << 1 : __funnelshift_l(mh[w - 1], mh[w], 1);
+    pv[w] = nmh | ~(xv[w] | nph);
+    mv[w] = nph & xv[w];
+  }
+}
+
+// Walk one text through the DP of each of the warp's QW queries.  kSide:
+// some query of the warp has a side list (else a wide text unit matches
+// nothing, with no search).
+template <int W, int QW, int kStride, bool kSide>
+__device__ __forceinline__ void walk(const int32_t* text, int steps,
+                                     const uint32_t* tables, int wpq, int L,
+                                     const int (&nside)[QW],
+                                     uint32_t (&pv)[QW][W],
+                                     uint32_t (&mv)[QW][W], int (&score)[QW],
+                                     const uint32_t (&hib)[QW][W]) {
+#pragma unroll 2
+  for (int i = 0; i < steps; ++i) {
+    const uint32_t t = (uint32_t)text[i * kStride];
+#pragma unroll
+    for (int k = 0; k < QW; ++k) {
+      const uint32_t* peq = tables + k * wpq;
+      uint32_t eq[W];
+#pragma unroll
+      for (int w = 0; w < W; ++w) eq[w] = 0u;
+      if (t < (uint32_t)kDirect) {
+#pragma unroll
+        for (int w = 0; w < W; ++w) eq[w] = peq[w * kDirect + t];
+      } else if (kSide) {
+        const int32_t* side_unit =
+            reinterpret_cast<const int32_t*>(peq + kDirect * W);
+        const uint32_t* side_mask = peq + kDirect * W + L;
+        for (int s = 0; s < nside[k]; ++s) {
+          if ((uint32_t)side_unit[s] == t) {
+#pragma unroll
+            for (int w = 0; w < W; ++w) eq[w] = side_mask[w * L + s];
+            break;
+          }
+        }
+      }
+      hyyro_step<W>(eq, pv[k], mv[k], score[k], hib[k]);
+    }
+  }
+}
+
+template <int W>
+__global__ void __launch_bounds__(kWarps * kTileC)
 myers_tile_kernel(const int32_t* __restrict__ qchars,
                   const int32_t* __restrict__ qlen,
                   const int32_t* __restrict__ cchars,
                   const int32_t* __restrict__ clen,
                   int32_t* __restrict__ out, int Q, int C, int L) {
+  constexpr int QW = queries_per_warp<W>();
+  constexpr int kRows = kTileC * tiles<W>();
+  constexpr int kStride = kRows + 1;
   extern __shared__ int32_t smem[];
-  int32_t* s_text = smem;                             // [L][kTileC + 1]
-  int32_t* s_pat = smem + L * (kTileC + 1);           // [kTileQ][L]
-  __shared__ int s_maxcl;
+  const int lane = threadIdx.x;
+  const int warp = threadIdx.y;
+  const int wpq = (int)words_per_query<W>(L);
+  int32_t* s_text = smem;                               // [L][kStride]
+  uint32_t* tables = reinterpret_cast<uint32_t*>(smem + L * kStride) +
+                     warp * QW * wpq;                   // QW x [wpq]
 
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int tid = ty * kTileC + tx;
-  const int q0 = blockIdx.y * kTileQ;
-  const int c0 = blockIdx.x * kTileC;
-  if (tid == 0) s_maxcl = 0;
+  __shared__ int s_row[kRows];  // text tile column -> row of the block
+  __shared__ int s_len[kRows];  // that row's text length
+  const int tid = warp * kTileC + lane;
+  const int q0 = (blockIdx.y * kWarps + warp) * QW;     // the warp's queries
+  const int c0 = blockIdx.x * kRows;
 
-  // stage the corpus text tile transposed and the block's patterns
-  for (int e = tid; e < kTileC * L; e += kTileQ * kTileC) {
-    const int row = e / L;
-    const int col = e - row * L;
-    const int c = c0 + row;
-    s_text[col * (kTileC + 1) + row] =
-        c < C ? cchars[(int64_t)c * L + col] : 0;
-  }
-  for (int e = tid; e < kTileQ * L; e += kTileQ * kTileC) {
-    const int row = e / L;
-    const int q = q0 + row;
-    s_pat[e] = q < Q ? qchars[(int64_t)q * L + (e - row * L)] : 0;
-  }
-  const int q = q0 + ty;
-  const int c = c0 + tx;
-  const int ql = q < Q ? qlen[q] : 0;
-  const int cl = c < C ? clen[c] : 0;
-  __syncthreads();
-  if (ty == 0) atomicMax(&s_maxcl, cl);
-  __syncthreads();
-  const int steps = min(s_maxcl, L);
-  const int32_t* pat = s_pat + ty * L;
-  const int plen = min(ql, L);
-
-  uint32_t pv[W], mv[W];
-#pragma unroll
-  for (int w = 0; w < W; ++w) {
-    pv[w] = bits_below(ql - 32 * w);
-    mv[w] = 0u;
-  }
-  // the score bit rides in the pattern's last word/bit
-  const int last = max(ql, 1) - 1;
-  const int hi_word = last >> 5;
-  const uint32_t hibit = 1u << (last & 31);
-  int score = ql;
-
-  for (int i = 0; i < steps; ++i) {
-    const int32_t t = s_text[i * (kTileC + 1) + tx];
-    const bool active = i < cl;
-    uint32_t eq[W];
-#pragma unroll
-    for (int w = 0; w < W; ++w) {
-      uint32_t e = 0u;
-      const int jend = min(32, plen - 32 * w);
-      for (int j = 0; j < jend; ++j) {
-        e |= (uint32_t)(pat[32 * w + j] == t) << j;
-      }
-      eq[w] = e;
+  // order the block's rows by their step count, min(cl, L), so that the 32
+  // lanes of each tile walk texts of about one length: a counting sort
+  // (the order among rows of one length is free, as each row's result goes
+  // to its own column)
+  if constexpr (tiles<W>() > 1) {
+    __shared__ int s_count[32 * W + 1];
+    for (int k = tid; k <= L; k += kWarps * kTileC) s_count[k] = 0;
+    __syncthreads();
+    int len = 0, key = 0, pos = 0;
+    if (tid < kRows) {
+      len = c0 + tid < C ? clen[c0 + tid] : 0;
+      key = min(max(len, 0), L);
+      pos = atomicAdd(&s_count[key], 1);
     }
-    uint32_t xv[W], xh[W], ph[W], mh[W];
-    uint32_t carry = 0u;
-#pragma unroll
-    for (int w = 0; w < W; ++w) {
-      xv[w] = eq[w] | mv[w];
-      // xh = (((eq & pv) + pv) ^ pv) | eq, the carry crossing words (the
-      // carry out of the last word falls off the pattern window)
-      const uint64_t s = (uint64_t)(eq[w] & pv[w]) + pv[w] + carry;
-      carry = (uint32_t)(s >> 32);
-      xh[w] = (((uint32_t)s) ^ pv[w]) | eq[w];
-      ph[w] = mv[w] | ~(xh[w] | pv[w]);
-      mh[w] = pv[w] & xh[w];
-    }
-    uint32_t ph_hi = ph[0], mh_hi = mh[0];
-#pragma unroll
-    for (int w = 1; w < W; ++w) {
-      if (hi_word == w) {
-        ph_hi = ph[w];
-        mh_hi = mh[w];
+    __syncthreads();
+    if (warp == 0) {  // exclusive prefix sum over the L + 1 counts
+      int base = 0;
+      for (int k0 = 0; k0 <= L; k0 += kTileC) {
+        const int k = k0 + lane;
+        const int n = k <= L ? s_count[k] : 0;
+        int incl = n;
+        for (int o = 1; o < kTileC; o <<= 1) {
+          const int y = __shfl_up_sync(kFull, incl, o);
+          if (lane >= o) incl += y;
+        }
+        if (k <= L) s_count[k] = base + incl - n;
+        base += __shfl_sync(kFull, incl, kTileC - 1);
       }
     }
-    if (active) {
-      score += (ph_hi & hibit) != 0u;
-      score -= (mh_hi & hibit) != 0u;
-      // horizontal shifts with cross-word carries
-      uint32_t ph_c = 1u, mh_c = 0u;
+    __syncthreads();
+    if (tid < kRows) {
+      s_row[s_count[key] + pos] = tid;
+      s_len[s_count[key] + pos] = len;
+    }
+  } else if (tid < kRows) {
+    s_row[tid] = tid;
+    s_len[tid] = c0 + tid < C ? clen[c0 + tid] : 0;
+  }
+  __syncthreads();
+
+  // stage the corpus text tile transposed, in that order (each warp some
+  // rows, its lanes reading consecutive units)
+  for (int r = warp; r < kRows; r += kWarps) {
+    const int c = c0 + s_row[r];
+    for (int col = lane; col < L; col += kTileC) {
+      s_text[col * kStride + r] = c < C ? cchars[(int64_t)c * L + col] : 0;
+    }
+  }
+
+  // the warp's match tables; the score bit rides in each pattern's last
+  // word/bit
+  int ql[QW], nside[QW];
+  uint32_t hib[QW][W];
+  int sides = 0, live = 0;
+#pragma unroll
+  for (int k = 0; k < QW; ++k) {
+    const int q = q0 + k;
+    ql[k] = q < Q ? qlen[q] : 0;
+    nside[k] = build_table<W>(tables + k * wpq, qchars + (int64_t)q * L,
+                              min(max(ql[k], 0), L), L, lane);
+    sides += nside[k];
+    live += q < Q && ql[k] > 0;
+    const int last = max(ql[k], 1) - 1;
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      hib[k][w] = (last >> 5) == w ? 1u << (last & 31) : 0u;
+    }
+  }
+  __syncthreads();
+
+  for (int tile = 0; tile < tiles<W>(); ++tile) {
+    const int r = tile * kTileC + lane;
+    const int c = c0 + s_row[r];
+    const int cl = s_len[r];
+    // empty patterns (or padding queries) need no DP
+    const int steps = live ? min(cl, L) : 0;
+    uint32_t pv[QW][W], mv[QW][W];
+    int score[QW];
+#pragma unroll
+    for (int k = 0; k < QW; ++k) {
 #pragma unroll
       for (int w = 0; w < W; ++w) {
-        const uint32_t nph = (ph[w] << 1) | ph_c;
-        const uint32_t nmh = (mh[w] << 1) | mh_c;
-        ph_c = ph[w] >> 31;
-        mh_c = mh[w] >> 31;
-        pv[w] = nmh | ~(xv[w] | nph);
-        mv[w] = nph & xv[w];
+        pv[k][w] = bits_below(ql[k] - 32 * w);
+        mv[k][w] = 0u;
+      }
+      score[k] = ql[k];
+    }
+    if (sides > 0) {
+      walk<W, QW, kStride, true>(s_text + r, steps, tables, wpq, L, nside,
+                                 pv, mv, score, hib);
+    } else {
+      walk<W, QW, kStride, false>(s_text + r, steps, tables, wpq, L, nside,
+                                  pv, mv, score, hib);
+    }
+#pragma unroll
+    for (int k = 0; k < QW; ++k) {
+      if (q0 + k < Q && c < C) {
+        out[(int64_t)(q0 + k) * C + c] = ql[k] == 0 ? cl : score[k];
       }
     }
-  }
-  if (q < Q && c < C) {
-    out[(int64_t)q * C + c] = ql == 0 ? cl : score;
   }
 }
 
@@ -161,9 +384,18 @@ template <int W>
 cudaError_t launch(const int32_t* qchars, const int32_t* qlen,
                    const int32_t* cchars, const int32_t* clen, int32_t* out,
                    int Q, int C, int L, cudaStream_t stream) {
-  const dim3 block(kTileC, kTileQ);
-  const dim3 grid((C + kTileC - 1) / kTileC, (Q + kTileQ - 1) / kTileQ);
-  const size_t shmem = sizeof(int32_t) * (size_t)L * (kTileC + 1 + kTileQ);
+  constexpr int rows = kTileC * tiles<W>();
+  constexpr int queries = kWarps * queries_per_warp<W>();
+  const dim3 block(kTileC, kWarps);
+  const dim3 grid((C + rows - 1) / rows, (Q + queries - 1) / queries);
+  const size_t shmem = sizeof(int32_t) * ((size_t)L * (rows + 1) +
+                                          queries * words_per_query<W>(L));
+  if (shmem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        myers_tile_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)shmem);
+    if (err != cudaSuccess) return err;
+  }
   myers_tile_kernel<W><<<grid, block, shmem, stream>>>(
       qchars, qlen, cchars, clen, out, Q, C, L);
   return cudaGetLastError();

@@ -5,7 +5,9 @@ Pallas kernels:
 
   * ``_myers_tile_kernel`` and ``_myersN_tile_kernel`` -- all-pairs
     Levenshtein distance -- become one CUDA kernel templated on the word
-    count, ``csrc/myers_tile.cu`` (``myers_distance_tiles``);
+    count, which looks each text unit's match words up in a per-warp
+    table of its query's units, ``csrc/myers_tile.cu``
+    (``myers_distance_tiles``);
   * ``_jw_tile_kernel`` -- all-pairs Jaro-Winkler similarity --
     ``csrc/jw_tile.cu`` (``jaro_winkler_sim_tiles``);
   * ``_myers_gathered_kernel`` -- Levenshtein distance of each query to

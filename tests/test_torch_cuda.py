@@ -1,10 +1,12 @@
 """Card tests of the PyTorch port: each CUDA kernel against its plain
-PyTorch version at odd sizes (Q, C and K multiples of no tile, every width,
-empty strings and sets, garbage set padding; for the segment-max kernel
-two and three tiles, seg 1 / 8 / 64, group filtering on and off, masked
-bins and a duplicate cluster), the dd rescorer on ``cuda`` against the
-same program on ``cpu``, and the ``device`` and ``ann`` services on
-``cuda`` against the same services on ``cpu``.
+PyTorch version at odd sizes (Q, C and K multiples of no tile, every
+width, empty strings and sets, garbage set padding; for the Myers tile
+kernel also every kind of wide UTF-16 alphabet in tests/wide_units.py;
+for the segment-max kernel two and three tiles, seg 1 / 8 / 64, group
+filtering on and off, masked bins and a duplicate cluster), the dd
+rescorer on ``cuda`` against the same program on ``cpu``, and the
+``device`` and ``ann`` services on ``cuda`` against the same services on
+``cpu``.
 
 Every test here needs an NVIDIA GPU and skips without one.  The module
 imports no JAX, so on a machine without it run::
@@ -27,6 +29,7 @@ for _knob, _value in (("DEVICE_CHUNK", "512"),
 from sesam_duke_microservice_tpu_torch.core.config import parse_config  # noqa: E402
 from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
 from sesam_duke_microservice_tpu_torch.service.app import DukeApp  # noqa: E402
+from wide_units import KINDS, wide_unit_inputs  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -67,6 +70,20 @@ def test_kernel_equals_plain_version(l, cuda_device):
     # the plain version on the CPU agrees as well
     cpu = ck.myers_distance_tiles(*(t.cpu() for t in (qc, ql, cc, cl)))
     assert torch.equal(got.cpu(), cpu)
+
+
+@pytest.mark.parametrize("kind", KINDS + ("all",))
+@pytest.mark.parametrize("l", [24, 32, 64, 128, 200, 256])
+def test_kernel_equals_plain_version_on_wide_units(l, kind, cuda_device):
+    # the match table's side list, low-byte collisions, surrogates, U+0000
+    # inside the length, > 32 distinct units, runs (tests/wide_units.py)
+    qc, ql, cc, cl = [torch.from_numpy(a).to(cuda_device)
+                      for a in wide_unit_inputs(kind, l, 37, 300, l)]
+    ck.reset_launch_counts()
+    got = ck.myers_distance_tiles(qc, ql, cc, cl)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ck.myers_distance_tiles_reference(qc, ql, cc, cl))
+    assert sum(ck.LAUNCHES.values()) == 1
 
 
 @pytest.mark.parametrize("l", [1, 2, 7, 16, 24, 31, 32])

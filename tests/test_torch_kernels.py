@@ -7,8 +7,9 @@ widths), gathered Myers distances and set-intersection counts exactly,
 Jaro-Winkler similarities within the reference's CHARS similarity budget
 (XLA on the CPU may contract the boost into a fused multiply-add).  Inputs
 carry empty strings and sets, full-width rows, SET_PAD and garbage padding,
-and Q / C / K that are multiples of no tile.  The CUDA kernels themselves
-are held against the plain versions on the card by
+and Q / C / K that are multiples of no tile; the Myers distances also
+every wide UTF-16 alphabet of tests/wide_units.py.  The CUDA kernels
+themselves are held against the plain versions on the card by
 tests/test_torch_cuda.py.
 """
 
@@ -22,6 +23,7 @@ from sesam_duke_microservice_tpu.ops import pallas_kernels as pk
 from sesam_duke_microservice_tpu.ops import scoring as jax_scoring
 from sesam_duke_microservice_tpu.ops.features import CHARS, SET_PAD
 from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
+from wide_units import wide_unit_inputs
 
 SIM_TOL = jax_scoring._SIM_ERROR_BOUND[CHARS]
 
@@ -54,9 +56,20 @@ def _torch(*arrays):
     return [torch.from_numpy(a) for a in arrays]
 
 
-@pytest.mark.parametrize("l", [8, 24, 32, 64, 256])
-def test_plain_myers_equals_pallas_kernel(l):
-    qc, ql, cc, cl = _inputs(l, 11, 19, l)
+# the small alphabet at every kernel width, then every kind of wide
+# alphabet (tests/wide_units.py) at the widths of W = 1, 2, 4 and 8: the
+# card tests hold the kernel's table lookup against this plain version
+@pytest.mark.parametrize(
+    "l,alphabet",
+    [(l, "abcd") for l in (8, 24, 32, 64, 256)]
+    + [(l, "all") for l in (32, 64, 128, 256)],
+    ids=["8", "24", "32", "64", "256"]
+    + [f"wide-{l}" for l in (32, 64, 128, 256)])
+def test_plain_myers_equals_pallas_kernel(l, alphabet):
+    if alphabet == "all":
+        qc, ql, cc, cl = wide_unit_inputs("all", l, 15, 23, l)
+    else:
+        qc, ql, cc, cl = _inputs(l, 11, 19, l)
     want = _jax_distances(qc, ql, cc, cl)
     got = ck.myers_distance_tiles(*_torch(qc, ql, cc, cl)).numpy()
     np.testing.assert_array_equal(got, want)
