@@ -73,13 +73,17 @@ PEAK_BYTES_PER_S = 3.35e12
 # int32 lanes per Hopper SM (NVIDIA H100 architecture whitepaper: 64 INT32
 # units per SM); the int32 ALU peak is lanes x SMs x the card's max SM clock
 INT32_LANES_PER_SM = 64
-# int32 operations the Myers DP needs per 32-bit word per text step: the
-# match word's table lookup, then Xv (or), Xh (and, add, carry add, carry
-# shift, xor, or), Ph (or, not, or), Mh (and), the Ph and Mh shifts (shift,
-# or, carry shift each), Pv (or, not, or) and Mv (and); plus 4 per text
-# step for the score
-OPS_PER_WORD_STEP = 22
-OPS_PER_STEP = 4
+# the fewest int32 instructions a 32-bit word of the Myers DP needs per text
+# step: (eq & Pv) and its add (a carry-chained add per word past the
+# first), Xh = (sum ^ Pv) | eq, Ph = Mv | ~(Xh | Pv) and Mh = Pv & Xh (one
+# three-input LOP3 each), Xv = eq | Mv, the two horizontal shifts (a funnel
+# shift or shift-add each), Pv = Mh' | ~(Xv | Ph') (one LOP3) and
+# Mv = Ph' & Xv.  The match word and text unit are shared-memory loads, not
+# ALU work; the score is read once per pair from the last column (O(W)
+# popcounts, left out).  The CUDA C++ Programming Guide's throughput table
+# gives 64 results per clock per SM for each of these int32 kinds at
+# compute capability 9.0.
+OPS_PER_WORD_STEP = 10
 # Jaro-Winkler with the match done by lookup, as the bound counts it: each
 # corpus row keeps one position mask per char, built once and shared by all
 # queries; per query char the row's mask of that char, the window mask, the
@@ -958,7 +962,8 @@ def bound(nbytes, ops, peak_ops):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def myers_bound(qc, ql, cc, cl, peak_ops):
+def myers_bound(qc, ql, cc, cl, peak_ops, ops_per_word_step=OPS_PER_WORD_STEP,
+                ops_per_step=0):
     """Inputs read once and the (Q, C) int32 output written once; a pair
     with a non-empty pattern needs cl text steps of W words."""
     from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
@@ -967,7 +972,7 @@ def myers_bound(qc, ql, cc, cl, peak_ops):
     c = cc.shape[0]
     nbytes = 4 * (q * l + q + c * l + c) + 4 * q * c
     steps = float(cl.double().sum()) * float((ql > 0).sum())
-    ops = steps * (OPS_PER_WORD_STEP * ck.kernel_words(l) + OPS_PER_STEP)
+    ops = steps * (ops_per_word_step * ck.kernel_words(l) + ops_per_step)
     return bound(nbytes, ops, peak_ops)
 
 
@@ -1005,8 +1010,7 @@ def gathered_bound(qc, ql, cc, cl, peak_ops):
     k = cc.shape[1]
     nbytes = 4 * (q * l + q + q * k * l + q * k) + 4 * q * k
     steps = float((cl.double() * (ql > 0).double()[:, None]).sum())
-    return bound(nbytes, steps * (OPS_PER_WORD_STEP + OPS_PER_STEP),
-                 peak_ops)
+    return bound(nbytes, steps * OPS_PER_WORD_STEP, peak_ops)
 
 
 def intersect_bound(qg, qn, cg, cn, common, peak_ops):

@@ -29,35 +29,40 @@
 //   * Per text step each thread loads its text unit once and, per query,
 //     W table words, then runs the Hyyro step: the add (eq & Pv) + Pv as
 //     one W-word add through the carry flag (PTX add.cc / addc; a plain
-//     32-bit add at W = 1), the horizontal shifts as funnel shifts, the
-//     score bit picked from the pattern's last word by a per-query mask.
-//     Two queries give each thread two independent chains to interleave.
+//     32-bit add at W = 1), the horizontal shifts as funnel shifts.  Two
+//     queries give each thread two independent chains to interleave.
+//   * The score is read once, after the last text step, from the last
+//     column's vertical deltas: d = steps + popc(Pv) - popc(Mv) over the
+//     pattern's ql bits (D[0][n] = n, plus the column's +1s and -1s), so
+//     the step loop carries no score.
 //   * Each lane steps only through its own row's text (min(cl, L) steps),
 //     so a warp takes as many steps as the longest of its 32 rows.  Where
 //     a block holds several tiles, a counting sort orders the block's rows
 //     by that step count before the text is staged, so each tile holds
 //     texts of about one length.
-// The similarity / logit math stays in torch, outside this kernel, so
-// nvcc's FMA contraction never touches it.
+// Lengths are taken to lie in [0, L].  The similarity / logit math stays
+// in torch, outside this kernel, so nvcc's FMA contraction never touches
+// it.
 //
-// Bound.  The DP needs, per pair, cl text steps of ~22 int32 operations
-// per word (a match-table lookup, then the Xv/Xh/Ph/Mh/Pv/Mv bit-ops, the
-// add with its carry and the cross-word shifts) plus ~4 for the score;
-// it writes one int32 per pair, and its inputs are O((Q + C) L).  At the
-// main path's shapes (Q >= 1024, C = 8192) that is hundreds of operations
-// per output byte, far above the H100's ops:bytes balance, so the bound is
-// the int32 ALU rate (64 lanes per SM), not device memory.  The kernel
-// issues fewer int32 instructions per pair and step than that count
-// (three-input logic fuses into one LOP3; two queries share a text load
-// and the loop control), so at W <= 2 it runs at about the bound.  At
-// W >= 4 a block holds one tile, so its rows go unsorted and lanes idle
-// behind the longest row of their warp, and shared memory allows fewer
-// warps per SM.
+// Bound.  The fewest int32 instructions a pair's DP needs: cl text steps
+// of 10 per word -- (eq & Pv) and its add (one carry-chained add per word
+// at W > 1), Xh = (sum ^ Pv) | eq, Ph = Mv | ~(Xh | Pv) and Mh = Pv & Xh
+// (one three-input LOP3 each), Xv = eq | Mv, the two horizontal shifts
+// (a funnel shift or shift-add each), Pv = Mh' | ~(Xv | Ph') (one LOP3)
+// and Mv = Ph' & Xv.  The match word and the text unit are shared-memory
+// loads, not int32 ALU work, and the score's O(W) popcounts per pair are
+// left out.  The kernel writes one int32 per pair and reads O((Q + C) L)
+// inputs: at the main path's shapes (Q >= 1024, C = 8192) that is tens of
+// operations per output byte, above the H100's ops:bytes balance, so the
+// bound is the int32 ALU rate (64 lanes per SM).  At W >= 4 a block holds
+// one tile, so its rows go unsorted and lanes idle behind the longest row
+// of their warp, and shared memory allows fewer warps per SM.
 //
 // Shared memory: the text tile (L x (32 kTiles + 1) units) plus, per
 // query, the table and the side list ((256 W + L + W L) words): 36.1 KB
 // at W = 1 (L 32), 60.3 KB at W = 2 (L 64), 68.5 KB at W = 4 (L 128),
-// 169 KB at W = 8 (L 256), past 48 KB through
+// 169 KB at W = 8 (L 256).  The limit is raised past 48 KB once per W,
+// to its largest launch (L = 32 W), through
 // cudaFuncAttributeMaxDynamicSharedMemorySize.
 //
 // Returns cudaGetLastError() after the launch (0 on success).
@@ -179,29 +184,24 @@ __device__ __forceinline__ int build_table(uint32_t* table,
 }
 
 // One text step of the W-word Myers/Hyyro recurrence on looked-up match
-// words; hib holds the pattern's last bit in its word, 0 in the others.
+// words.
 template <int W>
 __device__ __forceinline__ void hyyro_step(const uint32_t (&eq)[W],
                                            uint32_t (&pv)[W],
-                                           uint32_t (&mv)[W], int& score,
-                                           const uint32_t (&hib)[W]) {
+                                           uint32_t (&mv)[W]) {
   // xh = (((eq & pv) + pv) ^ pv) | eq, the add carrying across words
   uint32_t sum[W];
 #pragma unroll
   for (int w = 0; w < W; ++w) sum[w] = eq[w] & pv[w];
   add_words<W>(sum, pv);
   uint32_t xv[W], ph[W], mh[W];
-  uint32_t up = 0u, down = 0u;
 #pragma unroll
   for (int w = 0; w < W; ++w) {
     xv[w] = eq[w] | mv[w];
     const uint32_t xh = (sum[w] ^ pv[w]) | eq[w];
     ph[w] = mv[w] | ~(xh | pv[w]);
     mh[w] = pv[w] & xh;
-    up |= ph[w] & hib[w];
-    down |= mh[w] & hib[w];
   }
-  score += (int)(up != 0u) - (int)(down != 0u);
   // horizontal shifts with cross-word carries
 #pragma unroll
   for (int w = 0; w < W; ++w) {
@@ -214,16 +214,14 @@ __device__ __forceinline__ void hyyro_step(const uint32_t (&eq)[W],
   }
 }
 
-// Walk one text through the DP of each of the warp's QW queries.  kSide:
-// some query of the warp has a side list (else a wide text unit matches
-// nothing, with no search).
-template <int W, int QW, int kStride, bool kSide>
+// Walk one text through the DP of each of the warp's QW queries; a text
+// unit of 256 or more searches each query's side list (nside entries).
+template <int W, int QW, int kStride>
 __device__ __forceinline__ void walk(const int32_t* text, int steps,
                                      const uint32_t* tables, int wpq, int L,
                                      const int (&nside)[QW],
                                      uint32_t (&pv)[QW][W],
-                                     uint32_t (&mv)[QW][W], int (&score)[QW],
-                                     const uint32_t (&hib)[QW][W]) {
+                                     uint32_t (&mv)[QW][W]) {
 #pragma unroll 2
   for (int i = 0; i < steps; ++i) {
     const uint32_t t = (uint32_t)text[i * kStride];
@@ -236,7 +234,7 @@ __device__ __forceinline__ void walk(const int32_t* text, int steps,
       if (t < (uint32_t)kDirect) {
 #pragma unroll
         for (int w = 0; w < W; ++w) eq[w] = peq[w * kDirect + t];
-      } else if (kSide) {
+      } else {
         const int32_t* side_unit =
             reinterpret_cast<const int32_t*>(peq + kDirect * W);
         const uint32_t* side_mask = peq + kDirect * W + L;
@@ -248,7 +246,7 @@ __device__ __forceinline__ void walk(const int32_t* text, int steps,
           }
         }
       }
-      hyyro_step<W>(eq, pv[k], mv[k], score[k], hib[k]);
+      hyyro_step<W>(eq, pv[k], mv[k]);
     }
   }
 }
@@ -326,24 +324,16 @@ myers_tile_kernel(const int32_t* __restrict__ qchars,
     }
   }
 
-  // the warp's match tables; the score bit rides in each pattern's last
-  // word/bit
+  // the warp's match tables
   int ql[QW], nside[QW];
-  uint32_t hib[QW][W];
-  int sides = 0, live = 0;
+  int live = 0;
 #pragma unroll
   for (int k = 0; k < QW; ++k) {
     const int q = q0 + k;
-    ql[k] = q < Q ? qlen[q] : 0;
+    ql[k] = q < Q ? min(max(qlen[q], 0), L) : 0;
     nside[k] = build_table<W>(tables + k * wpq, qchars + (int64_t)q * L,
-                              min(max(ql[k], 0), L), L, lane);
-    sides += nside[k];
-    live += q < Q && ql[k] > 0;
-    const int last = max(ql[k], 1) - 1;
-#pragma unroll
-    for (int w = 0; w < W; ++w) {
-      hib[k][w] = (last >> 5) == w ? 1u << (last & 31) : 0u;
-    }
+                              ql[k], L, lane);
+    live += ql[k] > 0;
   }
   __syncthreads();
 
@@ -352,9 +342,8 @@ myers_tile_kernel(const int32_t* __restrict__ qchars,
     const int c = c0 + s_row[r];
     const int cl = s_len[r];
     // empty patterns (or padding queries) need no DP
-    const int steps = live ? min(cl, L) : 0;
+    const int steps = live ? min(max(cl, 0), L) : 0;
     uint32_t pv[QW][W], mv[QW][W];
-    int score[QW];
 #pragma unroll
     for (int k = 0; k < QW; ++k) {
 #pragma unroll
@@ -362,41 +351,47 @@ myers_tile_kernel(const int32_t* __restrict__ qchars,
         pv[k][w] = bits_below(ql[k] - 32 * w);
         mv[k][w] = 0u;
       }
-      score[k] = ql[k];
     }
-    if (sides > 0) {
-      walk<W, QW, kStride, true>(s_text + r, steps, tables, wpq, L, nside,
-                                 pv, mv, score, hib);
-    } else {
-      walk<W, QW, kStride, false>(s_text + r, steps, tables, wpq, L, nside,
-                                  pv, mv, score, hib);
-    }
+    walk<W, QW, kStride>(s_text + r, steps, tables, wpq, L, nside, pv, mv);
 #pragma unroll
     for (int k = 0; k < QW; ++k) {
+      // d(pattern, text) = steps + the last column's +1s - its -1s, over
+      // the pattern's bits (those above it never reach them)
+      int score = steps;
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        const uint32_t bits = bits_below(ql[k] - 32 * w);
+        score += __popc(pv[k][w] & bits) - __popc(mv[k][w] & bits);
+      }
       if (q0 + k < Q && c < C) {
-        out[(int64_t)(q0 + k) * C + c] = ql[k] == 0 ? cl : score[k];
+        out[(int64_t)(q0 + k) * C + c] = ql[k] == 0 ? cl : score;
       }
     }
   }
 }
 
 template <int W>
+size_t shmem_bytes(int L) {
+  return sizeof(int32_t) * ((size_t)L * (kTileC * tiles<W>() + 1) +
+                            kWarps * queries_per_warp<W>() *
+                                words_per_query<W>(L));
+}
+
+template <int W>
 cudaError_t launch(const int32_t* qchars, const int32_t* qlen,
                    const int32_t* cchars, const int32_t* clen, int32_t* out,
                    int Q, int C, int L, cudaStream_t stream) {
+  // once per W (and process), for the current device: allow the largest
+  // launch of this W, at L = 32 W
+  static const cudaError_t limit = cudaFuncSetAttribute(
+      myers_tile_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)shmem_bytes<W>(32 * W));
+  if (limit != cudaSuccess) return limit;
   constexpr int rows = kTileC * tiles<W>();
   constexpr int queries = kWarps * queries_per_warp<W>();
   const dim3 block(kTileC, kWarps);
   const dim3 grid((C + rows - 1) / rows, (Q + queries - 1) / queries);
-  const size_t shmem = sizeof(int32_t) * ((size_t)L * (rows + 1) +
-                                          queries * words_per_query<W>(L));
-  if (shmem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        myers_tile_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)shmem);
-    if (err != cudaSuccess) return err;
-  }
-  myers_tile_kernel<W><<<grid, block, shmem, stream>>>(
+  myers_tile_kernel<W><<<grid, block, shmem_bytes<W>(L), stream>>>(
       qchars, qlen, cchars, clen, out, Q, C, L);
   return cudaGetLastError();
 }
