@@ -36,9 +36,10 @@ Phases, each fatal on failure:
    equal except where neighbouring scores differ by less than it, logits
    of equal rows within ``certified_f32_margin``);
 6. hold every kernel against its plain PyTorch version on the card at
-   every shape the main paths gave it (Myers also at L=64 and 256, and at
-   each of those shapes also on the wide UTF-16 alphabets of
-   tests/wide_units.py, and timed a second time on stresstest name rows)
+   every shape the main paths gave it (Myers also at L=64 and 256; Myers
+   and Jaro-Winkler at each of their shapes also on the wide UTF-16
+   alphabets of tests/wide_units.py; Myers timed a second time on
+   stresstest name rows)
    -- integer results exactly, the segment max within ``4 D 2^-24`` with its
    argmax equal wherever a bin's best leads by more -- and time both with
    CUDA events beside the kernel's bound (and the segment max beside
@@ -84,13 +85,20 @@ INT32_LANES_PER_SM = 64
 # gives 64 results per clock per SM for each of these int32 kinds at
 # compute capability 9.0.
 OPS_PER_WORD_STEP = 10
-# Jaro-Winkler with the match done by lookup, as the bound counts it: each
-# corpus row keeps one position mask per char, built once and shared by all
-# queries; per query char the row's mask of that char, the window mask, the
-# and-not with the used positions, its lowest bit (negate, and), the two
-# ors and the count; per match the walk's two lowest-bit finds, the compare,
-# the count and the two bit clears; per common-prefix char a compare and a
-# count.  The per-row tables (C x L, under 1/Q of the rest) are left out.
+# Jaro-Winkler with the match done by lookup, as the bound counts it.  The
+# greedy match can walk either side: each query char in order taking the
+# lowest unmatched text position in its window, or each text char in order
+# taking the lowest unmatched query position -- both give the same matched
+# positions (tests/test_torch_jw_walk.py) -- so the least work walks the
+# shorter side, min(l1, l2) steps a pair, against a position-mask table of
+# the other side built once per row and shared by every pair of it (Q x L
+# plus C x L entries, under 1/min(Q, C) of the rest, left out).  Per step:
+# the table's mask of the char, the window mask and its slide, the and-not
+# with the used positions, its lowest bit (negate, and) and the two ors, 8.
+# Per match the walk's two lowest-bit finds, the compare, the count and the
+# two bit clears; per common-prefix char a compare and a count.
+# (``jw_bound(..., shorter=False)`` gives the earlier count of l1 steps a
+# pair, against a per-corpus-row table, for comparison with older times.)
 JW_OPS_PER_CHAR = 8
 JW_OPS_PER_MATCH = 6
 JW_OPS_PER_PREFIX = 2
@@ -898,21 +906,21 @@ def char_inputs(q, c, l, seed):
     return qc, ql, cc, cl
 
 
-def check_wide_units(name, q, c, l):
-    """Hold the Myers kernel exactly against its plain version on the
-    wide UTF-16 alphabets of tests/wide_units.py (units of 256 and up,
-    shared low bytes, surrogates, U+0000 inside the length, > 32 distinct
-    units, runs), every row kind meeting every other."""
+def check_wide_units(name, q, c, l, run, plain):
+    """Hold a char-tile kernel, ``run(qc, ql, cc, cl)``, exactly (bit for
+    bit) against its plain version on the wide UTF-16 alphabets of
+    tests/wide_units.py (units of 256 and up, shared low bytes, surrogates,
+    U+0000 inside the length, > 32 distinct units, runs), every row kind
+    meeting every other."""
     import torch
 
-    from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
     from wide_units import wide_unit_inputs
 
     qc, ql, cc, cl = (torch.from_numpy(a).to(DEVICE)
                       for a in wide_unit_inputs("all", q + l, q, c, l))
-    got = ck.myers_distance_tiles(qc, ql, cc, cl)
+    got = run(qc, ql, cc, cl)
     torch.cuda.synchronize()
-    if not torch.equal(got, ck.myers_distance_tiles_reference(qc, ql, cc, cl)):
+    if not torch.equal(got, plain(qc, ql, cc, cl)):
         raise AssertionError(f"{name} differs from its plain version on wide "
                              f"UTF-16 units at {(q, c, l)}")
     print(f"kernel {name} {(q, c, l)}: exact on wide UTF-16 units", flush=True)
@@ -976,17 +984,26 @@ def myers_bound(qc, ql, cc, cl, peak_ops, ops_per_word_step=OPS_PER_WORD_STEP,
     return bound(nbytes, ops, peak_ops)
 
 
-def jw_bound(qc, ql, cc, cl, max_prefix, peak_ops):
-    """Inputs once, the (Q, C) f32 output once; per pair with a non-empty
-    text the lookup-based match over its l1 query chars, plus the walk over
-    this run's matches and the common prefix (both counted by the flat
+def jw_bound(qc, ql, cc, cl, max_prefix, peak_ops, shorter=True):
+    """Inputs once, the (Q, C) f32 output once; per pair the lookup-based
+    match over min(l1, l2) steps (``shorter=False``: the l1 query chars of
+    each pair with a non-empty text, the earlier count), plus the walk
+    over this run's matches and the common prefix (both counted by the flat
     ``pairwise`` Jaro)."""
+    import torch
+
     from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
     from sesam_duke_microservice_tpu_torch.ops import pairwise as pw
 
     q, l = qc.shape
     c = cc.shape[0]
     nbytes = 4 * (q * l + q + c * l + c) + 4 * q * c
+    qn, cn = ql.long().clamp(0, l), cl.long().clamp(0, l)
+    if shorter:
+        chars = float(sum(torch.minimum(qn[s:e, None], cn[None, :]).sum()
+                          for s, e in ck.row_blocks(q, c)))
+    else:
+        chars = float(qn.sum()) * float((cn > 0).sum())
     matches = prefix = 0
     for s, e in ck.row_blocks(q, c * l):
         n = e - s
@@ -997,7 +1014,6 @@ def jw_bound(qc, ql, cc, cl, max_prefix, peak_ops):
         matches += int(pw.jaro_counts(c1, l1, c2, l2)[0].sum())
         prefix += int(pw.common_prefix_count(c1, c2, l1, l2,
                                              max_prefix=max_prefix).sum())
-    chars = float(ql.double().clamp(0, l).sum()) * float((cl > 0).sum())
     ops = (JW_OPS_PER_CHAR * chars + JW_OPS_PER_MATCH * matches
            + JW_OPS_PER_PREFIX * prefix)
     return bound(nbytes, ops, peak_ops)
@@ -1079,7 +1095,8 @@ def phase_kernels(shapes, peak_ops):
             lambda: ck.myers_distance_tiles(qc, ql, cc, cl),
             lambda: ck.myers_distance_tiles_reference(qc, ql, cc, cl),
             lambda _: myers_bound(qc, ql, cc, cl, peak_ops))
-        check_wide_units(name, q, c, l)
+        check_wide_units(name, q, c, l, ck.myers_distance_tiles,
+                         ck.myers_distance_tiles_reference)
     q, c, l = NAMES_SHAPE
     qc, ql, cc, cl = name_inputs(q, c, l)
     names = measure(
@@ -1103,6 +1120,10 @@ def phase_kernels(shapes, peak_ops):
             lambda: ck.jaro_winkler_sim_tiles_reference(qc, ql, cc, cl,
                                                         none, **kw),
             lambda _: jw_bound(qc, ql, cc, cl, kw["max_prefix"], peak_ops))
+        check_wide_units(
+            "jw_tile", q, c, l,
+            lambda *t: ck.jaro_winkler_sim_tiles(*t, none, **kw),
+            lambda *t: ck.jaro_winkler_sim_tiles_reference(*t, none, **kw))
     for q, k, l in sorted(shapes["myers_distance_gathered"]):
         qc, ql, pool, pool_len = char_inputs(q, 4096, l, seed=11 + k)
         gen = torch.Generator(device=DEVICE).manual_seed(k)
@@ -1166,6 +1187,14 @@ def segmax_inputs(q, n, d, seed):
     return unit(q), unit(n), valid, deleted, group, qrow, qgroup
 
 
+def segmax_bound(q, n, d, seg, peak_flops):
+    """Embeddings, the row masks and groups and the query rows and groups
+    read once, the (Q, N/seg) f32 + int32 outputs written once; 2 N D Q
+    operations at the bf16 dense peak."""
+    nbytes = (2 * (q + n) * d + 6 * n + 8 * q) + 8 * q * (n // seg)
+    return bound(nbytes, 2.0 * n * d * q, peak_flops)
+
+
 def measure_segmax(shape, peak_flops, runs=10):
     """Hold the segment-max kernel against its plain version at ``shape``
     (``seg_max`` within the bar, ``seg_arg`` equal where decided), time
@@ -1191,8 +1220,7 @@ def measure_segmax(shape, peak_flops, runs=10):
     plain_ms = cuda_ms(lambda: ck.retrieval_segmax_reference(*args, **kw), 2)
     qe, ce = args[0], args[1]
     matmul_ms = cuda_ms(lambda: torch.matmul(ce, qe.T), runs)
-    nbytes = (2 * (q + n) * d + 6 * n + 8 * q) + 8 * q * (n // seg)
-    bound_ms, bound_by = bound(nbytes, 2.0 * n * d * q, peak_flops)
+    bound_ms, bound_by = segmax_bound(q, n, d, seg, peak_flops)
     print(f"kernel retrieval_segmax {shape}: max |seg_max err| {err:.3g} "
           f"(bar {tol:.3g}), seg_arg equal where decided; {ms:.3f} ms (plain "
           f"{plain_ms:.1f} ms, torch.matmul of the bf16 product alone "

@@ -1,31 +1,53 @@
 #!/usr/bin/env python3
-"""Time variants of the Myers tile kernel side by side on one NVIDIA GPU.
+"""Time versions of one tile kernel side by side on one NVIDIA GPU.
 
-    python3 myers_ab.py [--sass PATH] [NAME=PATH.cu ...]
+    python3 myers_ab.py [--kernel myers_tile|jw_tile|retrieval_segmax]
+                        [--sass PATH] [NAME=PATH.cu ...]
 
-Builds ``csrc/myers_tile.cu`` as it stands ("kernel"), three variants
-made from it by text edits, and every further source given as NAME=PATH
-(another version of the same file, with the same ``myers_tiles`` entry
-point), one nvcc each, all at once, with the package's nvcc flags and
-``-Xptxas -v`` (printed for "kernel"; with ``--sass PATH`` its machine
-code, ``cuobjdump -sass``, is written to PATH):
+Builds ``csrc/<kernel>.cu`` as it stands ("kernel"; the default kernel is
+``myers_tile``) and every further source given as NAME=PATH (another
+version of the same file with the same C entry point, e.g. an earlier
+commit's, staged with ``git show COMMIT:PATH > _checkout/NAME.cu``), one
+nvcc each, all at once, with the package's nvcc flags and ``-Xptxas -v``
+(printed for "kernel"; with ``--sass PATH`` its machine code, ``cuobjdump
+-sass``, is written to PATH).  It also builds variants made from the
+source by text edits; for ``myers_tile``:
 
   * "nosort": the rows of a block are staged in their order, not sorted
     by length;
   * "q1": one query per warp at every W (not two at W <= 2);
   * "tile1": one tile of 32 corpus rows per block at every W (not 4 at
-    W = 1 and 2 at W = 2), so no sort either.
+    W = 1 and 2 at W = 2), so no sort either;
 
-At each shape of ``chip_smoke.py``'s kernel phase for this kernel -- W = 1
-at (2048, 8192, 32) and (4096, 8192, 32), on its synthetic rows and on
-stresstest name rows; W = 2, 4, 8 at (2048, 8192, 32 W) -- every build is
-held exactly against the plain version on the same inputs, then timed
-round robin: 3 rounds of the median of 10 CUDA-event timings each, the
-median of the rounds printed.  Beside the times, the bound of
-``chip_smoke.myers_bound`` and the bound of the 22 + 4 operation count
-that ``chip_smoke.py`` used before it was recounted (for comparison with
-earlier times).  Exits non-zero without a CUDA device or if a build
-disagrees with the plain version.
+for ``retrieval_segmax``:
+
+  * "stream": the query tile streams through the ring at every D (not
+    only where, resident, it would leave the ring fewer than 4 stages).
+
+At each shape of ``chip_smoke.py``'s kernel phase for the kernel, every
+build is held against the plain version on the same inputs (integer and
+Jaro-Winkler results exactly, the segment max within ``4 D 2^-24`` with
+its argmax equal where decided), then timed round robin: 3 rounds of the
+median of 10 CUDA-event timings each, the median of the rounds printed
+beside the kernel's bound (``chip_smoke.py``'s) and the bound's earlier
+count, for comparison with earlier times:
+
+  * myers_tile: W = 1 at (2048, 8192, 32) and (4096, 8192, 32), on
+    synthetic rows and on stresstest name rows; W = 2, 4, 8 at
+    (2048, 8192, 32 W); the earlier count of 22 + 4 operations per word
+    and text step;
+  * jw_tile: (2048, 8192, 32) and (4096, 8192, 32) on synthetic rows and
+    (2048, 8192, 32) on the wide UTF-16 alphabets of tests/wide_units.py;
+    the earlier count of 8 operations per query char (l1 steps a pair);
+  * retrieval_segmax: the ann ingest's (Q 2048, N 524,288, D 256, tc 1024,
+    seg 64), the kernel phase's odd shape and a wide embedding (D 1024,
+    where the query tile streams through the ring); beside it
+    ``torch.matmul`` of the bare bf16 product.
+
+A build other than "kernel" whose entry point refuses a shape before
+launching (status 1, cudaErrorInvalidValue) is reported and left out of
+that shape.  Exits non-zero without a CUDA device or if a build disagrees
+with the plain version.
 """
 
 from __future__ import annotations
@@ -39,31 +61,51 @@ from pathlib import Path
 import chip_smoke
 
 REPO = Path(__file__).resolve().parent
-SOURCE = REPO / chip_smoke.PACKAGE / "csrc" / "myers_tile.cu"
-# variant name -> (text in the source, its replacement); each text must
-# occur exactly once
+CSRC = REPO / chip_smoke.PACKAGE / "csrc"
+KERNELS = ("myers_tile", "jw_tile", "retrieval_segmax")
+# kernel -> variant name -> (text in the source, its replacement); each
+# text must occur exactly once
 EDITS = {
-    "nosort": ("if constexpr (tiles<W>() > 1) {", "if constexpr (false) {"),
-    "q1": ("return W <= 2 ? 2 : 1;", "return 1;"),
-    "tile1": ("return W == 1 ? 4 : (W == 2 ? 2 : 1);", "return 1;"),
+    "myers_tile": {
+        "nosort": ("if constexpr (tiles<W>() > 1) {",
+                   "if constexpr (false) {"),
+        "q1": ("return W <= 2 ? 2 : 1;", "return 1;"),
+        "tile1": ("return W == 1 ? 4 : (W == 2 ? 2 : 1);", "return 1;"),
+    },
+    "jw_tile": {},
+    "retrieval_segmax": {
+        "stream": ("const bool resident = 1024",
+                   "const bool resident = false && 1024"),
+    },
 }
-SHAPES = [("synthetic", (2048, 8192, 32)), ("names", (2048, 8192, 32)),
-          ("synthetic", (4096, 8192, 32)), ("synthetic", (2048, 8192, 64)),
-          ("synthetic", (2048, 8192, 128)), ("synthetic", (2048, 8192, 256))]
+MYERS_SHAPES = [("synthetic", (2048, 8192, 32)), ("names", (2048, 8192, 32)),
+                ("synthetic", (4096, 8192, 32)),
+                ("synthetic", (2048, 8192, 64)),
+                ("synthetic", (2048, 8192, 128)),
+                ("synthetic", (2048, 8192, 256))]
+JW_SHAPES = [("synthetic", (2048, 8192, 32)), ("synthetic", (4096, 8192, 32)),
+             ("wide", (2048, 8192, 32))]
+JW_KW = dict(prefix_scale=0.1, boost_threshold=0.7, max_prefix=4)
+# (Q, N, D, tc, seg, group_filtering)
+SEGMAX_SHAPES = [(2048, 524288, 256, 1024, 64, False), chip_smoke.SEGMAX_ODD,
+                 (2048, 262144, 1024, 1024, 64, False)]
+# an entry point's status when it refuses a shape before launching
+REFUSED = 1
 # the count chip_smoke.py's Myers bound used before its recount
 OLD_OPS = (22, 4)
 ROUNDS = 3
 RUNS = 10
 
 
-def variant_sources(extra, out_dir):
+def variant_sources(kernel, extra, out_dir):
     """{name: path of its .cu}: the source, its edited variants, extras."""
-    text = SOURCE.read_text()
-    sources = {"kernel": SOURCE}
-    for name, (old, new) in EDITS.items():
+    source = CSRC / f"{kernel}.cu"
+    sources = {"kernel": source}
+    text = source.read_text()
+    for name, (old, new) in EDITS[kernel].items():
         if text.count(old) != 1:
-            raise SystemExit(f"myers_ab: '{old}' is not in {SOURCE.name} "
-                             "exactly once")
+            raise SystemExit(f"myers_ab: '{old}' is not in "
+                             f"{source.name} exactly once")
         path = out_dir / f"{name}.cu"
         path.write_text(text.replace(old, new))
         sources[name] = path
@@ -75,7 +117,7 @@ def variant_sources(extra, out_dir):
     return sources
 
 
-def build(sources, out_dir):
+def build(kernel, sources, out_dir):
     """{name: bound entry point}; nvcc's ptxas report of "kernel" printed."""
     from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
 
@@ -95,12 +137,107 @@ def build(sources, out_dir):
             for line in err.splitlines():
                 if any(k in line for k in ("Compiling", "registers", "spill")):
                     print(f"ptxas: {line.strip()}", flush=True)
-        fname, argtypes = ck._ENTRY["myers_tile"]
+        fname, argtypes = ck._ENTRY[kernel]
         fn = getattr(ctypes.CDLL(str(lib)), fname)
         fn.argtypes = argtypes + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fns[name] = fn
     return fns
+
+
+# Each case generator yields (label, call, check, bounds): call(fn) launches
+# one build's entry point on the case's inputs into its output, check()
+# holds that output against the plain version, bounds is [(name, ms)].
+
+
+def myers_cases(peak_ops):
+    import torch
+
+    from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
+
+    for rows, (q, c, l) in MYERS_SHAPES:
+        words = ck.kernel_words(l)
+        if rows == "names":
+            qc, ql, cc, cl = chip_smoke.name_inputs(q, c, l)
+        else:
+            qc, ql, cc, cl = chip_smoke.char_inputs(q, c, l, seed=q + l)
+        stream = torch.cuda.current_stream().cuda_stream
+        out = torch.empty((q, c), dtype=torch.int32, device="cuda")
+        want = ck.myers_distance_tiles_reference(qc, ql, cc, cl)
+
+        def call(fn):
+            return fn(qc.data_ptr(), ql.data_ptr(), cc.data_ptr(),
+                      cl.data_ptr(), out.data_ptr(), q, c, l, words, stream)
+
+        bound_ms, _ = chip_smoke.myers_bound(qc, ql, cc, cl, peak_ops)
+        old_ms, _ = chip_smoke.myers_bound(qc, ql, cc, cl, peak_ops, *OLD_OPS)
+        yield (f"W={words} {(q, c, l)} {rows} rows", call,
+               lambda: torch.equal(out, want),
+               [("bound", bound_ms), (f"{OLD_OPS[0]}+{OLD_OPS[1]}-op bound",
+                                      old_ms)])
+
+
+def jw_cases(peak_ops):
+    import torch
+
+    from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
+    from wide_units import wide_unit_inputs
+
+    for rows, (q, c, l) in JW_SHAPES:
+        if rows == "wide":
+            qc, ql, cc, cl = (torch.from_numpy(a).cuda() for a in
+                              wide_unit_inputs("all", q + l, q, c, l))
+        else:
+            qc, ql, cc, cl = chip_smoke.char_inputs(q, c, l, seed=7 + l)
+            cc[::3, :2] = qc[0, :2]           # shared prefixes: the boost
+        none = torch.zeros((q, c), dtype=torch.bool, device="cuda")
+        stream = torch.cuda.current_stream().cuda_stream
+        out = torch.empty((q, c), dtype=torch.float32, device="cuda")
+        want = ck.jaro_winkler_sim_tiles_reference(qc, ql, cc, cl, none,
+                                                   **JW_KW)
+
+        def call(fn):
+            return fn(qc.data_ptr(), ql.data_ptr(), cc.data_ptr(),
+                      cl.data_ptr(), out.data_ptr(), q, c, l,
+                      JW_KW["max_prefix"], JW_KW["prefix_scale"],
+                      JW_KW["boost_threshold"], stream)
+
+        args = (qc, ql, cc, cl, JW_KW["max_prefix"], peak_ops)
+        yield (f"{(q, c, l)} {rows} rows", call,
+               lambda: torch.equal(out, want),
+               [("bound", chip_smoke.jw_bound(*args)[0]),
+                ("query-char bound",
+                 chip_smoke.jw_bound(*args, shorter=False)[0])])
+
+
+def segmax_cases(peak_flops):
+    import torch
+
+    from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
+
+    for q, n, d, tc, seg, gf in SEGMAX_SHAPES:
+        args = chip_smoke.segmax_inputs(q, n, d, seed=q + seg)
+        kw = dict(tc=tc, seg=seg, group_filtering=gf)
+        stream = torch.cuda.current_stream().cuda_stream
+        seg_max = torch.empty((q, n // seg), dtype=torch.float32,
+                              device="cuda")
+        seg_arg = torch.empty((q, n // seg), dtype=torch.int32, device="cuda")
+        want = ck.retrieval_segmax_reference(*args, runner_up=True, **kw)
+
+        def call(fn):
+            return fn(*(t.data_ptr() for t in args), seg_max.data_ptr(),
+                      seg_arg.data_ptr(), q, n, d, tc, seg, int(gf), stream)
+
+        def check():
+            err, bad = ck.segmax_disagreement(seg_max, seg_arg, *want, d)
+            return err <= ck.segmax_tolerance(d) and bad == 0
+
+        qe, ce = args[0], args[1]
+        matmul_ms = chip_smoke.cuda_ms(lambda: torch.matmul(ce, qe.T), RUNS)
+        yield ((q, n, d, tc, seg, gf), call, check,
+               [("bound", chip_smoke.segmax_bound(q, n, d, seg,
+                                                  peak_flops)[0]),
+                ("torch.matmul of the bare product", matmul_ms)])
 
 
 def main(argv) -> int:
@@ -109,14 +246,20 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("myers_ab: no CUDA device is available", file=sys.stderr)
         return 2
+    sys.path[:0] = [str(REPO), str(REPO / "tests")]
     from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
 
-    out_dir = ck._BUILD_DIR / "myers_ab"
-    out_dir.mkdir(parents=True, exist_ok=True)
+    kernel = "myers_tile"
+    if argv[:1] == ["--kernel"] and len(argv) > 1:
+        kernel, argv = argv[1], argv[2:]
+    if kernel not in KERNELS:
+        raise SystemExit(f"myers_ab: --kernel takes one of {KERNELS}")
     sass = None
     if argv[:1] == ["--sass"] and len(argv) > 1:
         sass, argv = Path(argv[1]), argv[2:]
-    fns = build(variant_sources(argv, out_dir), out_dir)
+    out_dir = ck._BUILD_DIR / "myers_ab" / kernel
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fns = build(kernel, variant_sources(kernel, argv, out_dir), out_dir)
     if sass is not None:
         sass.parent.mkdir(parents=True, exist_ok=True)
         cuobjdump = Path(ck._nvcc()).with_name("cuobjdump")
@@ -125,44 +268,39 @@ def main(argv) -> int:
                             str(out_dir / "libkernel.so")], stdout=f,
                            check=True)
     line = chip_smoke.card_line()
-    peak_ops = chip_smoke.int32_peak_ops_per_s()
-    print(f"{line}; int32 peak {peak_ops / 1e12:.3f} Top/s", flush=True)
-    for rows, (q, c, l) in SHAPES:
-        words = ck.kernel_words(l)
-        if rows == "names":
-            qc, ql, cc, cl = chip_smoke.name_inputs(q, c, l)
-        else:
-            qc, ql, cc, cl = chip_smoke.char_inputs(q, c, l, seed=q + l)
-        stream = torch.cuda.current_stream().cuda_stream
-        out = torch.empty((q, c), dtype=torch.int32, device="cuda")
-
-        def run(fn):
-            err = fn(qc.data_ptr(), ql.data_ptr(), cc.data_ptr(),
-                     cl.data_ptr(), out.data_ptr(), q, c, l, words, stream)
-            if err != 0:
-                raise RuntimeError(f"launch failed: CUDA error {err}")
-
-        want = ck.myers_distance_tiles_reference(qc, ql, cc, cl)
+    if kernel == "retrieval_segmax":
+        peak = chip_smoke.bf16_peak_flops_per_s()
+        print(f"{line}; bf16 dense peak {peak / 1e12:.1f} TFLOP/s", flush=True)
+        cases = segmax_cases(peak)
+    else:
+        peak = chip_smoke.int32_peak_ops_per_s()
+        print(f"{line}; int32 peak {peak / 1e12:.3f} Top/s", flush=True)
+        cases = (myers_cases if kernel == "myers_tile" else jw_cases)(peak)
+    for label, call, check, bounds in cases:
+        live = {}
         for name, fn in fns.items():
-            run(fn)
+            err = call(fn)
             torch.cuda.synchronize()
-            if not torch.equal(out, want):
+            if err == REFUSED and name != "kernel":
+                print(f"myers_ab: {name} refuses {label}", flush=True)
+                continue
+            if err != 0 or not check():
                 print(f"myers_ab: {name} differs from the plain version at "
-                      f"{(q, c, l)} ({rows} rows)", file=sys.stderr)
+                      f"{label} (launch status {err})", file=sys.stderr)
                 return 1
-        rounds = {name: [] for name in fns}
+            live[name] = fn
+        rounds = {name: [] for name in live}
         for _ in range(ROUNDS):
-            for name, fn in fns.items():
-                rounds[name].append(chip_smoke.cuda_ms(lambda: run(fn), RUNS))
+            for name, fn in live.items():
+                rounds[name].append(chip_smoke.cuda_ms(lambda: call(fn),
+                                                       RUNS))
         ms = {name: statistics.median(t) for name, t in rounds.items()}
-        bound_ms, _ = chip_smoke.myers_bound(qc, ql, cc, cl, peak_ops)
-        old_ms, _ = chip_smoke.myers_bound(qc, ql, cc, cl, peak_ops, *OLD_OPS)
         times = ", ".join(f"{name} {t:.4f}" for name, t in ms.items())
-        print(f"W={words} {(q, c, l)} {rows} rows, exact: ms {times}; bound "
-              f"{bound_ms:.4f} ms ({bound_ms / ms['kernel']:.1%} of kernel); "
-              f"{OLD_OPS[0]}+{OLD_OPS[1]}-op bound {old_ms:.4f} ms "
-              f"({old_ms / ms['kernel']:.1%}) [{line}]", flush=True)
-        del qc, ql, cc, cl, out, want
+        shares = "; ".join(f"{what} {b:.4f} ms ({b / ms['kernel']:.1%} of "
+                           "kernel)" for what, b in bounds)
+        print(f"{kernel} {label}, agrees with plain: ms {times}; {shares} "
+              f"[{line}]", flush=True)
+        del call, check
         torch.cuda.empty_cache()
     return 0
 

@@ -14,18 +14,14 @@
 // corpus rows (kTiles = 4 at W = 1, 2 at W = 2, else 1), whose text tile
 // sits transposed in shared memory (lane-consecutive, conflict-free); each
 // warp walks the kTiles tiles of 32 rows in turn, one row per lane.
-//   * Match words come from a per-warp table of each of its queries, built
-//     once per block from the pattern's first ql units (bits above the
-//     pattern's last bit never reach the score, since carries and shifts
-//     only move up, so padding 0s and real U+0000s inside the length stay
-//     apart).  Units below 256 index it directly: 256 entries x W words,
-//     word-major, filled with shared atomicOr (repeated chars share an
-//     entry).  Pattern units of 256 and up (and negative ones) go, once
-//     per distinct unit, into a side list of (unit, W mask words), usually
-//     empty; a text unit of 256 or more searches it, so 'A' (0x41) never
-//     matches 'Ł' (0x141).  When no query of the warp has a side list,
-//     the step loop is compiled without the search.  Building costs
-//     O(256 W + ql) per query, once per block.
+//   * Match words come from a per-warp table of each of its queries
+//     (unit_table.cuh), built once per block from the pattern's first ql
+//     units (bits above the pattern's last bit never reach the score,
+//     since carries and shifts only move up, so padding 0s and real
+//     U+0000s inside the length stay apart).  Units below 256 index it
+//     directly; pattern units of 256 and up go into a side list, usually
+//     empty, that a text unit of 256 or more searches, so 'A' (0x41) never
+//     matches 'Ł' (0x141).
 //   * Per text step each thread loads its text unit once and, per query,
 //     W table words, then runs the Hyyro step: the add (eq & Pv) + Pv as
 //     one W-word add through the carry flag (PTX add.cc / addc; a plain
@@ -70,11 +66,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "unit_table.cuh"
+
 namespace {
+
+using unit_table::build_table;
+using unit_table::kDirect;
+using unit_table::words_per_query;
 
 constexpr int kWarps = 8;   // warps per block
 constexpr int kTileC = 32;  // corpus rows per tile (one per lane)
-constexpr int kDirect = 256;  // units indexing the match table directly
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
 // corpus tiles per block: at narrow widths one table serves several tiles
@@ -131,56 +132,6 @@ __device__ __forceinline__ void add_words(uint32_t (&s)[W],
         : "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]), "r"(b[4]), "r"(b[5]),
           "r"(b[6]), "r"(b[7]));
   }
-}
-
-template <int W>
-__host__ __device__ constexpr size_t words_per_query(int L) {
-  // match table [W][256], side-list units [L], side-list masks [W][L]
-  return (size_t)kDirect * W + (size_t)L + (size_t)W * L;
-}
-
-// Build one query's match table in shared memory from its first plen
-// units (the whole warp): zero it, then OR each position's bit into its
-// unit's entry; a wide unit gets one side-list slot, claimed by its first
-// position.  Returns the side list's length.
-template <int W>
-__device__ __forceinline__ int build_table(uint32_t* table,
-                                           const int32_t* pat, int plen,
-                                           int L, int lane) {
-  uint32_t* peq = table;                                       // [W][256]
-  int32_t* side_unit = reinterpret_cast<int32_t*>(table + kDirect * W);
-  uint32_t* side_mask = table + kDirect * W + L;               // [W][L]
-  for (int k = lane; k < kDirect * W; k += kTileC) peq[k] = 0u;
-  __syncwarp();
-  int nside = 0;
-  for (int j0 = 0; j0 < plen; j0 += kTileC) {
-    const int j = j0 + lane;
-    const uint32_t u = j < plen ? (uint32_t)pat[j] : 0u;
-    const bool wide = j < plen && u >= (uint32_t)kDirect;
-    if (j < plen && !wide) {
-      atomicOr(&peq[(j >> 5) * kDirect + u], 1u << (j & 31));
-    }
-    bool first = wide;
-    for (int k = 0; first && k < j; ++k) first = (uint32_t)pat[k] != u;
-    const unsigned firsts = __ballot_sync(kFull, first);
-    if (first) {
-      side_unit[nside + __popc(firsts & ((1u << lane) - 1u))] = (int32_t)u;
-    }
-    nside += __popc(firsts);
-  }
-  if (nside > 0) {
-    for (int k = lane; k < W * L; k += kTileC) side_mask[k] = 0u;
-    __syncwarp();
-    for (int j = lane; j < plen; j += kTileC) {
-      const uint32_t u = (uint32_t)pat[j];
-      if (u >= (uint32_t)kDirect) {
-        int s = 0;
-        while ((uint32_t)side_unit[s] != u) ++s;
-        atomicOr(&side_mask[(j >> 5) * L + s], 1u << (j & 31));
-      }
-    }
-  }
-  return nside;
 }
 
 // One text step of the W-word Myers/Hyyro recurrence on looked-up match

@@ -62,8 +62,9 @@ LAUNCHES = {"myers_tile": 0, "myersN_tile": 0, "jw_tile": 0,
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+# the sources include their shared headers (csrc/*.cuh) from csrc/
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+               "-O3", "-shared", "-Xcompiler", "-fPIC", "-I", str(_CSRC)]
 # entry point of each source's library: (C function, argument types)
 _ENTRY = {
     "myers_tile": ("myers_tiles",
@@ -112,13 +113,14 @@ def _nvcc() -> str:
 
 
 def build_library() -> dict:
-    """Compile every ``csrc/*.cu`` (once per content of all of them) and
-    return ``{source stem: shared library path}``.  One ``nvcc`` per
-    source, all running at once.  Safe against concurrent builds: each
-    compiles to a private name and renames into place."""
+    """Compile every ``csrc/*.cu`` (once per content of all of them and of
+    the headers ``csrc/*.cuh``) and return ``{source stem: shared library
+    path}``.  One ``nvcc`` per source, all running at once.  Safe against
+    concurrent builds: each compiles to a private name and renames into
+    place."""
     sources = sorted(_CSRC.glob("*.cu"))
     digest = hashlib.sha256()
-    for src in sources:
+    for src in sources + sorted(_CSRC.glob("*.cuh")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     tag = digest.hexdigest()[:16]
@@ -557,6 +559,13 @@ def retrieval_segmax(q_emb, corpus, valid, deleted, group, qrow, qgroup, *,
                           device=q_emb.device)
     if any(t.data_ptr() % 16 for t in (q_emb, corpus)):
         raise ValueError("retrieval_segmax needs 16-byte aligned embeddings")
+    # the kernel's bins, tc / seg, fill whole 8-column groups of its chunks;
+    # the fused route's gate (encoder.fused_route) gives tc >= max(1024,
+    # 8 seg), both powers of two (the plain version takes every seg | tc | N)
+    if tc & (tc - 1) or seg & (seg - 1) or tc // seg < 8 or tc < 128:
+        raise ValueError(f"the retrieval_segmax kernel takes tc and seg powers "
+                         f"of two with tc / seg >= 8 and tc >= 128, got "
+                         f"tc={tc} seg={seg}")
     if q:
         err = _kernel("retrieval_segmax")(
             q_emb.data_ptr(), corpus.data_ptr(), valid.data_ptr(),

@@ -1,9 +1,11 @@
 """Card tests of the PyTorch port: each CUDA kernel against its plain
 PyTorch version at odd sizes (Q, C and K multiples of no tile, every
 width, empty strings and sets, garbage set padding; for the Myers tile
-kernel also every kind of wide UTF-16 alphabet in tests/wide_units.py;
-for the segment-max kernel two and three tiles, seg 1 / 8 / 64, group
-filtering on and off, masked bins and a duplicate cluster), the dd
+and Jaro-Winkler kernels also every kind of wide UTF-16 alphabet in
+tests/wide_units.py, and length extremes for Jaro-Winkler; for the
+segment-max kernel one to three tiles of 1024 and 2048 rows, 8 to 1024
+bins a tile, partly filled and full query tiles, group filtering on and
+off, masked bins and a duplicate cluster), the dd
 rescorer on ``cuda`` against the same program on ``cpu``, and the
 ``device`` and ``ann`` services on ``cuda`` against the same services on
 ``cpu``.
@@ -86,9 +88,39 @@ def test_kernel_equals_plain_version_on_wide_units(l, kind, cuda_device):
     assert sum(ck.LAUNCHES.values()) == 1
 
 
-@pytest.mark.parametrize("l", [1, 2, 7, 16, 24, 31, 32])
-def test_jw_kernel_equals_plain_version(l, cuda_device):
-    qc, ql, cc, cl = _inputs(45, 301, l, 100 + l, cuda_device)
+def _length_extremes(q, c, l, seed, device):
+    """Three-letter rows whose lengths cycle through 0, 1, l - 1 and l
+    (queries and corpus rows out of step, so l1 != l2 at the extremes)."""
+    qc, ql, cc, cl = _inputs(q, c, l, seed, "cpu")
+    ends = torch.tensor([0, 1, l - 1, l], dtype=torch.int32)
+    ql = ends[torch.arange(q) % 4]
+    cl = ends[(torch.arange(c) // 3) % 4]
+    pos = torch.arange(l)
+    qc = torch.where(pos[None, :] < ql[:, None], qc, 0)
+    cc = torch.where(pos[None, :] < cl[:, None], cc, 0)
+    return [t.contiguous().to(device) for t in (qc, ql, cc, cl)]
+
+
+# the small alphabet at every width; every wide UTF-16 alphabet of
+# tests/wide_units.py (the match table's side list, shared low bytes,
+# surrogates, U+0000 inside the length, runs) at 24 and 32; lengths 0, 1,
+# 31 and 32 against each other
+@pytest.mark.parametrize(
+    "l,kind",
+    [(l, "abcd") for l in (1, 2, 7, 16, 24, 31, 32)]
+    + [(l, kind) for kind in KINDS + ("all",) for l in (24, 32)]
+    + [(32, "extremes")],
+    ids=[str(l) for l in (1, 2, 7, 16, 24, 31, 32)]
+    + [f"{kind}-{l}" for kind in KINDS + ("all",) for l in (24, 32)]
+    + ["extremes-32"])
+def test_jw_kernel_equals_plain_version(l, kind, cuda_device):
+    if kind == "abcd":
+        qc, ql, cc, cl = _inputs(45, 301, l, 100 + l, cuda_device)
+    elif kind == "extremes":
+        qc, ql, cc, cl = _length_extremes(45, 301, l, 100 + l, cuda_device)
+    else:
+        qc, ql, cc, cl = [torch.from_numpy(a).to(cuda_device)
+                          for a in wide_unit_inputs(kind, l, 45, 301, l)]
     cc[5, :2] = qc[5, :2]                 # shared prefixes: the boost
     equal = torch.zeros((45, 301), dtype=torch.bool, device=cuda_device)
     equal[3, 7] = True
@@ -313,13 +345,25 @@ def _segmax_problem(q, n, d, seed, device, *, cluster=False):
         deleted, group, qrow, qgroup)]
 
 
-@pytest.mark.parametrize("q,tiles,seg,d,gf", [
-    (77, 2, 64, 256, False), (130, 3, 64, 256, True), (33, 2, 8, 128, True),
-    (200, 3, 8, 256, False), (19, 2, 1, 128, False), (64, 3, 1, 256, True),
+# bins = tc / seg of 8, 16, 128 and 1024 (the kernel's narrow and wide
+# bin layouts), tc 1024 and 2048, query tiles of 128 partly filled (Q 1,
+# 19, 33, 77, 130, 200) and full (2048), a corpus of exactly one tile, D
+# 128 to 1024 (from 640 on, the query tile streams through the ring beside
+# 128-row corpus slabs; beside 64-row slabs it stays resident at 640), and
+# group filtering on and off
+@pytest.mark.parametrize("q,tc,tiles,seg,d,gf", [
+    (77, 1024, 2, 64, 256, False), (130, 1024, 3, 64, 256, True),
+    (33, 1024, 2, 8, 128, True), (200, 1024, 3, 8, 256, False),
+    (19, 1024, 2, 1, 128, False), (64, 1024, 3, 1, 256, True),
+    (1, 1024, 1, 128, 256, False), (2048, 1024, 2, 64, 256, True),
+    (130, 2048, 2, 256, 256, False), (77, 2048, 1, 16, 128, True),
+    (130, 2048, 2, 2, 256, True), (2048, 2048, 1, 128, 256, False),
+    (77, 1024, 2, 64, 512, True), (77, 1024, 2, 64, 640, True),
+    (130, 2048, 2, 2, 640, False), (200, 1024, 2, 8, 1024, False),
+    (2048, 1024, 1, 128, 1024, True),
 ])
-def test_segmax_kernel_equals_plain_version(q, tiles, seg, d, gf,
+def test_segmax_kernel_equals_plain_version(q, tc, tiles, seg, d, gf,
                                             cuda_device):
-    tc = 1024
     args = _segmax_problem(q, tiles * tc, d, q + seg, cuda_device)
     args[2][:tc:tc // seg] = False        # bin 0's rows: all masked
     kw = dict(tc=tc, seg=seg, group_filtering=gf)
@@ -364,6 +408,12 @@ def test_segmax_kernel_rejects_what_it_cannot_take(cuda_device):
         ck.retrieval_segmax(args[0].float(), *args[1:], **kw)
     with pytest.raises(ValueError, match="seg"):
         ck.retrieval_segmax(*args, tc=1000, seg=8, group_filtering=False)
+    # shapes the plain version takes but the kernel does not: raised before
+    # any launch
+    ck.reset_launch_counts()
+    with pytest.raises(ValueError, match="tc / seg >= 8"):
+        ck.retrieval_segmax(*args, tc=1024, seg=256, group_filtering=False)
+    assert ck.LAUNCHES["retrieval_segmax"] == 0
 
 
 def test_ann_service_on_cuda_matches_cpu(cuda_device, monkeypatch):
