@@ -36,14 +36,18 @@ Phases, each fatal on failure:
    equal except where neighbouring scores differ by less than it, logits
    of equal rows within ``certified_f32_margin``);
 6. hold every kernel against its plain PyTorch version on the card at
-   every shape the main paths gave it (Myers also at L=64 and 256; Myers
-   and Jaro-Winkler at each of their shapes also on the wide UTF-16
-   alphabets of tests/wide_units.py; Myers timed a second time on
-   stresstest name rows)
+   every shape the main paths gave it (Myers also at L=64 and 256; Myers,
+   Jaro-Winkler and gathered Myers at each of their shapes also on the
+   wide UTF-16 alphabets of tests/wide_units.py; Myers timed a second
+   time on stresstest name rows, the set intersection on the mixed
+   workload's own final-block gram and token rows, beside the merge
+   count's bound and the torch similarity map's time on its output)
    -- integer results exactly, the segment max within ``4 D 2^-24`` with its
    argmax equal wherever a bin's best leads by more -- and time both with
-   CUDA events beside the kernel's bound (and the segment max beside
-   ``torch.matmul`` of its bare bf16 product);
+   CUDA events, one call a timing, beside the kernel's bound (and the
+   segment max beside ``torch.matmul`` of its bare bf16 product); each
+   kernel's wrapper also back to back (``back_to_back_ms``), gathered
+   Myers' C entry point alone too (``entry_ms``);
 7. print the per-kernel JSON line, the card's name and power limit, and
    the result line ``{"ok": true, "device": {...}}`` last.
 
@@ -102,8 +106,23 @@ OPS_PER_WORD_STEP = 10
 JW_OPS_PER_CHAR = 8
 JW_OPS_PER_MATCH = 6
 JW_OPS_PER_PREFIX = 2
-# the set merge's ALU work per step: the compare, the count and the two
-# advances
+# The fewest int32 instructions a lookup-based set intersection needs: with
+# a hash table of each row's ids built once per row (Q x G plus C x G
+# inserts, under 1/min(Q, C) of the rest, left out), a pair probes the
+# smaller set's ids in the larger set's table, min(qn, cn) probes, and a
+# probe whose window holds its id's home slot alone is a compare and a
+# count.  csrc/intersect_tile.cu's hot loop (its SASS) spends three int32
+# instructions per (id, query, slot) -- ISETP.NE, the count's VIADD and
+# a predicated IMAD.MOV that keeps the old count -- where a predicated
+# add would do it in two (ISETP, @P IADD3); the table words' 16-byte
+# shared-memory load serves four queries, and the id's load, hash (IMAD,
+# SHF) and slot address (LOP3, IMAD) are shared by them, all left out.
+# (The kernel probes all cn ids of the corpus row over its warp's largest
+# window, so it does at least this much.)
+INTERSECT_OPS_PER_PROBE = 2
+# the two-pointer merge the intersection kernel ran before its redesign:
+# per step the compare, the count and the two advances
+# (``intersect_bound(..., merge=True)``, for comparison with older times)
 MERGE_OPS_PER_STEP = 4
 
 # widths not on this run's main path, held against the plain version at
@@ -329,7 +348,9 @@ def int32_peak_ops_per_s() -> float:
 
 def cuda_ms(fn, runs):
     """Median milliseconds of ``fn()`` over ``runs`` CUDA-event timings
-    (after one warm-up call)."""
+    (after one warm-up call).  Each timing holds one call, so it also
+    counts the host's gap before the launch (some 10 us through ctypes):
+    the yardstick of the kernels line's ``ms``."""
     import torch
 
     fn()
@@ -344,6 +365,36 @@ def cuda_ms(fn, runs):
         stop.synchronize()
         times.append(start.elapsed_time(stop))
     return statistics.median(times)
+
+
+# a back-to-back timing spans calls filling about this long
+TIMED_SPAN_MS = 1.0
+MAX_CALLS_PER_TIMING = 50
+
+
+def cuda_ms_back_to_back(fn, runs):
+    """Median milliseconds of one ``fn()`` over ``runs`` CUDA-event
+    timings, each of back-to-back calls filling about TIMED_SPAN_MS (after
+    one warm-up call, which sets their number): where the host's work per
+    call is shorter than the kernel, the gaps between launches no longer
+    count, so a short kernel's own time shows."""
+    import torch
+
+    def timed(calls):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        stop.record()
+        stop.synchronize()
+        return start.elapsed_time(stop) / calls
+
+    fn()
+    torch.cuda.synchronize()
+    first = max(timed(1), 1e-3)
+    calls = min(MAX_CALLS_PER_TIMING, max(1, int(TIMED_SPAN_MS / first)))
+    return statistics.median(timed(calls) for _ in range(runs))
 
 
 # -- the kernel wrappers' shapes on the main paths -----------------------------
@@ -383,6 +434,24 @@ def recording_shapes():
 
             stack.enter_context(mock.patch.object(ck, name, recording))
         yield shapes
+
+
+@contextlib.contextmanager
+def capturing_sets():
+    """Keep a copy of the operands of the first CUDA call of the
+    intersection wrapper at each set width G: {G: (qg, qn, cg, cn)}."""
+    from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
+
+    seen = {}
+    wrapper = ck.set_intersection_tiles
+
+    def capturing(qg, qn, cg, cn):
+        if qg.is_cuda and qg.shape[1] not in seen:
+            seen[qg.shape[1]] = tuple(t.clone() for t in (qg, qn, cg, cn))
+        return wrapper(qg, qn, cg, cn)
+
+    with mock.patch.object(ck, "set_intersection_tiles", capturing):
+        yield seen
 
 
 @contextlib.contextmanager
@@ -622,7 +691,8 @@ def phase_slice1(app, port, line):
 
 
 def phase_mixed(app, port, line):
-    """The ``mixed`` main path; returns (launches, shapes)."""
+    """The ``mixed`` main path; returns (launches, shapes, the operands of
+    the final block's first intersection call at each set width)."""
     from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
 
     mixed = app.deduplications["mixed"]
@@ -663,10 +733,11 @@ def phase_mixed(app, port, line):
           f"{statistics.median(latencies) * 1e3:.1f} ms [{line}]")
     print(f"mixed ingest {split_line(stats, ingest_s, line)}", flush=True)
 
-    block = rescore_plain(mixed, mixed.datasources["crm"].records_for_batch(
-        entities[-INGEST_BATCH:]))
+    with capturing_sets() as real_sets:
+        block = rescore_plain(mixed, mixed.datasources["crm"]
+                              .records_for_batch(entities[-INGEST_BATCH:]))
     rescore_dd_on_cpu(mixed, block)
-    return launches, shapes
+    return launches, shapes, real_sets
 
 
 def phase_main_paths(line):
@@ -944,6 +1015,23 @@ def name_inputs(q, c, l):
             chars[q:].contiguous(), lens[q:].contiguous())
 
 
+def gathered_inputs(q, k, l, wide=False):
+    """Each query's k candidates drawn from a pool of 4,096 rows of
+    ``char_inputs`` (``wide``: of tests/wide_units.py's "all" rows)."""
+    import torch
+
+    if wide:
+        from wide_units import wide_unit_inputs
+
+        qc, ql, pool, pool_len = (torch.from_numpy(a).to(DEVICE) for a in
+                                  wide_unit_inputs("all", q + l, q, 4096, l))
+    else:
+        qc, ql, pool, pool_len = char_inputs(q, 4096, l, seed=11 + k)
+    gen = torch.Generator(device=DEVICE).manual_seed(k)
+    pick = torch.randint(0, 4096, (q, k), generator=gen, device=DEVICE)
+    return qc, ql, pool[pick].contiguous(), pool_len[pick].contiguous()
+
+
 def set_inputs(rows, g, seed):
     """Sorted distinct ids (strictly increasing with small steps from a
     small base, so rows intersect) in the first n of g slots, SET_PAD
@@ -1029,31 +1117,76 @@ def gathered_bound(qc, ql, cc, cl, peak_ops):
     return bound(nbytes, steps * OPS_PER_WORD_STEP, peak_ops)
 
 
-def intersect_bound(qg, qn, cg, cn, common, peak_ops):
-    """Inputs once, the (Q, C) int32 output once; the merge of two
-    non-empty sorted sets takes #{a <= max b} + #{b <= max a} - |A ∩ B|
-    steps (the entries each side consumes before one runs out)."""
+def intersect_bound(qg, qn, cg, cn, common, peak_ops, merge=False):
+    """Inputs once, the (Q, C) int32 output once; a pair needs min(qn, cn)
+    probes (``merge=True``: the merge of two non-empty sorted sets, #{a <=
+    max b} + #{b <= max a} - |A ∩ B| steps, the entries each side consumes
+    before one runs out -- the earlier count)."""
     import torch
+
+    from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
 
     q, g = qg.shape
     c = cg.shape[0]
     nbytes = 4 * (q * g + q + c * g + c) + 4 * q * c
-    qmax = qg.gather(1, (qn.long() - 1).clamp_min(0)[:, None])   # (Q, 1)
-    cmax = cg.gather(1, (cn.long() - 1).clamp_min(0)[:, None])   # (C, 1)
+    na = qn.long().clamp(0, g)
+    nb = cn.long().clamp(0, g)
+    if not merge:
+        probes = float(sum(torch.minimum(na[s:e, None], nb[None, :]).sum()
+                           for s, e in ck.row_blocks(q, c)))
+        return bound(nbytes, INTERSECT_OPS_PER_PROBE * probes, peak_ops)
+    qmax = qg.gather(1, (na - 1).clamp_min(0)[:, None])          # (Q, 1)
+    cmax = cg.gather(1, (nb - 1).clamp_min(0)[:, None])          # (C, 1)
     a_used = torch.searchsorted(qg, cmax.reshape(1, c).expand(q, c)
                                 .contiguous(), right=True)
     b_used = torch.searchsorted(cg, qmax.reshape(1, q).expand(c, q)
                                 .contiguous(), right=True).t()
-    a_used = torch.minimum(a_used, qn.long()[:, None])
-    b_used = torch.minimum(b_used, cn.long()[None, :])
-    both = (qn > 0)[:, None] & (cn > 0)[None, :]
-    merge = torch.where(both, a_used + b_used - common.long(), 0)
-    return bound(nbytes, MERGE_OPS_PER_STEP * float(merge.double().sum()),
+    a_used = torch.minimum(a_used, na[:, None])
+    b_used = torch.minimum(b_used, nb[None, :])
+    both = (na > 0)[:, None] & (nb > 0)[None, :]
+    steps = torch.where(both, a_used + b_used - common.long(), 0)
+    return bound(nbytes, MERGE_OPS_PER_STEP * float(steps.double().sum()),
                  peak_ops)
 
 
-def measure(name, shape, run, plain, bound_of, equal=None):
-    """Hold ``run()`` against ``plain()``, time both; one row of numbers."""
+def measure_sets(label, qg, qn, cg, cn, peak_ops):
+    """``measure`` for the intersection kernel, and beside it the merge
+    count's bound and the torch similarity map's time on its output (the
+    map the kernel leaves to torch)."""
+    import torch
+
+    from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
+    from sesam_duke_microservice_tpu_torch.ops import pairwise as pw
+
+    shape = (qg.shape[0], cg.shape[0], qg.shape[1])
+    row = measure(
+        f"intersect_tile{label}", shape,
+        lambda: ck.set_intersection_tiles(qg, qn, cg, cn),
+        lambda: ck.set_intersection_tiles_reference(qg, qn, cg, cn),
+        lambda common: intersect_bound(qg, qn, cg, cn, common, peak_ops))
+    common = ck.set_intersection_tiles(qg, qn, cg, cn)
+    merge_ms, _ = intersect_bound(qg, qn, cg, cn, common, peak_ops,
+                                  merge=True)
+    equal = torch.zeros(common.shape, dtype=torch.bool, device=DEVICE)
+    map_ms = cuda_ms(lambda: pw.sim_from_set_intersection(
+        common, qn[:, None], cn[None, :], equal, formula="jaccard"), 10)
+    sizes = (f"set sizes: queries mean {float(qn.float().mean()):.1f}, "
+             f"corpus mean {float(cn.float().mean()):.1f}")
+    print(f"kernel intersect_tile{label} {shape}: merge-count bound "
+          f"{merge_ms:.3f} ms ({merge_ms / row['ms']:.1%} of the kernel); "
+          f"the torch similarity map on its output {map_ms:.3f} ms; {sizes}",
+          flush=True)
+    return row
+
+
+def measure(name, shape, run, plain, bound_of, launch=None):
+    """Hold ``run()`` against ``plain()``, time both; one row of numbers:
+    ``ms`` one wrapper call a timing (``cuda_ms``), beside it
+    ``back_to_back_ms`` (``cuda_ms_back_to_back`` of the wrapper) and,
+    where ``launch`` is given (a call of the kernel's C entry point alone,
+    its status checked), ``entry_ms``, that call back to back: the
+    wrapper's host work, some 25 us a call, outlasts a kernel of a few
+    microseconds even back to back."""
     import torch
 
     got = run()
@@ -1069,19 +1202,25 @@ def measure(name, shape, run, plain, bound_of, equal=None):
         raise AssertionError(f"{name} differs from its plain version at "
                              f"{shape}: max |err| = {err}")
     ms = cuda_ms(run, 10)
+    extra = {"back_to_back_ms": cuda_ms_back_to_back(run, 10)}
+    if launch is not None:
+        extra["entry_ms"] = cuda_ms_back_to_back(launch, 10)
     plain_ms = cuda_ms(plain, 2)
     bound_ms, bound_by = bound_of(got)
-    print(f"kernel {name} {shape}: exact, {ms:.3f} ms (plain "
-          f"{plain_ms:.1f} ms, bound {bound_ms:.3f} ms by {bound_by}, "
+    also = ", ".join(f"{k} {v:.4f}" for k, v in extra.items())
+    print(f"kernel {name} {shape}: exact, {ms:.4f} ms ({also}; plain "
+          f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms by {bound_by}, "
           f"{bound_ms / ms:.1%} of it)", flush=True)
     torch.cuda.empty_cache()
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by, **extra}
 
 
-def phase_kernels(shapes, peak_ops):
-    """Every kernel against its plain version at each recorded shape;
-    returns {wrapper: {shape: row}}."""
+def phase_kernels(shapes, real_sets, peak_ops):
+    """Every kernel against its plain version at each recorded shape, and
+    the intersection kernel again on the mixed workload's own gram and
+    token rows (``real_sets``: {G: (qg, qn, cg, cn)}); returns {wrapper:
+    {shape: row}}."""
     import torch
 
     from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
@@ -1125,24 +1264,33 @@ def phase_kernels(shapes, peak_ops):
             lambda *t: ck.jaro_winkler_sim_tiles(*t, none, **kw),
             lambda *t: ck.jaro_winkler_sim_tiles_reference(*t, none, **kw))
     for q, k, l in sorted(shapes["myers_distance_gathered"]):
-        qc, ql, pool, pool_len = char_inputs(q, 4096, l, seed=11 + k)
-        gen = torch.Generator(device=DEVICE).manual_seed(k)
-        pick = torch.randint(0, 4096, (q, k), generator=gen, device=DEVICE)
-        cc = pool[pick].contiguous()
-        cl = pool_len[pick].contiguous()
+        qc, ql, cc, cl = gathered_inputs(q, k, l)
+        out = torch.empty((q, k), dtype=torch.int32, device=DEVICE)
         rows["myers_distance_gathered"][q, k, l] = measure(
             "myers_gathered", (q, k, l),
             lambda: ck.myers_distance_gathered(qc, ql, cc, cl),
             lambda: ck.myers_distance_gathered_reference(qc, ql, cc, cl),
-            lambda _: gathered_bound(qc, ql, cc, cl, peak_ops))
+            lambda _: gathered_bound(qc, ql, cc, cl, peak_ops),
+            launch=lambda: ck._launched("myers_gathered", ck._kernel(
+                "myers_gathered")(
+                qc.data_ptr(), ql.data_ptr(), cc.data_ptr(), cl.data_ptr(),
+                out.data_ptr(), q, k, l,
+                torch.cuda.current_stream().cuda_stream)))
+        qc, ql, cc, cl = gathered_inputs(q, k, l, wide=True)
+        if not torch.equal(ck.myers_distance_gathered(qc, ql, cc, cl),
+                           ck.myers_distance_gathered_reference(qc, ql, cc,
+                                                                cl)):
+            raise AssertionError("myers_gathered differs from its plain "
+                                 f"version on wide UTF-16 units at {(q, k, l)}")
+        print(f"kernel myers_gathered {(q, k, l)}: exact on wide UTF-16 units",
+              flush=True)
     for q, c, g in sorted(shapes["set_intersection_tiles"]):
         qg, qn = set_inputs(q, g, seed=g)
         cg, cn = set_inputs(c, g, seed=g + 1)
-        rows["set_intersection_tiles"][q, c, g] = measure(
-            "intersect_tile", (q, c, g),
-            lambda: ck.set_intersection_tiles(qg, qn, cg, cn),
-            lambda: ck.set_intersection_tiles_reference(qg, qn, cg, cn),
-            lambda common: intersect_bound(qg, qn, cg, cn, common, peak_ops))
+        rows["set_intersection_tiles"][q, c, g] = measure_sets(
+            "", qg, qn, cg, cn, peak_ops)
+    for g, sets in sorted(real_sets.items()):
+        measure_sets(" (mixed final-block rows)", *sets, peak_ops)
     return rows
 
 
@@ -1217,19 +1365,22 @@ def measure_segmax(shape, peak_flops, runs=10):
                              f"{tol}), {bad} decided bins with another row")
     del want
     ms = cuda_ms(lambda: ck.retrieval_segmax(*args, **kw), runs)
+    back_to_back_ms = cuda_ms_back_to_back(
+        lambda: ck.retrieval_segmax(*args, **kw), runs)
     plain_ms = cuda_ms(lambda: ck.retrieval_segmax_reference(*args, **kw), 2)
     qe, ce = args[0], args[1]
     matmul_ms = cuda_ms(lambda: torch.matmul(ce, qe.T), runs)
     bound_ms, bound_by = segmax_bound(q, n, d, seg, peak_flops)
     print(f"kernel retrieval_segmax {shape}: max |seg_max err| {err:.3g} "
-          f"(bar {tol:.3g}), seg_arg equal where decided; {ms:.3f} ms (plain "
+          f"(bar {tol:.3g}), seg_arg equal where decided; {ms:.3f} ms "
+          f"(back_to_back_ms {back_to_back_ms:.4f}; plain "
           f"{plain_ms:.1f} ms, torch.matmul of the bf16 product alone "
           f"{matmul_ms:.3f} ms, bound {bound_ms:.3f} ms by {bound_by}, "
           f"{bound_ms / ms:.1%} of it)", flush=True)
     torch.cuda.empty_cache()
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "matmul_ms": matmul_ms}
+            "back_to_back_ms": back_to_back_ms, "matmul_ms": matmul_ms}
 
 
 def busiest(calls, pred=lambda s: True):
@@ -1261,7 +1412,7 @@ def main() -> int:
     print(f"build: {sorted(f'csrc/{s}.cu' for s in built)} with nvcc for "
           f"sm_90a in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    (launches1, shapes1, device_rows), (launches2, shapes2) = \
+    (launches1, shapes1, device_rows), (launches2, shapes2, real_sets) = \
         phase_main_paths(line)
     launches3, shapes3 = phase_ann(line, device_rows)
 
@@ -1278,7 +1429,8 @@ def main() -> int:
     chunk = max(c for _, c, _ in myers)
     for l in EXTRA_WIDTHS:
         myers.setdefault((EXTRA_Q, chunk, l), 0)
-    rows = phase_kernels(dict(shapes, myers_distance_tiles=myers), peak_ops)
+    rows = phase_kernels(dict(shapes, myers_distance_tiles=myers), real_sets,
+                         peak_ops)
     peak_flops = bf16_peak_flops_per_s()
     print(f"bf16 dense peak: {peak_flops / 1e12:.1f} TFLOP/s "
           f"({BF16_FLOPS_PER_CLOCK_PER_SM} flops/clock/SM x "

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time versions of one tile kernel side by side on one NVIDIA GPU.
 
-    python3 myers_ab.py [--kernel myers_tile|jw_tile|retrieval_segmax]
+    python3 myers_ab.py [--kernel myers_tile|jw_tile|retrieval_segmax|
+                                  intersect_tile|myers_gathered]
                         [--sass PATH] [NAME=PATH.cu ...]
 
 Builds ``csrc/<kernel>.cu`` as it stands ("kernel"; the default kernel is
@@ -22,13 +23,24 @@ source by text edits; for ``myers_tile``:
 for ``retrieval_segmax``:
 
   * "stream": the query tile streams through the ring at every D (not
-    only where, resident, it would leave the ring fewer than 4 stages).
+    only where, resident, it would leave the ring fewer than 4 stages);
+
+for ``intersect_tile``:
+
+  * "lowbits": an id's home slot is its low bits, not the top bits of
+    id * 0x9E3779B1;
+  * "nosort": the rows of a block are staged in their order, not sorted
+    by set size;
+  * "window0": every lookup window runs the loop whose slot count is
+    known only at run time, not an unrolled one for windows of 1 to 4.
 
 At each shape of ``chip_smoke.py``'s kernel phase for the kernel, every
 build is held against the plain version on the same inputs (integer and
 Jaro-Winkler results exactly, the segment max within ``4 D 2^-24`` with
 its argmax equal where decided), then timed round robin: 3 rounds of the
-median of 10 CUDA-event timings each, the median of the rounds printed
+median of 10 CUDA-event timings each (``chip_smoke.cuda_ms_back_to_back``:
+a timing spans back-to-back launches filling ~1 ms, each launch's status
+checked), the median of the rounds printed
 beside the kernel's bound (``chip_smoke.py``'s) and the bound's earlier
 count, for comparison with earlier times:
 
@@ -42,7 +54,13 @@ count, for comparison with earlier times:
   * retrieval_segmax: the ann ingest's (Q 2048, N 524,288, D 256, tc 1024,
     seg 64), the kernel phase's odd shape and a wide embedding (D 1024,
     where the query tile streams through the ring); beside it
-    ``torch.matmul`` of the bare bf16 product.
+    ``torch.matmul`` of the bare bf16 product;
+  * intersect_tile: the mixed workload's q-gram (2048, 8192, 64) and
+    token (2048, 8192, 16) widths on synthetic sets and on sets made from
+    its own kind of rows (address 2-grams, employer tokens); the earlier
+    count of 4 operations per merge step;
+  * myers_gathered: (2048, 64, 32) (the mixed dd rescorer, the ann
+    ingest) and (4096, 64, 32) (the ann query POST) on synthetic rows.
 
 A build other than "kernel" whose entry point refuses a shape before
 launching (status 1, cudaErrorInvalidValue) is reported and left out of
@@ -62,21 +80,31 @@ import chip_smoke
 
 REPO = Path(__file__).resolve().parent
 CSRC = REPO / chip_smoke.PACKAGE / "csrc"
-KERNELS = ("myers_tile", "jw_tile", "retrieval_segmax")
+KERNELS = ("myers_tile", "jw_tile", "retrieval_segmax", "intersect_tile",
+           "myers_gathered")
 # kernel -> variant name -> (text in the source, its replacement); each
 # text must occur exactly once
 EDITS = {
     "myers_tile": {
-        "nosort": ("if constexpr (tiles<W>() > 1) {",
-                   "if constexpr (false) {"),
-        "q1": ("return W <= 2 ? 2 : 1;", "return 1;"),
-        "tile1": ("return W == 1 ? 4 : (W == 2 ? 2 : 1);", "return 1;"),
+        "nosort": [("if constexpr (tiles<W>() > 1) {",
+                    "if constexpr (false) {")],
+        "q1": [("return W <= 2 ? 2 : 1;", "return 1;")],
+        "tile1": [("return W == 1 ? 4 : (W == 2 ? 2 : 1);", "return 1;")],
     },
     "jw_tile": {},
     "retrieval_segmax": {
-        "stream": ("const bool resident = 1024",
-                   "const bool resident = false && 1024"),
+        "stream": [("const bool resident = 1024",
+                    "const bool resident = false && 1024")],
     },
+    "intersect_tile": {
+        "lowbits": [("return (id * kMul) >> shift;",
+                     "return id & (0xFFFFFFFFu >> shift);"),
+                    ("return (t << shift) * kMulInv;", "return t;")],
+        "nosort": [("const int at = s_count[len] + pos;",
+                    "const int at = tid;")],
+        "window0": [("switch (window) {", "switch (0) {")],
+    },
+    "myers_gathered": {},
 }
 MYERS_SHAPES = [("synthetic", (2048, 8192, 32)), ("names", (2048, 8192, 32)),
                 ("synthetic", (4096, 8192, 32)),
@@ -86,6 +114,13 @@ MYERS_SHAPES = [("synthetic", (2048, 8192, 32)), ("names", (2048, 8192, 32)),
 JW_SHAPES = [("synthetic", (2048, 8192, 32)), ("synthetic", (4096, 8192, 32)),
              ("wide", (2048, 8192, 32))]
 JW_KW = dict(prefix_scale=0.1, boost_threshold=0.7, max_prefix=4)
+# (Q, C, G): the mixed workload's q-gram and token set widths, on synthetic
+# sets and on sets of its own kind of rows
+INTERSECT_SHAPES = [("synthetic", (2048, 8192, 64)),
+                    ("synthetic", (2048, 8192, 16)),
+                    ("mixed", (2048, 8192, 64)), ("mixed", (2048, 8192, 16))]
+# (Q, K, L): the mixed dd rescorer's and the ann ingest's, the ann query's
+GATHERED_SHAPES = [(2048, 64, 32), (4096, 64, 32)]
 # (Q, N, D, tc, seg, group_filtering)
 SEGMAX_SHAPES = [(2048, 524288, 256, 1024, 64, False), chip_smoke.SEGMAX_ODD,
                  (2048, 262144, 1024, 1024, 64, False)]
@@ -102,12 +137,15 @@ def variant_sources(kernel, extra, out_dir):
     source = CSRC / f"{kernel}.cu"
     sources = {"kernel": source}
     text = source.read_text()
-    for name, (old, new) in EDITS[kernel].items():
-        if text.count(old) != 1:
-            raise SystemExit(f"myers_ab: '{old}' is not in "
-                             f"{source.name} exactly once")
+    for name, edits in EDITS[kernel].items():
+        edited = text
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise SystemExit(f"myers_ab: '{old}' is not in "
+                                 f"{source.name} exactly once")
+            edited = edited.replace(old, new)
         path = out_dir / f"{name}.cu"
-        path.write_text(text.replace(old, new))
+        path.write_text(edited)
         sources[name] = path
     for arg in extra:
         name, _, path = arg.partition("=")
@@ -233,11 +271,91 @@ def segmax_cases(peak_flops):
             return err <= ck.segmax_tolerance(d) and bad == 0
 
         qe, ce = args[0], args[1]
-        matmul_ms = chip_smoke.cuda_ms(lambda: torch.matmul(ce, qe.T), RUNS)
+        matmul_ms = chip_smoke.cuda_ms_back_to_back(
+            lambda: torch.matmul(ce, qe.T), RUNS)
         yield ((q, n, d, tc, seg, gf), call, check,
                [("bound", chip_smoke.segmax_bound(q, n, d, seg,
                                                   peak_flops)[0]),
                 ("torch.matmul of the bare product", matmul_ms)])
+
+
+def mixed_set_inputs(q, c, g):
+    """Id sets of the mixed workload's own kind of rows (chip_smoke's
+    ``mixed_entities``, q query rows, then c corpus rows), as ops.features
+    makes them: at g = 64 the address's 2-grams, at g = 16 the employer's
+    tokens, each hashed (FNV-1a 64 folded to 32 bits), distinct and
+    sorted in the first n of g slots, SET_PAD after."""
+    import numpy as np
+    import torch
+
+    from sesam_duke_microservice_tpu_torch.core.comparators import qgrams
+    from sesam_duke_microservice_tpu_torch.ops import features as F
+
+    rows = chip_smoke.mixed_entities(q + c, 4321, "s")
+    if g >= 64:
+        parts = [sorted(qgrams(e["address"], 2)) for e in rows]
+    else:
+        parts = [e["employer"].split() for e in rows]
+    hashed = F._fold32(F.fnv1a64_batch([t for p in parts for t in p]))
+    ids = np.full((q + c, g), chip_smoke.SET_PAD, dtype=np.int32)
+    n = np.zeros(q + c, dtype=np.int32)
+    at = 0
+    for i, part in enumerate(parts):
+        row = sorted(set(hashed[at:at + len(part)].tolist()))[:g]
+        at += len(part)
+        ids[i, :len(row)] = row
+        n[i] = len(row)
+    ids, n = torch.from_numpy(ids).cuda(), torch.from_numpy(n).cuda()
+    return (ids[:q].contiguous(), n[:q].contiguous(), ids[q:].contiguous(),
+            n[q:].contiguous())
+
+
+def intersect_cases(peak_ops):
+    import torch
+
+    from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
+
+    for rows, (q, c, g) in INTERSECT_SHAPES:
+        if rows == "mixed":
+            qg, qn, cg, cn = mixed_set_inputs(q, c, g)
+        else:
+            qg, qn = chip_smoke.set_inputs(q, g, seed=g)
+            cg, cn = chip_smoke.set_inputs(c, g, seed=g + 1)
+        stream = torch.cuda.current_stream().cuda_stream
+        out = torch.empty((q, c), dtype=torch.int32, device="cuda")
+        want = ck.set_intersection_tiles_reference(qg, qn, cg, cn)
+
+        def call(fn):
+            return fn(qg.data_ptr(), qn.data_ptr(), cg.data_ptr(),
+                      cn.data_ptr(), out.data_ptr(), q, c, g, stream)
+
+        args = (qg, qn, cg, cn, want, peak_ops)
+        yield (f"{(q, c, g)} {rows} sets", call,
+               lambda: torch.equal(out, want),
+               [("bound", chip_smoke.intersect_bound(*args)[0]),
+                ("merge-count bound",
+                 chip_smoke.intersect_bound(*args, merge=True)[0])])
+
+
+def gathered_cases(peak_ops):
+    import torch
+
+    from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
+
+    for q, k, l in GATHERED_SHAPES:
+        qc, ql, cc, cl = chip_smoke.gathered_inputs(q, k, l)
+        stream = torch.cuda.current_stream().cuda_stream
+        out = torch.empty((q, k), dtype=torch.int32, device="cuda")
+        want = ck.myers_distance_gathered_reference(qc, ql, cc, cl)
+
+        def call(fn):
+            return fn(qc.data_ptr(), ql.data_ptr(), cc.data_ptr(),
+                      cl.data_ptr(), out.data_ptr(), q, k, l, stream)
+
+        yield (f"{(q, k, l)} synthetic rows", call,
+               lambda: torch.equal(out, want),
+               [("bound", chip_smoke.gathered_bound(qc, ql, cc, cl,
+                                                    peak_ops)[0])])
 
 
 def main(argv) -> int:
@@ -275,7 +393,9 @@ def main(argv) -> int:
     else:
         peak = chip_smoke.int32_peak_ops_per_s()
         print(f"{line}; int32 peak {peak / 1e12:.3f} Top/s", flush=True)
-        cases = (myers_cases if kernel == "myers_tile" else jw_cases)(peak)
+        cases = {"myers_tile": myers_cases, "jw_tile": jw_cases,
+                 "intersect_tile": intersect_cases,
+                 "myers_gathered": gathered_cases}[kernel](peak)
     for label, call, check, bounds in cases:
         live = {}
         for name, fn in fns.items():
@@ -292,8 +412,8 @@ def main(argv) -> int:
         rounds = {name: [] for name in live}
         for _ in range(ROUNDS):
             for name, fn in live.items():
-                rounds[name].append(chip_smoke.cuda_ms(lambda: call(fn),
-                                                       RUNS))
+                rounds[name].append(chip_smoke.cuda_ms_back_to_back(
+                    lambda: ck._launched(kernel, call(fn)), RUNS))
         ms = {name: statistics.median(t) for name, t in rounds.items()}
         times = ", ".join(f"{name} {t:.4f}" for name, t in ms.items())
         shares = "; ".join(f"{what} {b:.4f} ms ({b / ms['kernel']:.1%} of "

@@ -11,104 +11,170 @@
 // d(query_q[:ql], cand_qk[:cl]) -- the text length for an empty pattern --
 // as that kernel does.
 //
-// Design.  One thread owns one (query, candidate) pair and keeps one uint32
-// word of Pv and Mv.  A block is 8 warps; warp w serves one query and 32 of
-// its candidates.  The query's pattern is staged once in shared memory and
-// read as a broadcast; the 32 candidates' chars are one contiguous
-// (32, L) run in device memory, loaded coalesced and stored transposed
-// (lane-consecutive, conflict-free).  Each warp runs as many text steps as
-// its longest candidate; per step a thread builds its match word by
-// comparing its text char with the first ql pattern chars (bits above the
-// pattern's last bit never reach the score) and runs the Hyyro step.  The
-// dd ratio, map and log stay in torch (ops/dd.py), outside this kernel.
+// Design.  One warp per query: it builds the query's match table once
+// (unit_table.cuh, the table the Myers tile and Jaro-Winkler kernels use:
+// units below 256 index it directly, wider ones go to a side list) and
+// walks a group of 64 of its candidates, two per lane.  The group's chars
+// are one contiguous (64, L) run in device memory: the warp issues all of
+// its loads at once (16 bytes a lane and load where L % 4 == 0), with the
+// pattern and the lengths, and stores the chars transposed in shared
+// memory (lane-consecutive, conflict-free); the kernel moves little data
+// per block, so it waits on load latency unless the loads overlap.
+// Each lane walks its two texts together for the shorter one's steps --
+// two independent chains to interleave -- and the longer one alone after
+// that; per text step one table lookup (the side-list search compiled out
+// when the query has no unit of 256 or more) and the one-word Hyyro step.
+// The distance is read once from the last column.  The lookup, the step
+// and that read are myers_step.cuh's, shared with myers_tile.cu.  The dd
+// ratio, map and log stay in torch (ops/dd.py), outside this kernel.
 //
-// Bound.  Per pair cl text steps of ~22 int32 operations (a match-table
-// lookup, the Xv/Xh/Ph/Mh/Pv/Mv bit-ops, the add and the shifts) plus ~4
-// for the score; the inputs are O(Q K L) chars read once and the output
-// one int32 per pair.  That is about 4 bytes of input per ~26 operations
-// per char, so at K = 64 the kernel sits near the H100's int32 ops:bytes
-// balance; which of the two bounds it is computed from the run's data.
+// Bound.  Per pair with a non-empty pattern cl text steps of 10 int32
+// instructions (myers_tile.cu's count at W = 1); the inputs are the
+// (Q, K, L) candidate chars, read once, and the output one int32 per pair.
+// At the main path's K = 64 and L = 32 that is 128 bytes of chars per pair
+// against ~10 cl instructions, below the H100's int32 ops:bytes balance,
+// so the bound is the memory rate.
 //
 // Returns cudaGetLastError() after the launch (0 on success).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "myers_step.cuh"
+#include "unit_table.cuh"
+
 namespace {
 
-constexpr int kTileQ = 8;    // queries per block (one per warp)
-constexpr int kTileK = 32;   // candidates per warp (one per lane)
-constexpr int kMaxL = 32;    // one DP word per pair
+using myers_step::hyyro_step;
+using myers_step::last_column;
+using myers_step::match_words;
+using unit_table::build_table;
+using unit_table::words_per_query;
 
-__device__ __forceinline__ uint32_t bits_below(int n) {
-  if (n <= 0) return 0u;
-  if (n >= 32) return 0xFFFFFFFFu;
-  return (1u << n) - 1u;
+constexpr int kWarps = 4;    // queries per block (one per warp)
+constexpr int kLanes = 32;
+constexpr int kGroup = 64;   // candidates per warp (two per lane)
+constexpr int kStride = kGroup + 1;
+constexpr int kMaxL = 32;    // one DP word per pair
+constexpr int kVecPerLane = kGroup * kMaxL / 4 / kLanes;  // 16-byte loads
+
+// Walk text a (sa steps) and text b (sb <= sa steps) through the DP of one
+// query; columns of the transposed tile, kStride units apart.
+template <bool kSide>
+__device__ __forceinline__ void walk_two(const int32_t* ta, int sa,
+                                         const int32_t* tb, int sb,
+                                         const uint32_t* peq, int nside,
+                                         int L, uint32_t (&pva)[1],
+                                         uint32_t (&mva)[1],
+                                         uint32_t (&pvb)[1],
+                                         uint32_t (&mvb)[1]) {
+  int i = 0;
+  for (; i < sb; ++i) {
+    uint32_t eqa[1], eqb[1];
+    match_words<1, kSide>(peq, (uint32_t)ta[i * kStride], nside, L, eqa);
+    match_words<1, kSide>(peq, (uint32_t)tb[i * kStride], nside, L, eqb);
+    hyyro_step<1>(eqa, pva, mva);
+    hyyro_step<1>(eqb, pvb, mvb);
+  }
+  for (; i < sa; ++i) {
+    uint32_t eqa[1];
+    match_words<1, kSide>(peq, (uint32_t)ta[i * kStride], nside, L, eqa);
+    hyyro_step<1>(eqa, pva, mva);
+  }
 }
 
-__global__ void __launch_bounds__(kTileQ * kTileK)
+__global__ void __launch_bounds__(kWarps * kLanes)
 myers_gathered_kernel(const int32_t* __restrict__ qchars,
                       const int32_t* __restrict__ qlen,
                       const int32_t* __restrict__ cchars,
                       const int32_t* __restrict__ clen,
                       int32_t* __restrict__ out, int Q, int K, int L) {
-  __shared__ int32_t s_text[kTileQ][kMaxL][kTileK + 1];
-  __shared__ int32_t s_pat[kTileQ][kMaxL];
+  __shared__ int32_t s_text[kWarps][kMaxL][kStride];
+  __shared__ uint32_t s_table[kWarps][words_per_query<1>(kMaxL)];
+  __shared__ int32_t s_pat[kWarps][kMaxL];
 
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int q = blockIdx.y * kTileQ + ty;
-  const int k0 = blockIdx.x * kTileK;
-  const bool qvalid = q < Q;
-  const int krows = qvalid ? min(kTileK, K - k0) : 0;
+  const int lane = threadIdx.x;
+  const int warp = threadIdx.y;
+  const int q = blockIdx.y * kWarps + warp;
+  if (q >= Q) return;  // the whole warp; the block never syncs as one
+  const int k0 = blockIdx.x * kGroup;
+  const int rows = min(kGroup, K - k0);
+  const int64_t base = (int64_t)q * K + k0;
+  const int32_t* src = cchars + base * L;
 
-  // this warp's query pattern and its candidates' chars, transposed
-  if (qvalid) {
-    const int32_t* src = cchars + ((int64_t)q * K + k0) * L;
-    for (int e = tx; e < kTileK * L; e += kTileK) {
-      const int row = e / L;
-      s_text[ty][e - row * L][row] = row < krows ? src[e] : 0;
+  // every global load of the warp first, so that they are in flight
+  // together: the group's chars (16-byte loads where the rows allow), the
+  // pattern, its length and the lane's two text lengths
+  const bool vec = L % 4 == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0;
+  const int n4 = vec ? rows * L / 4 : 0;
+  int4 v[kVecPerLane];
+#pragma unroll
+  for (int i = 0; i < kVecPerLane; ++i) {
+    const int e4 = i * kLanes + lane;
+    if (e4 < n4) v[i] = reinterpret_cast<const int4*>(src)[e4];
+  }
+  const int32_t pat_unit = lane < L ? qchars[(int64_t)q * L + lane] : 0;
+  const int qlen_q = qlen[q];
+  const bool has_a = lane < rows;
+  const bool has_b = lane + kLanes < rows;
+  const int cla = has_a ? clen[base + lane] : 0;
+  const int clb = has_b ? clen[base + lane + kLanes] : 0;
+
+  // the group's chars, transposed (lane-consecutive, conflict-free)
+  int32_t(*text)[kStride] = s_text[warp];
+  if (vec) {
+#pragma unroll
+    for (int i = 0; i < kVecPerLane; ++i) {
+      const int e = 4 * (i * kLanes + lane);
+      if (e < 4 * n4) {
+        const int r = e / L;  // L % 4 == 0: the 4 units share a row
+        const int col = e - r * L;
+        text[col][r] = v[i].x;
+        text[col + 1][r] = v[i].y;
+        text[col + 2][r] = v[i].z;
+        text[col + 3][r] = v[i].w;
+      }
     }
-    for (int e = tx; e < L; e += kTileK) {
-      s_pat[ty][e] = qchars[(int64_t)q * L + e];
+  } else {
+    for (int r = 0; r < rows; ++r) {
+      for (int col = lane; col < L; col += kLanes) {
+        text[col][r] = src[r * L + col];
+      }
     }
   }
+  s_pat[warp][lane] = pat_unit;
+  __syncwarp();
+  const int ql = min(max(qlen_q, 0), L);
+  uint32_t* peq = s_table[warp];
+  const int nside = build_table<1>(peq, s_pat[warp], ql, L, lane);
   __syncwarp();
 
-  const int k = k0 + tx;
-  const bool valid = tx < krows;
-  const int ql = qvalid ? qlen[q] : 0;
-  const int cl = valid ? clen[(int64_t)q * K + k] : 0;
-  const int steps = min(__reduce_max_sync(0xFFFFFFFFu, cl), L);
-  const int32_t* pat = s_pat[ty];
-  const int plen = min(ql, L);
-
-  uint32_t pv = bits_below(ql);
-  uint32_t mv = 0u;
-  const uint32_t hibit = 1u << ((max(ql, 1) - 1) & 31);
-  int score = ql;
-  for (int i = 0; i < steps; ++i) {
-    const int32_t t = s_text[ty][i][tx];
-    uint32_t eq = 0u;
-    for (int j = 0; j < plen; ++j) {
-      eq |= (uint32_t)(pat[j] == t) << j;
-    }
-    const uint32_t xv = eq | mv;
-    const uint32_t xh = (((eq & pv) + pv) ^ pv) | eq;
-    uint32_t ph = mv | ~(xh | pv);
-    uint32_t mh = pv & xh;
-    if (i < cl) {
-      score += (ph & hibit) != 0u;
-      score -= (mh & hibit) != 0u;
-      ph = (ph << 1) | 1u;
-      mh = mh << 1;
-      pv = mh | ~(xv | ph);
-      mv = ph & xv;
-    }
+  // lane's candidates: columns lane and lane + 32 of the group; empty
+  // patterns need no DP
+  int sa = ql > 0 ? min(max(cla, 0), L) : 0;
+  int sb = ql > 0 ? min(max(clb, 0), L) : 0;
+  // walk the longer text as "a"
+  const bool swapped = sb > sa;
+  const int ra = swapped ? lane + kLanes : lane;
+  if (swapped) {
+    const int t = sa;
+    sa = sb;
+    sb = t;
   }
-  if (valid) {
-    out[(int64_t)q * K + k] = ql == 0 ? cl : score;
+  uint32_t pva[1], mva[1], pvb[1], mvb[1];
+  myers_step::start<1>(ql, pva, mva);
+  myers_step::start<1>(ql, pvb, mvb);
+  const int32_t* ta = &text[0][ra];
+  const int32_t* tb = &text[0][ra ^ kLanes];  // the other column
+  if (nside == 0) {
+    walk_two<false>(ta, sa, tb, sb, peq, nside, L, pva, mva, pvb, mvb);
+  } else {
+    walk_two<true>(ta, sa, tb, sb, peq, nside, L, pva, mva, pvb, mvb);
   }
+  const int da = last_column<1>(ql, sa, pva, mva);
+  const int db = last_column<1>(ql, sb, pvb, mvb);
+  if (has_a) out[base + lane] = ql == 0 ? cla : (swapped ? db : da);
+  if (has_b) out[base + lane + kLanes] = ql == 0 ? clb : (swapped ? da : db);
 }
 
 }  // namespace
@@ -120,8 +186,8 @@ extern "C" int myers_gathered(const int32_t* qchars, const int32_t* qlen,
   if (Q <= 0 || K <= 0 || L <= 0 || L > kMaxL) {
     return (int)cudaErrorInvalidValue;
   }
-  const dim3 block(kTileK, kTileQ);
-  const dim3 grid((K + kTileK - 1) / kTileK, (Q + kTileQ - 1) / kTileQ);
+  const dim3 block(kLanes, kWarps);
+  const dim3 grid((K + kGroup - 1) / kGroup, (Q + kWarps - 1) / kWarps);
   myers_gathered_kernel<<<grid, block, 0, stream>>>(
       qchars, qlen, cchars, clen, out, Q, K, L);
   return (int)cudaGetLastError();

@@ -30,7 +30,9 @@
 //   * The score is read once, after the last text step, from the last
 //     column's vertical deltas: d = steps + popc(Pv) - popc(Mv) over the
 //     pattern's ql bits (D[0][n] = n, plus the column's +1s and -1s), so
-//     the step loop carries no score.
+//     the step loop carries no score.  The lookup, the step and
+//     this read live in myers_step.cuh, shared with the gathered Myers
+//     kernel.
 //   * Each lane steps only through its own row's text (min(cl, L) steps),
 //     so a warp takes as many steps as the longest of its 32 rows.  Where
 //     a block holds several tiles, a counting sort orders the block's rows
@@ -66,13 +68,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "myers_step.cuh"
 #include "unit_table.cuh"
 
 namespace {
 
 using unit_table::build_table;
-using unit_table::kDirect;
 using unit_table::words_per_query;
+using myers_step::hyyro_step;
+using myers_step::last_column;
+using myers_step::match_words;
 
 constexpr int kWarps = 8;   // warps per block
 constexpr int kTileC = 32;  // corpus rows per tile (one per lane)
@@ -91,80 +96,6 @@ __host__ __device__ constexpr int queries_per_warp() {
   return W <= 2 ? 2 : 1;
 }
 
-__device__ __forceinline__ uint32_t bits_below(int n) {
-  // (1 << n) - 1 for n in [0, 32]; << 32 is undefined in C too
-  if (n <= 0) return 0u;
-  if (n >= 32) return 0xFFFFFFFFu;
-  return (1u << n) - 1u;
-}
-
-// s += b as W-word integers (word 0 lowest), the carry out of the top word
-// dropped
-template <int W>
-__device__ __forceinline__ void add_words(uint32_t (&s)[W],
-                                          const uint32_t (&b)[W]) {
-  if constexpr (W == 1) {
-    s[0] += b[0];
-  } else if constexpr (W == 2) {
-    asm("add.cc.u32 %0, %0, %2;\n\t"
-        "addc.u32 %1, %1, %3;"
-        : "+r"(s[0]), "+r"(s[1])
-        : "r"(b[0]), "r"(b[1]));
-  } else if constexpr (W == 4) {
-    asm("add.cc.u32 %0, %0, %4;\n\t"
-        "addc.cc.u32 %1, %1, %5;\n\t"
-        "addc.cc.u32 %2, %2, %6;\n\t"
-        "addc.u32 %3, %3, %7;"
-        : "+r"(s[0]), "+r"(s[1]), "+r"(s[2]), "+r"(s[3])
-        : "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]));
-  } else {
-    static_assert(W == 8, "W is 1, 2, 4 or 8");
-    asm("add.cc.u32 %0, %0, %8;\n\t"
-        "addc.cc.u32 %1, %1, %9;\n\t"
-        "addc.cc.u32 %2, %2, %10;\n\t"
-        "addc.cc.u32 %3, %3, %11;\n\t"
-        "addc.cc.u32 %4, %4, %12;\n\t"
-        "addc.cc.u32 %5, %5, %13;\n\t"
-        "addc.cc.u32 %6, %6, %14;\n\t"
-        "addc.u32 %7, %7, %15;"
-        : "+r"(s[0]), "+r"(s[1]), "+r"(s[2]), "+r"(s[3]), "+r"(s[4]),
-          "+r"(s[5]), "+r"(s[6]), "+r"(s[7])
-        : "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]), "r"(b[4]), "r"(b[5]),
-          "r"(b[6]), "r"(b[7]));
-  }
-}
-
-// One text step of the W-word Myers/Hyyro recurrence on looked-up match
-// words.
-template <int W>
-__device__ __forceinline__ void hyyro_step(const uint32_t (&eq)[W],
-                                           uint32_t (&pv)[W],
-                                           uint32_t (&mv)[W]) {
-  // xh = (((eq & pv) + pv) ^ pv) | eq, the add carrying across words
-  uint32_t sum[W];
-#pragma unroll
-  for (int w = 0; w < W; ++w) sum[w] = eq[w] & pv[w];
-  add_words<W>(sum, pv);
-  uint32_t xv[W], ph[W], mh[W];
-#pragma unroll
-  for (int w = 0; w < W; ++w) {
-    xv[w] = eq[w] | mv[w];
-    const uint32_t xh = (sum[w] ^ pv[w]) | eq[w];
-    ph[w] = mv[w] | ~(xh | pv[w]);
-    mh[w] = pv[w] & xh;
-  }
-  // horizontal shifts with cross-word carries
-#pragma unroll
-  for (int w = 0; w < W; ++w) {
-    const uint32_t nph =
-        w == 0 ? (ph[0] << 1) | 1u : __funnelshift_l(ph[w - 1], ph[w], 1);
-    const uint32_t nmh =
-        w == 0 ? mh[0] << 1 : __funnelshift_l(mh[w - 1], mh[w], 1);
-    pv[w] = nmh | ~(xv[w] | nph);
-    mv[w] = nph & xv[w];
-  }
-}
-
 // Walk one text through the DP of each of the warp's QW queries; a text
 // unit of 256 or more searches each query's side list (nside entries).
 template <int W, int QW, int kStride>
@@ -180,23 +111,7 @@ __device__ __forceinline__ void walk(const int32_t* text, int steps,
     for (int k = 0; k < QW; ++k) {
       const uint32_t* peq = tables + k * wpq;
       uint32_t eq[W];
-#pragma unroll
-      for (int w = 0; w < W; ++w) eq[w] = 0u;
-      if (t < (uint32_t)kDirect) {
-#pragma unroll
-        for (int w = 0; w < W; ++w) eq[w] = peq[w * kDirect + t];
-      } else {
-        const int32_t* side_unit =
-            reinterpret_cast<const int32_t*>(peq + kDirect * W);
-        const uint32_t* side_mask = peq + kDirect * W + L;
-        for (int s = 0; s < nside[k]; ++s) {
-          if ((uint32_t)side_unit[s] == t) {
-#pragma unroll
-            for (int w = 0; w < W; ++w) eq[w] = side_mask[w * L + s];
-            break;
-          }
-        }
-      }
+      match_words<W>(peq, t, nside[k], L, eq);
       hyyro_step<W>(eq, pv[k], mv[k]);
     }
   }
@@ -296,24 +211,11 @@ myers_tile_kernel(const int32_t* __restrict__ qchars,
     const int steps = live ? min(max(cl, 0), L) : 0;
     uint32_t pv[QW][W], mv[QW][W];
 #pragma unroll
-    for (int k = 0; k < QW; ++k) {
-#pragma unroll
-      for (int w = 0; w < W; ++w) {
-        pv[k][w] = bits_below(ql[k] - 32 * w);
-        mv[k][w] = 0u;
-      }
-    }
+    for (int k = 0; k < QW; ++k) myers_step::start<W>(ql[k], pv[k], mv[k]);
     walk<W, QW, kStride>(s_text + r, steps, tables, wpq, L, nside, pv, mv);
 #pragma unroll
     for (int k = 0; k < QW; ++k) {
-      // d(pattern, text) = steps + the last column's +1s - its -1s, over
-      // the pattern's bits (those above it never reach them)
-      int score = steps;
-#pragma unroll
-      for (int w = 0; w < W; ++w) {
-        const uint32_t bits = bits_below(ql[k] - 32 * w);
-        score += __popc(pv[k][w] & bits) - __popc(mv[k][w] & bits);
-      }
+      const int score = last_column<W>(ql[k], steps, pv[k], mv[k]);
       if (q0 + k < Q && c < C) {
         out[(int64_t)(q0 + k) * C + c] = ql[k] == 0 ? cl : score;
       }

@@ -14,7 +14,8 @@ Pallas kernels:
     its own gathered candidates, the dd rescorer's layout --
     ``csrc/myers_gathered.cu`` (``myers_distance_gathered``);
   * ``_intersect_tile_kernel`` -- all-pairs |A ∩ B| of hashed q-gram /
-    token sets -- ``csrc/intersect_tile.cu`` (``set_intersection_tiles``);
+    token sets -- becomes per-query hash tables that each corpus id is
+    looked up in, ``csrc/intersect_tile.cu`` (``set_intersection_tiles``);
   * ``_retrieval_segmax_kernel`` -- the ``ann`` backend's fused cosine
     product, candidate mask and strided segment max --
     ``csrc/retrieval_segmax.cu`` (``retrieval_segmax``).
@@ -431,10 +432,11 @@ def set_intersection_tiles(qgrams, qn, cgrams, cn):
     """All-pairs |set_i ∩ set_j| -> (Q, C) int32 (mirrors
     ``pallas_kernels.set_intersection_tiles``).
 
-    qgrams: (Q, G) int32 hashed ids, sorted ascending and distinct in the
-    first qn entries (``ops.features`` GRAM_SET / TOKEN_SET, SET_PAD
-    after); qn: (Q,); cgrams: (C, G); cn: (C,); G <= SET_MAX_WIDTH.  Only
-    the first n entries of a row count, whatever its padding holds.
+    qgrams: (Q, G) int32 hashed ids, distinct in the first qn entries
+    (``ops.features`` GRAM_SET / TOKEN_SET sorts them and pads with
+    SET_PAD; neither the kernel nor the plain version needs them sorted);
+    qn: (Q,); cgrams: (C, G); cn: (C,); G <= SET_MAX_WIDTH.  Only the
+    first n entries of a row count, whatever its padding holds.
     """
     _check_pair_operands("set_intersection_tiles", qgrams, qn, cgrams, cn,
                          SET_MAX_WIDTH)

@@ -1,8 +1,9 @@
 """Card tests of the PyTorch port: each CUDA kernel against its plain
 PyTorch version at odd sizes (Q, C and K multiples of no tile, every
-width, empty strings and sets, garbage set padding; for the Myers tile
-and Jaro-Winkler kernels also every kind of wide UTF-16 alphabet in
-tests/wide_units.py, and length extremes for Jaro-Winkler; for the
+width, empty strings and sets, garbage set padding; for the Myers tile,
+Jaro-Winkler and gathered Myers kernels also every kind of wide UTF-16
+alphabet in tests/wide_units.py, and length extremes for Jaro-Winkler;
+for the intersection kernel also every id-set kind there; for the
 segment-max kernel one to three tiles of 1024 and 2048 rows, 8 to 1024
 bins a tile, partly filled and full query tiles, group filtering on and
 off, masked bins and a duplicate cluster), the dd
@@ -31,7 +32,8 @@ for _knob, _value in (("DEVICE_CHUNK", "512"),
 from sesam_duke_microservice_tpu_torch.core.config import parse_config  # noqa: E402
 from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
 from sesam_duke_microservice_tpu_torch.service.app import DukeApp  # noqa: E402
-from wide_units import KINDS, wide_unit_inputs  # noqa: E402
+from wide_units import (KINDS, SET_KINDS, set_kind_inputs,  # noqa: E402
+                        wide_unit_inputs)
 
 pytestmark = pytest.mark.cuda
 
@@ -137,11 +139,35 @@ def test_jw_kernel_equals_plain_version(l, kind, cuda_device):
     assert torch.equal(got.cpu(), cpu)
 
 
-@pytest.mark.parametrize("l,k", [(1, 3), (8, 37), (24, 64), (32, 129)])
+@pytest.mark.parametrize("l,k", [(1, 3), (8, 37), (24, 64), (32, 129),
+                                 (32, 64), (32, 130)])
 def test_gathered_myers_kernel_equals_plain_version(l, k, cuda_device):
     qc, ql, pool, pool_len = _inputs(19, 77, l, 200 + l, cuda_device)
     g = torch.Generator().manual_seed(l)
     rows = torch.randint(0, 77, (19, k), generator=g).to(cuda_device)
+    cc = pool[rows].contiguous()
+    cl = pool_len[rows].contiguous()
+    ck.reset_launch_counts()
+    got = ck.myers_distance_gathered(qc, ql, cc, cl)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ck.myers_distance_gathered_reference(
+        qc, ql, cc, cl))
+    assert ck.LAUNCHES["myers_gathered"] == 1
+
+
+@pytest.mark.parametrize("kind", KINDS + ("all",))
+@pytest.mark.parametrize("l,k", [(24, 64), (32, 64), (32, 130)])
+def test_gathered_myers_kernel_equals_plain_version_on_wide_units(
+        l, k, kind, cuda_device):
+    # the match table's side list, shared low bytes, surrogates, U+0000
+    # inside the length, runs (tests/wide_units.py); every query meets an
+    # empty and a full-width text, and query 0 has an empty pattern
+    qc, ql, pool, pool_len = [torch.from_numpy(a).to(cuda_device) for a in
+                              wide_unit_inputs(kind, 300 + l, 21, 77, l)]
+    g = torch.Generator().manual_seed(k)
+    rows = torch.randint(0, 77, (21, k), generator=g)
+    rows[:, :2] = torch.tensor([1, 0])
+    rows = rows.to(cuda_device)
     cc = pool[rows].contiguous()
     cl = pool_len[rows].contiguous()
     ck.reset_launch_counts()
@@ -167,11 +193,30 @@ def _sets(q, g, seed, device, garbage):
     return ids.to(device), n.to(device)
 
 
-@pytest.mark.parametrize("g,garbage", [(16, False), (64, False), (64, True),
-                                       (256, False)])
-def test_intersection_kernel_equals_plain_version(g, garbage, cuda_device):
-    qg, qn = _sets(23, g, g, cuda_device, garbage)
-    cg, cn = _sets(141, g, g + 1, cuda_device, garbage)
+# small-range sorted sets, then every id-set kind of tests/wide_units.py
+# at each width (the hash tables' edge cases: full-range hashed ids, ids
+# sharing their low 10 bits, SET_PAD / 0x80000000 / 0 / -1 inside n, full
+# rows, identical rows at every size, ids sharing one home slot -- windows
+# past the unrolled 1 to 4 slots), over several blocks of queries and rows
+@pytest.mark.parametrize("g,garbage,kind", [
+    pytest.param(16, False, None, id="16-False"),
+    pytest.param(64, False, None, id="64-False"),
+    pytest.param(64, True, None, id="64-True"),
+    pytest.param(256, False, None, id="256-False"),
+    pytest.param(37, True, None, id="37-True"),
+] + [pytest.param(g, False, kind, id=f"{kind}-{g}") for kind in SET_KINDS
+     for g in (16, 64, 256)])
+def test_intersection_kernel_equals_plain_version(g, garbage, kind,
+                                                  cuda_device):
+    if kind is not None:
+        qg, qn = set_kind_inputs(kind, g, 70, g)
+        cg, cn = set_kind_inputs(kind, g + 1, 300, g, copies_of=(
+            (qg, qn) if kind == "identical" else None))
+        qg, qn, cg, cn = (torch.from_numpy(a).to(cuda_device)
+                          for a in (qg, qn, cg, cn))
+    else:
+        qg, qn = _sets(23, g, g, cuda_device, garbage)
+        cg, cn = _sets(141, g, g + 1, cuda_device, garbage)
     cg[4], cn[4] = qg[1], qn[1]
     ck.reset_launch_counts()
     got = ck.set_intersection_tiles(qg, qn, cg, cn)

@@ -7,8 +7,10 @@ widths), gathered Myers distances and set-intersection counts exactly,
 Jaro-Winkler similarities within the reference's CHARS similarity budget
 (XLA on the CPU may contract the boost into a fused multiply-add).  Inputs
 carry empty strings and sets, full-width rows, SET_PAD and garbage padding,
-and Q / C / K that are multiples of no tile; the Myers distances also
-every wide UTF-16 alphabet of tests/wide_units.py.  The CUDA kernels
+and Q / C / K that are multiples of no tile; the Myers and gathered
+Myers distances also every wide UTF-16 alphabet of tests/wide_units.py,
+and the intersection counts its id-set kinds (hashed, shared low bits,
+SET_PAD and INT32_MIN inside n, full, identical, colliding).  The CUDA kernels
 themselves are held against the plain versions on the card by
 tests/test_torch_cuda.py.
 """
@@ -23,7 +25,7 @@ from sesam_duke_microservice_tpu.ops import pallas_kernels as pk
 from sesam_duke_microservice_tpu.ops import scoring as jax_scoring
 from sesam_duke_microservice_tpu.ops.features import CHARS, SET_PAD
 from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
-from wide_units import wide_unit_inputs
+from wide_units import set_kind_inputs, wide_unit_inputs
 
 SIM_TOL = jax_scoring._SIM_ERROR_BOUND[CHARS]
 
@@ -143,11 +145,26 @@ def test_plain_jw_equals_pallas_kernel(l):
     assert (got[~equal] < 1.0).any() and (got[~equal] > 0.0).any()
 
 
-@pytest.mark.parametrize("l,k", [(1, 5), (24, 37), (32, 130)])
-def test_plain_gathered_myers_equals_pallas_kernel(l, k):
-    qc, ql, pool, pool_len = _inputs(300 + l, 7, 50, l)
+# the small alphabet, then every wide UTF-16 alphabet of
+# tests/wide_units.py (the card tests hold the kernel's table lookup, side
+# list included, against this plain version); every query also gets an
+# empty and a full-width candidate
+@pytest.mark.parametrize("l,k,alphabet", [
+    pytest.param(1, 5, "abcd", id="1-5"),
+    pytest.param(24, 37, "abcd", id="24-37"),
+    pytest.param(32, 130, "abcd", id="32-130"),
+    pytest.param(24, 64, "all", id="wide-24-64"),
+    pytest.param(32, 130, "all", id="wide-32-130"),
+])
+def test_plain_gathered_myers_equals_pallas_kernel(l, k, alphabet):
+    if alphabet == "all":
+        qc, ql, pool, pool_len = wide_unit_inputs("all", 300 + l, 7, 50, l)
+    else:
+        qc, ql, pool, pool_len = _inputs(300 + l, 7, 50, l)
     rng = np.random.default_rng(l)
     rows = rng.integers(0, 50, size=(7, k))
+    if alphabet == "all":
+        rows[:, :2] = [1, 0]              # an empty and a full-width text
     cc = pool[rows]                       # (Q, K, L): candidate k of q
     cl = pool_len[rows]
     want = np.asarray(pk.myers_distance_gathered(
@@ -173,11 +190,28 @@ def _sets(seed, rows, g, *, garbage=False):
     return ids, n
 
 
-@pytest.mark.parametrize("g,garbage", [(16, False), (64, False), (64, True),
-                                       (256, False)])
-def test_plain_intersection_equals_pallas_kernel(g, garbage):
-    qg, qn = _sets(g, 5, g, garbage=garbage)
-    cg, cn = _sets(g + 1, 11, g, garbage=garbage)
+# small-range sorted sets (SET_PAD or garbage after), then the kinds of
+# tests/wide_units.py that would catch a mistake in the CUDA kernel's hash
+# tables: full-range hashed ids, ids sharing their low 10 bits, SET_PAD /
+# 0x80000000 / 0 / -1 inside n, full rows at G = 256, identical rows at
+# every size, ids that all share one home slot
+@pytest.mark.parametrize("g,garbage,kind", [
+    pytest.param(16, False, None, id="16-False"),
+    pytest.param(64, False, None, id="64-False"),
+    pytest.param(64, True, None, id="64-True"),
+    pytest.param(256, False, None, id="256-False"),
+] + [pytest.param(g, False, kind, id=f"{kind}-{g}")
+     for kind, g in (("hashed", 16), ("hashed", 64), ("low10", 64),
+                     ("edge", 16), ("edge", 64), ("full", 256),
+                     ("identical", 64), ("collide", 64))])
+def test_plain_intersection_equals_pallas_kernel(g, garbage, kind):
+    if kind is not None:
+        qg, qn = set_kind_inputs(kind, g, 5, g)
+        cg, cn = set_kind_inputs(kind, g + 1, 11, g, copies_of=(
+            (qg, qn) if kind == "identical" else None))
+    else:
+        qg, qn = _sets(g, 5, g, garbage=garbage)
+        cg, cn = _sets(g + 1, 11, g, garbage=garbage)
     cg[3], cn[3] = qg[1], qn[1]           # a full-width identical pair
     want = np.asarray(pk.set_intersection_tiles(
         jnp.asarray(qg), jnp.asarray(qn), jnp.asarray(cg), jnp.asarray(cn),

@@ -1,5 +1,7 @@
-"""Seeded char matrices over wide UTF-16 alphabets, for the Myers tile
-kernel's match-table lookup and its plain version.
+"""Seeded inputs that reach past the easy cases of the port's kernels:
+char matrices over wide UTF-16 alphabets, for the match-table lookups of
+the Myers and Jaro-Winkler kernels and their plain versions, and id sets
+for the set-intersection kernel's hash tables (``set_kind_inputs``).
 
 Each kind reaches a part of the lookup that a small lowercase alphabet
 never does: units of 256 and up (the side list), units sharing a low byte
@@ -65,3 +67,85 @@ def wide_unit_inputs(kind: str, seed: int, q: int, c: int, l: int):
         for i, n in enumerate(lens):
             chars[i, n:] = 0
     return qc, ql, cc, cl
+
+
+# -- id sets for the set-intersection kernel -------------------------------
+
+SET_PAD = 2**31 - 1
+SET_KINDS = ("hashed", "low10", "edge", "full", "identical", "collide")
+_MUL = 0x9E3779B1                 # csrc/intersect_tile.cu's hash multiplier
+_MUL_INV = pow(_MUL, -1, 2**32)
+
+
+def fold32_fnv1a(word: str) -> int:
+    """FNV-1a 64 of the word's UTF-8 bytes folded to a signed 32-bit id,
+    as ops.features folds its gram and token hashes: uniform over all 32
+    bits."""
+    h = 0xCBF29CE484222325
+    for b in word.encode():
+        h = ((h ^ b) * 0x100000001B3) & 0xFFFFFFFFFFFFFFFF
+    v = (h ^ (h >> 32)) & 0xFFFFFFFF
+    return v - 2**32 if v >= 2**31 else v
+
+
+def _signed(v: int) -> int:
+    v &= 0xFFFFFFFF
+    return v - 2**32 if v >= 2**31 else v
+
+
+def set_kind_inputs(kind: str, seed: int, rows: int, g: int, *,
+                    copies_of=None):
+    """(ids (rows, g) int32, n (rows,) int32) numpy arrays: distinct ids in
+    each row's first n slots, in no order, and SET_PAD or garbage after.
+
+    * "hashed": folded FNV-1a hashes of words from a vocabulary of 3 g, so
+      rows share ids; SET_PAD after;
+    * "low10": ids that all share their low 10 bits; garbage after;
+    * "edge": 0x7FFFFFFF (= SET_PAD), 0x80000000, 0 and -1 inside every row
+      of 4 ids or more, with -2 and 1 beside them; SET_PAD after in even
+      rows, garbage in odd ones;
+    * "full": every row holds g ids (hashed);
+    * "identical": hashed rows with n running over 0 .. g; with
+      ``copies_of`` (the query side's (ids, n)), row i is a copy of its
+      row i mod its rows;
+    * "collide": ids k / 0x9E3779B1 mod 2^32 for k < 2 g, so id x
+      0x9E3779B1 = k < 2^23 and every id has home slot 0 in the kernel's
+      tables (the top bits of that product, at most 512 slots): the
+      longest probe windows; garbage after.
+    Empty and full rows are forced in (rows 0 and 1)."""
+    rng = np.random.default_rng(seed)
+    n = rng.integers(0, g + 1, size=rows).astype(np.int32)
+    if kind == "full":
+        n[:] = g
+    elif kind == "identical":
+        n = (np.arange(rows) * (g + 1) // max(rows, 1)).astype(np.int32)
+    n[:2] = [0, g]
+    ids = np.full((rows, g), SET_PAD, dtype=np.int64)
+    vocab = [fold32_fnv1a(f"w{k}") for k in range(3 * g)]
+    for i in range(rows):
+        m = int(n[i])
+        if kind in ("hashed", "full", "identical"):
+            row = [vocab[k] for k in rng.choice(3 * g, size=m, replace=False)]
+        elif kind == "low10":
+            row = [int(k) * 1024 + 0x2A5 - 2**31
+                   for k in rng.choice(3 * g, size=m, replace=False)]
+        elif kind == "edge":
+            extra = [int(k) for k in
+                     rng.choice(np.arange(-3 * g, 3 * g), size=g,
+                                replace=False) if k not in (0, -1, -2, 1)]
+            row = ([SET_PAD, -2**31, 0, -1, -2, 1] + extra)[:m]
+            rng.shuffle(row)
+        elif kind == "collide":
+            row = [_signed(int(k) * _MUL_INV)
+                   for k in rng.choice(2 * g, size=m, replace=False)]
+        else:
+            raise ValueError(kind)
+        ids[i, :m] = row
+        garbage = kind in ("low10", "collide") or (kind == "edge" and i % 2)
+        if garbage:
+            ids[i, m:] = rng.integers(-2**31, 2**31, size=g - m)
+    if copies_of is not None:
+        qids, qn = copies_of
+        for i in range(rows):
+            ids[i], n[i] = qids[i % len(qn)], qn[i % len(qn)]
+    return ids.astype(np.int32), n
