@@ -6,26 +6,51 @@
 Phases, each fatal on failure:
 
 1. build every ``csrc/*.cu`` with nvcc for sm_90a, one nvcc per source,
-   all at once (the build time is printed);
+   all at once, and the C++ host library (``native/duke_native.cpp``)
+   with g++ beside them (the build time is printed);
 2. slice 1's main path: serve ``DukeApp(device="cuda")`` over HTTP, ingest
    131,072 stresstest records (Levenshtein / Numeric / Exact) in
    2,048-record POSTs, POST one 8,192-record query batch, ingest a second
    workload whose names run 33-120 chars (the 4-word Myers kernel), read
-   both ``?since=0`` feeds; the Myers kernels must have launched;
+   both ``?since=0`` feeds; the Myers kernels must have launched.  Each
+   step prints its host routes (C++ library on or off, parallel
+   extraction slabs and worker tasks, broken-pool retries, feature-cache
+   hits and misses).  Then the resync: the first 16,384 records re-POSTed
+   unchanged in the same POST size, every row a feature-cache hit while
+   the cache is on; and the device trace of one block
+   (``PROFILE_TRACE_DIR``, which must hold the block's kernels) and of one
+   whole POST
+   (``torch.profiler``): top device ops, idle share, longest idle gap; and
+   one more POST with a clock around every ``Comparator.compare``;
 3. the ``mixed`` main path: a schema with a Levenshtein, a Jaro-Winkler, a
    q-gram, a Jaccard and an Exact property and a host-only PersonName
    property (which widens the survivor filter, so the certified dd
    finalization has non-emitting survivors to reject); 65,536 records in
    2,048-record POSTs, every 8th a perturbed copy of an earlier one.  The
    Myers, Jaro-Winkler, set-intersection and gathered Myers kernels must
-   all have launched and some pairs must have been certified rejects;
+   all have launched and some pairs must have been certified rejects.
+   Then one more POST with a clock around every ``Comparator.compare``
+   (host finalization by comparator class), four with the finalize pool
+   at 1, n, n and 1 threads, and the device traces as in 2;
 4. the final block of each main-path workload is re-scored with the
    kernels and with their plain versions on the same device tensors
    (equal ``count_above``, ``top_index`` and ``top_logit``), and the
    ``mixed`` block's dd program on the card must equal the same program
    on CPU copies of its tensors; a 512-record workload of each schema must
    give the feed of a brute-force host oracle.  The kernel wrappers'
-   shapes are recorded on the main paths;
+   shapes are recorded on the main paths.  Host parity: the C++ library's
+   ``lev_sim``, ``jaro_winkler`` and ``weighted_lev`` equal the Python
+   comparators on the string pairs of >= 10,000 pairs of both final
+   blocks (survivors first), ``fnv1a64_bytes_batch`` and
+   ``gram_set_batch`` equal the numpy / Python paths on one POST's
+   records of each schema, and ``embed_batch`` is within
+   ``NATIVE_EMBED_ATOL`` of numpy (not run under ``DUKE_TPU_NATIVE=0``).
+   Host extraction: serial extraction against the shared-memory process
+   pool at slabs of 8,192, 32,768 and 131,072 stresstest records, with
+   and without the ``ann`` encoder (the pool's first slab, which starts
+   its workers, apart from the next), each pool result bit-identical to
+   serial; and the feature cache's miss and hit paths against uncached
+   extraction on 16,384 records;
 5. the ``ann`` main path: a second app with ``backend="ann"`` and its
    corpus pre-sized to 524,288 rows takes slice 1's 131,072 stresstest
    records in 2,048-record POSTs (the fused retrieval: the segment-max
@@ -59,13 +84,16 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import random
 import statistics
 import subprocess
 import sys
 import threading
 import time
+import types
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from unittest import mock
 
@@ -614,6 +642,468 @@ def rescore_dd_on_cpu(workload, block):
           flush=True)
 
 
+# -- host paths: routes, resync, parity, the finalization split, traces --
+
+# the resync step re-POSTs this many of the stresstest records unchanged
+RESYNC_RECORDS = 16384
+# host-parity phase: at least this many survivor pairs, at most this many
+# string pairs held (the Python oracles take ~0.1 ms a pair)
+PARITY_PAIRS = 10000
+PARITY_MAX_STRING_PAIRS = 30000
+# (workload, resolved block, its query records) of each re-scored final block
+FINAL_BLOCKS = []
+
+
+def host_counters():
+    """Process-wide host-route counters: the parallel extractor's and the
+    feature cache's."""
+    from sesam_duke_microservice_tpu_torch.ops import feature_cache as FC
+    from sesam_duke_microservice_tpu_torch.ops import parallel_extract as PX
+
+    hits, misses, _, _ = FC.stats()
+    return dict(PX.STATS, hits=hits, misses=misses)
+
+
+def routes_line(before, what):
+    """The host routes a phase took since ``before`` (``host_counters``)."""
+    from sesam_duke_microservice_tpu_torch import native
+    from sesam_duke_microservice_tpu_torch.ops import feature_cache as FC
+    from sesam_duke_microservice_tpu_torch.ops import parallel_extract as PX
+
+    now = host_counters()
+    d = {k: now[k] - before[k] for k in now}
+    lib = "on" if native.available() else "off (DUKE_TPU_NATIVE=0)"
+    return (f"host routes [{what}]: C++ host library {lib}; parallel "
+            f"extraction {d['slabs']} slabs, {d['tasks']} worker tasks "
+            f"(DEVICE_EXTRACT_WORKERS {PX.workers()}, slabs from "
+            f"{PX.min_records()} records); broken-pool serial retries "
+            f"{d['serial_retries']}; feature cache {d['hits']} hits, "
+            f"{d['misses']} misses (DUKE_FEATURE_CACHE_MB {FC.budget_mb()})"
+            f" [host cores {os.cpu_count()}]")
+
+
+SPLIT_FIELDS = ("retrieval_seconds", "compare_seconds", "dd_seconds")
+
+
+def split_fields(stats):
+    return {k: getattr(stats, k) for k in SPLIT_FIELDS}
+
+
+def stats_since(stats, before):
+    """The split fields of ``stats`` accumulated since ``before``
+    (``split_fields``), for ``split_line``."""
+    return types.SimpleNamespace(
+        **{k: getattr(stats, k) - before[k] for k in SPLIT_FIELDS})
+
+
+def resync(port, workload, entities, ingest_tail, tail_capacity, line):
+    """Sesam's full resync: re-POST ``entities`` unchanged, in the ingest's
+    POST size; with the feature cache on, every row must be a hit.
+    ``ingest_tail``: the latencies of the ingest's last POSTs, which
+    scanned ``tail_capacity`` rows."""
+    from sesam_duke_microservice_tpu_torch.ops import feature_cache as FC
+
+    before, s0 = host_counters(), split_fields(workload.processor.stats)
+    _, wall = ingest(port, f"/deduplication/{workload.name}/crm", entities)
+    hits = host_counters()["hits"] - before["hits"]
+    if FC.active() is not None and hits != len(entities):
+        raise AssertionError(f"resync: {hits} feature-cache hits for "
+                             f"{len(entities)} unchanged records")
+    tail = len(ingest_tail) * INGEST_BATCH / sum(ingest_tail)
+    print(f"resync (the first {len(entities)} stresstest records re-POSTed "
+          f"unchanged in {INGEST_BATCH}-record POSTs): "
+          f"{len(entities) / wall:.1f} records/s over "
+          f"{workload.index.corpus.capacity} corpus rows (the ingest's last "
+          f"{len(ingest_tail)} POSTs: {tail:.1f} over {tail_capacity}), "
+          f"feature-cache hits {hits} "
+          f"of {len(entities)} rows; "
+          + split_line(stats_since(workload.processor.stats, s0), wall, line),
+          flush=True)
+    print(routes_line(before, "resync"), flush=True)
+
+
+@contextlib.contextmanager
+def comparator_clock():
+    """Time every ``Comparator.compare`` by class, in all threads: {class:
+    [calls, inclusive s, exclusive s]} (exclusive: less the compares it
+    made itself, as PersonName makes Levenshtein compares)."""
+    from sesam_duke_microservice_tpu_torch.core import comparators as C
+
+    totals, lock, local = {}, threading.Lock(), threading.local()
+
+    def clocked(cls, compare):
+        def timed(self, v1, v2):
+            stack = local.__dict__.setdefault("stack", [])
+            stack.append(0.0)
+            t0 = time.perf_counter()
+            try:
+                return compare(self, v1, v2)
+            finally:
+                dt = time.perf_counter() - t0
+                inner = stack.pop()
+                if stack:
+                    stack[-1] += dt
+                with lock:
+                    row = totals.setdefault(cls.__name__, [0, 0.0, 0.0])
+                    row[0] += 1
+                    row[1] += dt
+                    row[2] += dt - inner
+        return timed
+
+    classes = [c for c in vars(C).values() if isinstance(c, type)
+               and issubclass(c, C.Comparator) and "compare" in vars(c)]
+    with contextlib.ExitStack() as stack:
+        for cls in classes:
+            stack.enter_context(mock.patch.object(
+                cls, "compare", clocked(cls, vars(cls)["compare"])))
+        yield totals
+
+
+def finalization_split(port, workload, batch, line):
+    """One POST's host finalization by comparator class."""
+    stats = workload.processor.stats
+    s0 = split_fields(stats)
+    with comparator_clock() as totals:
+        wall = post(port, f"/deduplication/{workload.name}/crm", batch)
+    final = stats_since(stats, s0)
+    host = final.compare_seconds - final.dd_seconds
+    print(f"{workload.name} finalization split (one {len(batch)}-record "
+          f"POST, wall {wall:.3f} s, host finalization {host:.3f} s, "
+          f"per-compare clock on): " + "; ".join(
+              f"{name} {calls} compares, {excl:.3f} s ({incl:.3f} s with "
+              "the compares it made)"
+              for name, (calls, incl, excl) in sorted(
+                  totals.items(), key=lambda kv: -kv[1][2]))
+          + f" [{line}; host cores {os.cpu_count()}]", flush=True)
+
+
+def mixed_finalization_split(port, mixed, batches, line):
+    """One mixed POST's host finalization by comparator class, then the
+    finalize thread pool on and off (1, n, n, 1 threads) over four more."""
+    from sesam_duke_microservice_tpu_torch.engine.finalize import (
+        FinalizeExecutor,
+    )
+
+    path = "/deduplication/mixed/crm"
+    stats = mixed.processor.stats
+    finalization_split(port, mixed, batches[0], line)
+    n = min(8, os.cpu_count() or 1)
+    old = mixed.processor.finalizer
+    times = []
+    try:
+        for threads, batch in zip((1, n, n, 1), batches[1:]):
+            mixed.processor.finalizer = FinalizeExecutor(threads)
+            s0 = split_fields(stats)
+            post(port, path, batch)
+            d = stats_since(stats, s0)
+            mixed.processor.finalizer.shutdown()
+            times.append((threads, d.compare_seconds - d.dd_seconds))
+    finally:
+        mixed.processor.finalizer = old
+    print("mixed host finalization by DUKE_FINALIZE_THREADS, one "
+          f"{len(batches[1])}-record POST each: "
+          + ", ".join(f"{t} threads {s:.3f} s" for t, s in times)
+          + f" [{line}; host cores {os.cpu_count()}]", flush=True)
+
+
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def trace_summary(path):
+    """Device activity of a Chrome trace: top ops by total device time,
+    the idle share of the traced window and its longest idle gap."""
+    events = [e for e in json.loads(Path(path).read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e and "ts" in e]
+    if not events:
+        return None
+    t0 = min(float(e["ts"]) for e in events)
+    t1 = max(float(e["ts"]) + float(e["dur"]) for e in events)
+    device = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+                     e["name"]) for e in events
+                    if e.get("cat") in DEVICE_CATS)
+    by_name = {}
+    for start, end, name in device:
+        row = by_name.setdefault(name, [0, 0.0])
+        row[0] += 1
+        row[1] += end - start
+    busy, gap, edge = 0.0, 0.0, t0
+    for start, end, _ in device:
+        if end <= edge:
+            continue
+        gap = max(gap, start - edge)
+        busy += end - max(start, edge)
+        edge = end
+    gap = max(gap, t1 - edge)
+    window = max(t1 - t0, 1e-9)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    return {"window_ms": window / 1e3, "device_events": len(device),
+            "names": set(by_name),
+            "busy_ms": busy / 1e3, "idle_share": 1.0 - busy / window,
+            "longest_idle_ms": gap / 1e3,
+            "top": [(name[:60], calls, us / 1e3) for name, (calls, us) in top]}
+
+
+def summary_text(s):
+    if s is None:
+        return "no events"
+    return (f"window {s['window_ms']:.3f} ms, {s['device_events']} device "
+            f"events, busy {s['busy_ms']:.3f} ms, idle share "
+            f"{s['idle_share']:.4f}, longest idle gap "
+            f"{s['longest_idle_ms']:.3f} ms; top device ops by total time: "
+            + "; ".join(f"{name} x{calls} {ms:.3f} ms"
+                        for name, calls, ms in s["top"]))
+
+
+def device_trace(port, workload, batches, line):
+    """The device trace of one block: the package's own (PROFILE_TRACE_DIR,
+    ``trace_batch`` around the block's dispatch and resolve) on one POST,
+    then a
+    ``torch.profiler`` window around one whole POST of the same size."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
+    from sesam_duke_microservice_tpu_torch.utils import profiling as P
+
+    path = f"/deduplication/{workload.name}/crm"
+    with tempfile.TemporaryDirectory() as tmp:
+        with mock.patch.dict(os.environ, {"PROFILE_TRACE_DIR": tmp,
+                                          "PROFILE_TRACE_BATCHES": "1"}):
+            P.reset_trace_budget()
+            post(port, path, batches[0])
+        P.reset_trace_budget()
+        traces = sorted(Path(tmp).glob("trace-*.json"))
+        if len(traces) != 1:
+            raise AssertionError(f"{workload.name}: PROFILE_TRACE_DIR wrote "
+                                 f"{len(traces)} traces for one block")
+        block = trace_summary(traces[0])
+        whole_path = Path(tmp) / "whole_post.json"
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall = post(port, path, batches[1])
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(str(whole_path))
+        whole = trace_summary(whole_path)
+    if whole is None or not whole["device_events"]:
+        raise AssertionError(f"{workload.name}: the whole-POST trace holds "
+                             "no device work")
+    scan = sorted({k for k in ck.LAUNCHES for n in (block or {}).get(
+        "names", ()) if f"{k}_kernel" in n})
+    print(f"device trace [{workload.name}, trace_batch around the dispatch "
+          f"and resolve of one {len(batches[0])}-record block]: "
+          f"{summary_text(block)}; the port's kernels in it: "
+          f"{', '.join(scan) or 'none'} [{line}]", flush=True)
+    if not scan:
+        raise AssertionError(f"{workload.name}: the trace_batch window holds "
+                             "none of the block's scan kernels")
+    print(f"device trace [{workload.name}, torch.profiler around one whole "
+          f"{len(batches[1])}-record POST, wall {wall:.3f} s]: "
+          f"{summary_text(whole)} [{line}]", flush=True)
+
+
+def survivor_string_pairs(want):
+    """String pairs of every comparison property of the final blocks'
+    survivors (device logit above the bound), then of their other top-K
+    rows until ``want`` record pairs are held."""
+    import numpy as np
+
+    chosen = []
+    for survivors in (True, False):
+        for workload, block, records in FINAL_BLOCKS:
+            index = workload.index
+            above = block.top_logit > block.min_logit
+            pick = (above if survivors
+                    else ~above & (block.top_index >= 0))
+            for qi, k in zip(*np.nonzero(pick[:len(records)])):
+                rid = index.corpus.row_ids[int(block.top_index[qi, k])]
+                cand = index.records.get(rid)
+                if cand is not None:
+                    chosen.append((workload, records[qi], cand, survivors))
+        if len(chosen) >= want:
+            break
+    pairs = []
+    for workload, rec, cand, _ in chosen:
+        for prop in workload.config.duke.comparison_properties():
+            for a in rec.get_values(prop.name):
+                for b in cand.get_values(prop.name):
+                    pairs.append((a, b))
+    n_surv = sum(1 for c in chosen if c[3])
+    return pairs, n_surv, len(chosen) - n_surv
+
+
+def phase_host_parity(stress_workload, stress_records, mixed_workload,
+                      mixed_records):
+    """The C++ host library held exactly against the port's Python / numpy
+    paths on this run's rows (the embedding within its stated bound)."""
+    import numpy as np
+
+    from sesam_duke_microservice_tpu_torch import native
+    from sesam_duke_microservice_tpu_torch.core import comparators as C
+    from sesam_duke_microservice_tpu_torch.ops import embedding as H
+    from sesam_duke_microservice_tpu_torch.ops import features as F
+
+    if not native.available():
+        print("host parity: not run (DUKE_TPU_NATIVE=0, the C++ library is "
+              "off)", flush=True)
+        return
+    t0 = time.perf_counter()
+    pairs, n_surv, n_more = survivor_string_pairs(PARITY_PAIRS)
+    if n_surv + n_more < PARITY_PAIRS:
+        raise AssertionError(f"host parity: only {n_surv + n_more} pairs")
+    random.Random(5).shuffle(pairs)
+    pairs = pairs[:PARITY_MAX_STRING_PAIRS]
+    comparators = (C.Levenshtein(), C.JaroWinkler(), C.WeightedLevenshtein())
+    got = [[c.compare(a, b) for a, b in pairs] for c in comparators]
+    with mock.patch.object(C, "_NATIVE", None):
+        want = [[c.compare(a, b) for a, b in pairs] for c in comparators]
+    for c, g, w in zip(comparators, got, want):
+        bad = [p for p, x, y in zip(pairs, g, w) if x != y]
+        if bad:
+            raise AssertionError(f"host parity: {type(c).__name__} C++ != "
+                                 f"Python on {len(bad)} pairs, e.g. {bad[:3]}")
+
+    def values(records):
+        return [v for r in records for p in r.properties() for v in
+                r.get_values(p)]
+
+    all_values = values(stress_records) + values(mixed_records)
+    gram_specs = [s for s in mixed_workload.index.plan.device_props
+                  if s.kind == F.GRAM_SET]
+    per_record = [[r.get_values(s.name) for r in mixed_records]
+                  for s in gram_specs]
+    nat_hash = F.fnv1a64_batch(all_values)
+    nat_grams = [F.extract_property(s, v) for s, v in zip(gram_specs,
+                                                           per_record)]
+    with mock.patch.object(native, "available", lambda: False):
+        ref_hash = F.fnv1a64_batch(all_values)
+        ref_grams = [F.extract_property(s, v) for s, v in zip(gram_specs,
+                                                               per_record)]
+    if not np.array_equal(nat_hash, ref_hash):
+        raise AssertionError("host parity: fnv1a64_bytes_batch != numpy")
+    for nat, ref in zip(nat_grams, ref_grams):
+        for name in ref:
+            if not np.array_equal(nat[name], ref[name]):
+                raise AssertionError(f"host parity: gram_set_batch {name} "
+                                     "!= Python")
+    worst = 0.0
+    for workload, records in ((stress_workload, stress_records),
+                              (mixed_workload, mixed_records)):
+        enc = H.RecordEncoder(workload.config.duke, 256)
+        nat = enc.encode_batch(records)
+        ref = H.embed_batch([[(p, v) for p in enc.props
+                              for v in r.get_values(p) if v]
+                             for r in records], enc.dim)
+        worst = max(worst, float(np.abs(nat - ref).max()))
+    if worst > H.NATIVE_EMBED_ATOL:
+        raise AssertionError(f"host parity: embed_batch off numpy by {worst}"
+                             f" > {H.NATIVE_EMBED_ATOL}")
+    print(f"host parity: C++ == Python on {len(pairs)} string pairs of "
+          f"{n_surv} survivor pairs (+{n_more} further top-K pairs) of the "
+          f"stresstest and mixed final blocks for lev_sim, jaro_winkler and "
+          f"weighted_lev; fnv1a64_bytes_batch == numpy on "
+          f"{len(all_values)} values, gram_set_batch == Python on "
+          f"{len(mixed_records)} records x {len(gram_specs)} q-gram "
+          f"properties; embed_batch within {worst:.3g} of numpy (bound "
+          f"{H.NATIVE_EMBED_ATOL:.3g}) on {len(stress_records)} + "
+          f"{len(mixed_records)} records, D 256 ({time.perf_counter() - t0:.1f}"
+          f" s)", flush=True)
+
+
+# host extraction: slab sizes held serial against the process pool, and
+# the feature cache's miss and hit paths on this many records
+EXTRACT_SLABS = (8192, 32768, 131072)
+CACHE_RECORDS = 16384
+CACHE_MB = 256
+
+
+def timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def same_features(got, want):
+    import numpy as np
+
+    return set(got) == set(want) and all(
+        set(got[p]) == set(want[p]) and all(
+            got[p][t].dtype == a.dtype and np.array_equal(got[p][t], a)
+            for t, a in want[p].items())
+        for p in want)
+
+
+def phase_host_extraction(workload, entities, line):
+    """Serial extraction against the shared-memory process pool on this
+    host, at slabs from the pool's threshold up, with and without the
+    ``ann`` encoder: the pool's first slab (which starts its workers) and
+    its next, each held bit for bit against serial.  Then the feature
+    cache's miss and hit paths against uncached extraction, fresh records
+    each pass (the record digest is memoized on the record)."""
+    from sesam_duke_microservice_tpu_torch.ops import embedding as H
+    from sesam_duke_microservice_tpu_torch.ops import feature_cache as FC
+    from sesam_duke_microservice_tpu_torch.ops import features as F
+    from sesam_duke_microservice_tpu_torch.ops import parallel_extract as PX
+
+    def records(n):
+        return workload.datasources["crm"].records_for_batch(entities[:n])
+
+    plan = workload.index.plan
+    nw = max(2, min(8, (os.cpu_count() or 1) // 2))
+    for enc in (None, H.RecordEncoder(workload.config.duke, 256)):
+        what = "stresstest plan" + ("" if enc is None else
+                                    ", ann encoder D 256")
+        PX._shutdown()
+        parts = []
+        for n in EXTRACT_SLABS:
+            recs = records(n)
+            with mock.patch.dict(os.environ, {"DEVICE_EXTRACT_WORKERS": "0"}):
+                want, serial = timed(
+                    lambda: F._extract_direct(plan, recs, encoder=enc))
+            with mock.patch.dict(os.environ,
+                                 {"DEVICE_EXTRACT_WORKERS": str(nw)}):
+                pool = []
+                for _ in range(2):
+                    got, dt = timed(lambda: PX.extract_batch_parallel(
+                        plan, recs, encoder=enc))
+                    if got is None or not same_features(got, want):
+                        raise AssertionError(f"host extraction [{what}]: the "
+                                             f"pool's {n}-record slab != "
+                                             "serial")
+                    pool.append(dt)
+            parts.append(f"slab {n}: serial {serial:.3f} s "
+                         f"({serial / n * 1e6:.2f} us a record), pool "
+                         f"{pool[0]:.3f} s then {pool[1]:.3f} s")
+        PX._shutdown()
+        print(f"host extraction [{what}; a pool of {nw} workers, its first "
+              f"slab starts them]: " + "; ".join(parts)
+              + f"; every pool result bit-identical to serial [{line}; host "
+              f"cores {os.cpu_count()}]", flush=True)
+
+        cache = FC.FeatureCache(CACHE_MB << 20)
+        n = CACHE_RECORDS
+        with mock.patch.dict(os.environ, {"DEVICE_EXTRACT_WORKERS": "0"}):
+            recs = records(n)
+            want, plain = timed(
+                lambda: F._extract_direct(plan, recs, encoder=enc))
+            recs = records(n)
+            _, miss = timed(
+                lambda: FC.cached_extract(cache, plan, recs, encoder=enc))
+            recs = records(n)
+            got, hit = timed(
+                lambda: FC.cached_extract(cache, plan, recs, encoder=enc))
+        if cache.hits != n or not same_features(got, want):
+            raise AssertionError(f"feature cache [{what}]: {cache.hits} hits "
+                                 f"of {n}, or hit rows != extraction")
+        print(f"feature cache [{what}, {n} records, serial extraction, a "
+              f"cache of {CACHE_MB} MB]: uncached {plain / n * 1e6:.2f} "
+              f"us a record, miss path {miss / n * 1e6:.2f}, hit path "
+              f"{hit / n * 1e6:.2f} (every row a hit, bit-identical) "
+              f"[{line}; host cores {os.cpu_count()}]", flush=True)
+
+
 # -- the main paths -------------------------------------------------------------
 
 
@@ -634,7 +1124,11 @@ def phase_slice1(app, port, line):
     from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
 
     people = app.deduplications["people"]
-    entities = stresstest_entities(INGEST_RECORDS, 1234, "p")
+    # three more POSTs of the same traffic: the device traces (two) and
+    # the finalization split (one)
+    entities = stresstest_entities(INGEST_RECORDS + 3 * INGEST_BATCH, 1234,
+                                   "p")
+    entities, extra = entities[:INGEST_RECORDS], entities[INGEST_RECORDS:]
     queries = with_copies(stresstest_entities(QUERY_BATCH, 4321, "q"),
                           entities, 16, 1)
     addresses = stresstest_entities(LONG_RECORDS, 99, "a", long_names=True)
@@ -642,16 +1136,23 @@ def phase_slice1(app, port, line):
 
     with recording_shapes() as shapes:
         ck.reset_launch_counts()
+        counters = host_counters()
         latencies, ingest_s = ingest(port, "/deduplication/people/crm",
                                      entities)
+        tail_capacity = people.index.corpus.capacity
         stats = people.processor.stats
         split = split_line(stats, ingest_s, line)
+        routes = [routes_line(counters, "stresstest ingest")]
         pairs0 = stats.pairs_compared
+        counters = host_counters()
         query_s = post(port, "/deduplication/people/crm", queries)
+        routes.append(routes_line(counters, "stresstest query POST"))
         query_pairs = stats.pairs_compared - pairs0
+        counters = host_counters()
         _, long_s = ingest(port, "/deduplication/addresses/crm", addresses)
         long_split = split_line(
             app.deduplications["addresses"].processor.stats, long_s, line)
+        routes.append(routes_line(counters, "long-name ingest"))
         people_rows = feed(port, "/deduplication/people")
         address_rows = feed(port, "/deduplication/addresses")
         launches = dict(ck.LAUNCHES)
@@ -670,8 +1171,9 @@ def phase_slice1(app, port, line):
               .device_props}
     print(f"feeds: people {len(people_rows)} links, addresses "
           f"{len(address_rows)} links (char widths {widths})", flush=True)
-    rescore_plain(people, people.datasources["crm"].records_for_batch(
-        queries[-DM.query_buckets()[-1]:]))
+    final = people.datasources["crm"].records_for_batch(
+        queries[-DM.query_buckets()[-1]:])
+    FINAL_BLOCKS.append((people, rescore_plain(people, final), final))
     long_wl = app.deduplications["addresses"]
     rescore_plain(long_wl, long_wl.datasources["crm"].records_for_batch(
         addresses[-INGEST_BATCH:]))
@@ -687,7 +1189,16 @@ def phase_slice1(app, port, line):
     print(f"stresstest ingest {split}", flush=True)
     print(f"long-name ingest ({LONG_RECORDS} records) {long_split}",
           flush=True)
-    return launches, shapes, people_rows
+    for text in routes:
+        print(text, flush=True)
+    resync(port, people, entities[:RESYNC_RECORDS],
+           latencies[-(RESYNC_RECORDS // INGEST_BATCH):], tail_capacity,
+           line)
+    device_trace(port, people,
+                 [extra[:INGEST_BATCH], extra[INGEST_BATCH:2 * INGEST_BATCH]],
+                 line)
+    finalization_split(port, people, extra[2 * INGEST_BATCH:], line)
+    return launches, shapes, people_rows, entities
 
 
 def phase_mixed(app, port, line):
@@ -696,12 +1207,19 @@ def phase_mixed(app, port, line):
     from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
 
     mixed = app.deduplications["mixed"]
-    entities = mixed_entities(MIXED_RECORDS, 2024, "m")
+    # seven more POSTs of the same traffic: the finalization split (five)
+    # and the device traces (two)
+    entities = mixed_entities(MIXED_RECORDS + 7 * INGEST_BATCH, 2024, "m")
+    extra = [entities[s:s + INGEST_BATCH]
+             for s in range(MIXED_RECORDS, len(entities), INGEST_BATCH)]
+    entities = entities[:MIXED_RECORDS]
     with recording_shapes() as shapes:
         ck.reset_launch_counts()
+        counters = host_counters()
         latencies, ingest_s = ingest(port, "/deduplication/mixed/crm",
                                      entities)
         launches = dict(ck.LAUNCHES)
+        routes = routes_line(counters, "mixed ingest")
     rows = feed(port, "/deduplication/mixed")
     stats = mixed.processor.stats
     print(f"mixed path: launches {launches}; wrapper calls by shape "
@@ -732,12 +1250,17 @@ def phase_mixed(app, port, line):
     print(f"p50 POST latency (mixed ingest POSTs): "
           f"{statistics.median(latencies) * 1e3:.1f} ms [{line}]")
     print(f"mixed ingest {split_line(stats, ingest_s, line)}", flush=True)
+    print(routes, flush=True)
 
+    final = mixed.datasources["crm"].records_for_batch(
+        entities[-INGEST_BATCH:])
     with capturing_sets() as real_sets:
-        block = rescore_plain(mixed, mixed.datasources["crm"]
-                              .records_for_batch(entities[-INGEST_BATCH:]))
+        block = rescore_plain(mixed, final)
+    FINAL_BLOCKS.append((mixed, block, final))
     rescore_dd_on_cpu(mixed, block)
-    return launches, shapes, real_sets
+    mixed_finalization_split(port, mixed, extra[:5], line)
+    device_trace(port, mixed, extra[5:], line)
+    return launches, shapes, real_sets, entities[:INGEST_BATCH]
 
 
 def phase_main_paths(line):
@@ -755,8 +1278,16 @@ def phase_main_paths(line):
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     try:
-        slice1 = phase_slice1(app, port, line)
-        mixed = phase_mixed(app, port, line)
+        *slice1, stress_entities = phase_slice1(app, port, line)
+        *mixed, mixed_post = phase_mixed(app, port, line)
+        people, mixed_wl = (app.deduplications[name]
+                            for name in ("people", "mixed"))
+        phase_host_parity(
+            people, people.datasources["crm"].records_for_batch(
+                stress_entities[:INGEST_BATCH]),
+            mixed_wl, mixed_wl.datasources["crm"].records_for_batch(
+                mixed_post))
+        phase_host_extraction(people, stress_entities, line)
         # a sixth of the batch copies one entity: more candidates per
         # query than the initial top-K, so K-escalation runs too
         check_oracle(port, app, "oracle", with_copies(
@@ -858,8 +1389,6 @@ def phase_ann(line, device_rows):
     131,072 stresstest records in 2,048-record POSTs and its 8,192-record
     query POST; its feed must be a subset of slice 1's brute-force feed
     with equal confidences.  Returns (launches, shapes)."""
-    import os
-
     import torch
 
     from sesam_duke_microservice_tpu_torch.core.config import parse_config
@@ -887,13 +1416,17 @@ def phase_ann(line, device_rows):
             for name in E.ROUTES:
                 E.ROUTES[name] = 0
             escalations = DM.ESCALATIONS["top_c"]
+            counters = host_counters()
             latencies, ingest_s = ingest(port, "/deduplication/people/crm",
                                          entities)
             ingest_launches = dict(ck.LAUNCHES)
             ingest_routes = dict(E.ROUTES)
             split = split_line(stats, ingest_s, line)
+            host_routes = [routes_line(counters, "ann ingest")]
             pairs0 = stats.pairs_compared
+            counters = host_counters()
             query_s = post(port, "/deduplication/people/crm", queries)
+            host_routes.append(routes_line(counters, "ann query POST"))
             query_pairs = stats.pairs_compared - pairs0
             launches = dict(ck.LAUNCHES)
             routes = dict(E.ROUTES)
@@ -948,6 +1481,8 @@ def phase_ann(line, device_rows):
     print(f"p50 POST latency (ann ingest POSTs): "
           f"{statistics.median(latencies) * 1e3:.1f} ms [{line}]")
     print(f"ann ingest {split}; pairs rescored {pairs0}", flush=True)
+    for text in host_routes:
+        print(text, flush=True)
     return launches, shapes
 
 
@@ -1407,10 +1942,17 @@ def main() -> int:
     line = card_line()
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
           f"{torch.cuda.get_device_name(0)}", flush=True)
+    from sesam_duke_microservice_tpu_torch import native
+
     t0 = time.perf_counter()
-    built = ck.build_library()
+    # the C++ host library builds with g++ while nvcc runs
+    with ThreadPoolExecutor(1) as pool:
+        host_lib = pool.submit(native.build_library)
+        built = ck.build_library()
+        host_lib = host_lib.result()
     print(f"build: {sorted(f'csrc/{s}.cu' for s in built)} with nvcc for "
-          f"sm_90a in {time.perf_counter() - t0:.1f} s", flush=True)
+          f"sm_90a, native/duke_native.cpp into {host_lib.name} with g++, in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     (launches1, shapes1, device_rows), (launches2, shapes2, real_sets) = \
         phase_main_paths(line)

@@ -25,6 +25,26 @@ import re
 from typing import Dict, List, Optional, Sequence, Type
 
 
+def _native_module():
+    """The C++ host library (``native/``) when ``DUKE_TPU_NATIVE`` is on,
+    else None.
+
+    Resolved on the first compare, so importing this module never pays
+    the build; a failed build raises.  The pure-Python bodies below stay
+    the oracles (tests/test_torch_native.py).
+    """
+    global _NATIVE
+    if _NATIVE is _UNRESOLVED:
+        from .. import native
+
+        _NATIVE = native if native.available() else None
+    return _NATIVE
+
+
+_UNRESOLVED = object()
+_NATIVE = _UNRESOLVED
+
+
 class Comparator:
     is_tokenized = True
 
@@ -118,6 +138,9 @@ class Levenshtein(Comparator):
         # property maps to `low` anyway.
         if (longer - shorter) * 2 > shorter:
             return 0.0
+        native = _native_module()
+        if native is not None:
+            return native.lev_sim(v1, v2)
         dist = min(levenshtein_distance(v1, v2, limit=shorter), shorter)
         return 1.0 - (dist / shorter)
 
@@ -166,6 +189,12 @@ class WeightedLevenshtein(Comparator):
         shorter = min(len(v1), len(v2))
         if shorter == 0:
             return 0.0
+        native = _native_module()
+        # native classifies characters by ASCII class only, so non-ASCII
+        # values (where isdigit/isalpha diverge) stay on the Python path
+        if native is not None and v1.isascii() and v2.isascii():
+            return native.weighted_lev(v1, v2, self.digit_weight,
+                                       self.letter_weight, self.other_weight)
         # weighted distance over *unweighted* min length: edits to heavy
         # characters (digits) genuinely cost more similarity
         dist = min(self._distance(v1, v2), float(shorter))
@@ -211,6 +240,10 @@ class JaroWinkler(Comparator):
         if v1 == v2:
             return 1.0
         v1, v2 = _utf16_expand(v1), _utf16_expand(v2)
+        native = _native_module()
+        if native is not None:
+            return native.jaro_winkler(v1, v2, self.prefix_scale,
+                                       self.boost_threshold, self.max_prefix)
         j = _jaro(v1, v2)
         if j < self.boost_threshold:
             return j

@@ -48,6 +48,7 @@ from ..ops import bounds as B
 from ..ops import encoder as E
 from ..ops import features as F
 from ..ops import scoring as S
+from ..utils.profiling import trace_armed, trace_batch
 from .finalize import FinalizeExecutor
 from .listeners import MatchListener
 from .processor import Processor, ProfileStats
@@ -748,21 +749,28 @@ class DeviceProcessor:
     def _score_blocks(self, records: Sequence[Record]) -> None:
         """Double-buffered block dispatch: block N+1's program is queued
         before block N's results are fetched, so host finalization of N
-        overlaps device scoring of N+1."""
+        overlaps device scoring of N+1.  While a device trace is armed
+        (``PROFILE_TRACE_DIR``) the lookahead is held back, so a traced
+        block is dispatched inside its own trace window."""
         live_rows = self.database.corpus.live_rows
         size = _QUERY_BUCKETS[-1]
         blocks = [records[s:s + size] for s in range(0, len(records), size)]
         pending = None
-        if blocks:
-            pending = self._scorers.dispatch_block(
-                blocks[0], group_filtering=self.group_filtering)
         for bi, block in enumerate(blocks):
-            t1 = time.monotonic()
-            nxt = None
-            if bi + 1 < len(blocks):
-                nxt = self._scorers.dispatch_block(
-                    blocks[bi + 1], group_filtering=self.group_filtering)
-            result = resolve_block(pending)
+            lookahead = bi + 1 < len(blocks) and not trace_armed()
+            with trace_batch(f"score_block[{len(block)}]"):
+                if pending is None:
+                    pending = self._scorers.dispatch_block(
+                        block, group_filtering=self.group_filtering)
+                # the device wait is clocked from here: a block's own
+                # dispatch is host work (the next block's lookahead
+                # dispatch falls inside the wait)
+                t1 = time.monotonic()
+                nxt = None
+                if lookahead:
+                    nxt = self._scorers.dispatch_block(
+                        blocks[bi + 1], group_filtering=self.group_filtering)
+                result = resolve_block(pending)
             pending = nxt
             t2 = time.monotonic()
             self.stats.retrieval_seconds += t2 - t1

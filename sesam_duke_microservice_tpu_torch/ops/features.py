@@ -1,8 +1,13 @@
 """Host-side per-record feature extraction for the device scoring path.
 
-A copy of the JAX package's ``ops/features.py`` with the C-library fast
-paths and the feature cache / process-pool extractor left out: the numpy
-fallbacks below produce the identical hashes and tensors.
+A copy of the JAX package's ``ops/features.py``.  Value hashing and
+q-gram sets take the port's C++ host library (``native``) while
+``DUKE_TPU_NATIVE`` is on (the default); the numpy / Python paths below
+produce the identical hashes and tensors and are its oracle.
+``extract_batch`` consults the digest-keyed feature cache
+(``ops.feature_cache``) and fans slabs of ``DEVICE_EXTRACT_PARALLEL_MIN``
+records or more out to the shared-memory process pool
+(``ops.parallel_extract``); both are off unless their knobs turn them on.
 
 Design: the O(N) per-record work (unicode handling, hashing, phonetic codes,
 numeric parsing, tokenization) stays on the host where strings are natural;
@@ -85,14 +90,21 @@ def fnv1a64(value: str) -> int:
 def fnv1a64_batch(values: Sequence[str]) -> np.ndarray:
     """Vectorized ``fnv1a64`` over many strings -> (N,) uint64.
 
-    Bit-identical to the scalar loop (differential-tested): the numpy fold
-    over byte POSITIONS, vectorized across values, O(max_len) numpy ops.
+    Bit-identical to the scalar loop (differential-tested).  With the C++
+    library on: one bulk pass over the concatenated UTF-8 bytes
+    (``native.fnv1a64_bytes_batch``; ingest hashes every value, q-gram and
+    token of every record).  Else the numpy fold over byte POSITIONS,
+    vectorized across values, O(max_len) numpy ops.
     """
     n = len(values)
     out = np.full((n,), _FNV_OFFSET, dtype=np.uint64)
     if n == 0:
         return out
     bufs = [v.encode("utf-8", "surrogatepass") for v in values]
+    from .. import native
+
+    if native.available():
+        return native.fnv1a64_bytes_batch(bufs)
     # group by byte-length power of two: a naive single padded matrix is
     # O(n * maxlen), so ONE long outlier value (arbitrary JSON fields) in
     # a big batch would balloon both the matrix and the fold loop; within
@@ -382,7 +394,17 @@ def extract_property(
                         if j >= L:
                             break
     elif kind == GRAM_SET:
-        if flat:
+        from .. import native
+
+        if flat and native.available():
+            # one bulk C pass: window + UTF-8 + hash + dedupe + sort per
+            # value
+            gmat, gcounts = native.gram_set_batch(
+                [t[2] for t in flat], q, MAX_GRAMS, int(SET_PAD)
+            )
+            grams[ii, kk] = gmat
+            gram_count[ii, kk] = gcounts
+        elif flat:
             # one flat hash pass over every gram of every value
             gram_lists = [C.qgrams(t[2], q) for t in flat]
             all_ids = _fold32(
@@ -466,9 +488,50 @@ def extract_batch(
     """Extract all device-scored properties for a batch of records.
 
     Returns ``{property_name: {tensor_name: (N, V, ...) array}}``; with an
-    ``encoder`` (the ``ann`` backend's ``ops.encoder.RecordEncoder``) the
+    ``encoder`` (the ``ann`` backend's ``ops.embedding.RecordEncoder``) the
     embedding tensors ride under its pseudo-property ``ANN_PROP``.
+
+    The one extraction entry point (corpus appends, plan-growth rebuilds,
+    query-side probe extraction), so the digest-keyed feature cache
+    (``ops.feature_cache``, ``DUKE_FEATURE_CACHE_MB``) sits here: rows
+    whose record content and feature plan match a cached entry scatter
+    from the cache, and only the misses are extracted.
     """
+    if records:
+        from . import feature_cache as FC
+
+        cache = FC.active()
+        if cache is not None:
+            return FC.cached_extract(cache, plan, records, encoder=encoder)
+    return _extract_direct(plan, records, encoder=encoder)
+
+
+def _extract_direct(
+    plan: SchemaFeatures, records: Sequence[Record], *, encoder=None
+) -> Dict[str, Dict[str, np.ndarray]]:
+    """Cache-bypassing extraction (the feature cache's miss path): slabs of
+    at least ``DEVICE_EXTRACT_PARALLEL_MIN`` records fan out to the
+    shared-memory process pool (``ops.parallel_extract``), the rest run
+    serially here."""
+    if records:
+        from . import parallel_extract as PX
+
+        if PX.enabled(len(records)):
+            out = PX.extract_batch_parallel(plan, records, encoder=encoder)
+            if out is not None:
+                return out
+
+    out = _extract_serial(plan, records)
+    if encoder is not None:
+        from .embedding import ANN_PROP
+
+        out[ANN_PROP] = encoder.corpus_tensors(records)
+    return out
+
+
+def _extract_serial(
+    plan: SchemaFeatures, records: Sequence[Record]
+) -> Dict[str, Dict[str, np.ndarray]]:
     out: Dict[str, Dict[str, np.ndarray]] = {}
     empty: List[str] = []
     for spec in plan.device_props:
@@ -476,10 +539,6 @@ def extract_batch(
         # call); stored values are never empty (Record.add_value drops them)
         values = [r._values.get(spec.name, empty) for r in records]
         out[spec.name] = extract_property(spec, values)
-    if encoder is not None:
-        from .encoder import ANN_PROP
-
-        out[ANN_PROP] = encoder.corpus_tensors(records)
     return out
 
 

@@ -50,6 +50,7 @@ from sesam_duke_microservice_tpu_torch.core.config import (
 )
 from sesam_duke_microservice_tpu_torch.engine import device_matcher as tdm
 from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
+from sesam_duke_microservice_tpu_torch.ops import embedding as TH
 from sesam_duke_microservice_tpu_torch.ops import encoder as TE
 from sesam_duke_microservice_tpu_torch.ops import features as TF
 from sesam_duke_microservice_tpu_torch.ops import scoring as TS
@@ -74,9 +75,16 @@ FUSED_KNOBS = {"DUKE_TPU_PALLAS": "1", "DEVICE_ANN_FUSED": "1",
 TOP_C = 16
 
 
+_JE_NATIVE_EMBED = JE._native_embed
+_TH_NATIVE_EMBED = TH._native_embed
+
+
 @pytest.fixture(autouse=True)
 def _numpy_encoder(monkeypatch):
+    # both sides on their numpy encoders, which agree bit for bit (the
+    # C++ encoders agree with each other: the *_native_encoders test)
     monkeypatch.setattr(JE, "_native_embed", lambda: None)
+    monkeypatch.setattr(TH, "_native_embed", lambda: None)
 
 
 def _knobs(monkeypatch, knobs):
@@ -425,6 +433,30 @@ def _counting_pallas_segmax(monkeypatch):
 
 @pytest.mark.parametrize("route", ["fused", "scan", "scan-int8"])
 def test_ann_service_bit_identical_to_jax(route, monkeypatch):
+    _ann_service_bit_identical(route, monkeypatch)
+
+
+def test_ann_service_bit_identical_to_jax_native_encoders(monkeypatch):
+    """Both packages' C++ encoders (their default): the same feeds and
+    tapes as each other.  Both feature caches are off, so no row embedded
+    by an earlier test's numpy encoder is served here, and each C++
+    encoder is counted."""
+    monkeypatch.setenv("DUKE_FEATURE_CACHE_MB", "0")
+    monkeypatch.setattr(JE, "_native_embed", _JE_NATIVE_EMBED)
+    monkeypatch.setattr(TH, "_native_embed", _TH_NATIVE_EMBED)
+    assert JE._native_embed() is not None and TH._native_embed() is not None
+    calls = {}
+    for side, lib in (("jax", JE._native_embed()), ("port", TH._native_embed())):
+        def counted(*args, _real=lib.embed_batch, _side=side, **kwargs):
+            calls[_side] = calls.get(_side, 0) + 1
+            return _real(*args, **kwargs)
+
+        monkeypatch.setattr(lib, "embed_batch", counted)
+    _ann_service_bit_identical("scan", monkeypatch)
+    assert calls.get("jax", 0) > 0 and calls.get("port", 0) > 0, calls
+
+
+def _ann_service_bit_identical(route, monkeypatch):
     # both feature modules were imported with this module: let char widths
     # grow with the data from the same base
     assert JF.MAX_CHARS == TF.MAX_CHARS

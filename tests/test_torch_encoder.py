@@ -6,10 +6,11 @@ records, field salting); the bf16 storage bits must be ``ml_dtypes``'
 round-to-nearest-even bits; int8 quantization, reconstruction and both
 cosine-error bounds must be equal.
 
-The JAX package's C++ bulk encoder (``encoder._native_embed``) rounds the
-L2 normalization differently from its own numpy path in the last f32 bit
-of some components; the port carries the numpy path only, so the record
-level comparisons run the JAX side on it too.
+Both packages' C++ bulk encoders (``_native_embed``, on by default) round
+the L2 normalization differently from the numpy paths in the last f32
+bits of some components, so a record-level comparison holds numpy to
+numpy and C++ to C++ (``tests/test_torch_native.py`` bounds C++ against
+numpy).
 """
 
 import ml_dtypes
@@ -27,6 +28,7 @@ from sesam_duke_microservice_tpu.service.datasource import (
 from sesam_duke_microservice_tpu_torch.core.config import (
     parse_config as tparse,
 )
+from sesam_duke_microservice_tpu_torch.ops import embedding as TH
 from sesam_duke_microservice_tpu_torch.ops import encoder as TE
 from sesam_duke_microservice_tpu_torch.service.datasource import (
     IncrementalDataSource as TDS,
@@ -113,6 +115,19 @@ def _records(parse):
 def test_record_encoder_bit_identical(int8, monkeypatch):
     monkeypatch.setenv("DUKE_EMB_INT8", int8)
     monkeypatch.setattr(JE, "_native_embed", lambda: None)
+    monkeypatch.setattr(TH, "_native_embed", lambda: None)
+    _record_encoders_agree(int8)
+
+
+@pytest.mark.parametrize("int8", ["0", "1"])
+def test_record_encoder_native_bit_identical_to_jax_native(int8,
+                                                           monkeypatch):
+    monkeypatch.setenv("DUKE_EMB_INT8", int8)
+    assert JE._native_embed() is not None and TH._native_embed() is not None
+    _record_encoders_agree(int8)
+
+
+def _record_encoders_agree(int8):
     jschema, jrecs = _records(jparse)
     tschema, trecs = _records(tparse)
     jenc = JE.RecordEncoder(jschema, 128)

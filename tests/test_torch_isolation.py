@@ -32,6 +32,11 @@ def test_importing_the_port_loads_no_jax():
         "import sesam_duke_microservice_tpu_torch.ops.cuda_kernels\n"
         "import sesam_duke_microservice_tpu_torch.engine.workload\n"
         "import sesam_duke_microservice_tpu_torch.engine.ann_matcher\n"
+        "import sesam_duke_microservice_tpu_torch.native\n"
+        "import sesam_duke_microservice_tpu_torch.ops.parallel_extract\n"
+        "import sesam_duke_microservice_tpu_torch.ops.feature_cache\n"
+        "import sesam_duke_microservice_tpu_torch.ops.embedding\n"
+        "import sesam_duke_microservice_tpu_torch.utils.profiling\n"
         "print(json.dumps(sorted(set(sys.modules) - before)))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -39,7 +44,60 @@ def test_importing_the_port_loads_no_jax():
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert "sesam_duke_microservice_tpu_torch.ops.scoring" in loaded
     assert "sesam_duke_microservice_tpu_torch.ops.encoder" in loaded
+    assert "sesam_duke_microservice_tpu_torch.native" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
+
+
+def test_parallel_extract_worker_loads_no_jax_and_sees_no_card(monkeypatch):
+    """A spawned extraction worker, after extracting an ``ann`` slab (it
+    unpickles the encoder), holds no JAX module and no torch, and has the
+    card hidden from it."""
+    from sesam_duke_microservice_tpu_torch.core import comparators as C
+    from sesam_duke_microservice_tpu_torch.core.config import DukeSchema
+    from sesam_duke_microservice_tpu_torch.core.records import (
+        ID_PROPERTY_NAME,
+        Property,
+        Record,
+    )
+    from sesam_duke_microservice_tpu_torch.ops import embedding as E
+    from sesam_duke_microservice_tpu_torch.ops import features as F
+    from sesam_duke_microservice_tpu_torch.ops import parallel_extract as PX
+
+    monkeypatch.setenv("DEVICE_EXTRACT_WORKERS", "2")
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "0")
+    schema = DukeSchema(
+        threshold=0.8, maybe_threshold=None, data_sources=[],
+        properties=[Property(ID_PROPERTY_NAME, id_property=True),
+                    Property("name", C.Levenshtein(), 0.3, 0.9),
+                    Property("city", C.QGram(), 0.3, 0.9)])
+    records = []
+    for i in range(64):
+        r = Record()
+        r.add_value(ID_PROPERTY_NAME, f"r{i}")
+        r.add_value("name", f"acme {i}")
+        r.add_value("city", "oslo")
+        records.append(r)
+    try:
+        out = PX.extract_batch_parallel(
+            F.SchemaFeatures.plan(schema), records,
+            encoder=E.RecordEncoder(schema, 32))
+        assert out is not None and E.ANN_PROP in out
+        with PX._POOL_LOCK:
+            pool = PX._pool()
+            # whichever worker answers has imported what a slab needs
+            loaded = pool.submit(eval, (
+                "[__import__(m) for m in ('sesam_duke_microservice_tpu_torch"
+                ".ops.features', 'sesam_duke_microservice_tpu_torch.ops"
+                ".embedding')] and sorted(__import__('sys').modules)"))
+            visible = pool.submit(eval, "__import__('os').environ"
+                                  ".get('CUDA_VISIBLE_DEVICES')")
+            loaded, visible = loaded.result(60), visible.result(60)
+    finally:
+        PX._shutdown()
+    assert "sesam_duke_microservice_tpu_torch.ops.embedding" in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
+    assert "torch" not in loaded
+    assert visible == ""
 
 
 def _imports(path: Path):
