@@ -73,7 +73,28 @@ Phases, each fatal on failure:
    segment max beside ``torch.matmul`` of its bare bf16 product); each
    kernel's wrapper also back to back (``back_to_back_ms``), gathered
    Myers' C entry point alone too (``entry_ms``);
-7. print the per-kernel JSON line, the card's name and power limit, and
+7. the restart phase (durable state): slice 1's 131,072 records into a
+   ``DukeApp(persistent=True)`` at the durability defaults (SQLite record
+   store and link database, write-behind, the journal, overlapped
+   recovery) in a ``tempfile`` data folder, closed (the journal must be 0
+   bytes; the snapshot's bytes and save seconds are printed); a restart
+   from the snapshot, whose feed after the 8,192-record query POST (Myers
+   W=1 must launch on the restored corpus) must equal phase 2's feed at
+   the same point, timestamps aside; a restart by replaying the store
+   (the snapshot removed), the same feed again; the same for ``ann`` from
+   its snapshot (the feed right after the restart equal to phase 5's
+   after its ingest; one fresh 2,048-record POST must launch the segment
+   max and gathered Myers); one crash: tests/torch_crash_recovery_child.py
+   SIGKILLed at ``crash_at=mid_flush:4``, restarted and the unacked
+   batches retried, must give the uncrashed control's link rows; then
+   the ``restart`` line (durable against in-memory records/s, restart
+   seconds, snapshot bytes, the card).  The other phases keep everything
+   in memory (``persistent=False``).  The same durable state is held
+   against the JAX package on the CPU by ``JAX_PLATFORMS=cpu python -m
+   pytest tests/test_torch_persistence.py tests/test_torch_restart.py
+   tests/test_torch_crash_recovery.py -q`` (their data folders are
+   pytest tmp dirs too, never ``<cwd>/data``);
+8. print the per-kernel JSON line, the card's name and power limit, and
    the result line ``{"ok": true, "device": {...}}`` last.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -223,13 +244,19 @@ MIXED_SCHEMA = (
     + "</data-source>")
 
 
-def config_xml(workloads) -> str:
-    """``workloads``: {name: schema XML}."""
+def config_xml(workloads, data_folder=None) -> str:
+    """``workloads``: {name: schema XML}.  With ``data_folder`` the link
+    databases are the durable default (``h2``: SQLite, write-behind, the
+    journal) in that folder; without it, in memory."""
+    if data_folder is None:
+        head, link_db = "<DukeMicroService>", ' link-database-type="in-memory"'
+    else:
+        head, link_db = f'<DukeMicroService dataFolder="{data_folder}">', ""
     body = "".join(
-        f'<Deduplication name="{n}" link-database-type="in-memory">'
+        f'<Deduplication name="{n}"{link_db}>'
         f"<duke>{schema}</duke></Deduplication>"
         for n, schema in workloads.items())
-    return f"<DukeMicroService>{body}</DukeMicroService>"
+    return f"{head}{body}</DukeMicroService>"
 
 
 FIRST = ["ole", "kari", "per", "anne", "nils", "ingrid", "lars", "berit",
@@ -652,6 +679,8 @@ PARITY_PAIRS = 10000
 PARITY_MAX_STRING_PAIRS = 30000
 # (workload, resolved block, its query records) of each re-scored final block
 FINAL_BLOCKS = []
+# in-memory ingest records/s by backend, for the restart phase's line
+INGEST_RATES = {}
 
 
 def host_counters():
@@ -1178,6 +1207,7 @@ def phase_slice1(app, port, line):
     rescore_plain(long_wl, long_wl.datasources["crm"].records_for_batch(
         addresses[-INGEST_BATCH:]))
 
+    INGEST_RATES["device"] = INGEST_RECORDS / ingest_s
     print(f"records/s (stresstest ingest, {INGEST_RECORDS} records in "
           f"{INGEST_BATCH}-record POSTs): {INGEST_RECORDS / ingest_s:.1f} "
           f"[{line}]")
@@ -1272,7 +1302,7 @@ def phase_main_paths(line):
     app = DukeApp(parse_config(config_xml({
         "people": STRESS_SCHEMA, "addresses": STRESS_SCHEMA,
         "oracle": STRESS_SCHEMA, "mixed": MIXED_SCHEMA,
-        "mixed_oracle": MIXED_SCHEMA})), device="cuda")
+        "mixed_oracle": MIXED_SCHEMA})), device="cuda", persistent=False)
     server = serve(app, port=0, host="127.0.0.1")
     port = server.server_address[1]
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -1388,7 +1418,8 @@ def phase_ann(line, device_rows):
     to ANN_CAPACITY rows (the knob set for it alone), takes slice 1's
     131,072 stresstest records in 2,048-record POSTs and its 8,192-record
     query POST; its feed must be a subset of slice 1's brute-force feed
-    with equal confidences.  Returns (launches, shapes)."""
+    with equal confidences.  Returns (launches, shapes, the feed after the
+    ingest)."""
     import torch
 
     from sesam_duke_microservice_tpu_torch.core.config import parse_config
@@ -1403,7 +1434,7 @@ def phase_ann(line, device_rows):
     with mock.patch.dict(os.environ,
                          {"DEVICE_INITIAL_CAPACITY": str(ANN_CAPACITY)}):
         app = DukeApp(parse_config(config_xml({"people": STRESS_SCHEMA})),
-                      backend="ann", device="cuda")
+                      backend="ann", device="cuda", persistent=False)
     server = serve(app, port=0, host="127.0.0.1")
     port = server.server_address[1]
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -1421,6 +1452,8 @@ def phase_ann(line, device_rows):
                                          entities)
             ingest_launches = dict(ck.LAUNCHES)
             ingest_routes = dict(E.ROUTES)
+            # the restart phase holds its restored feed against this one
+            ingest_rows = feed(port, "/deduplication/people")
             split = split_line(stats, ingest_s, line)
             host_routes = [routes_line(counters, "ann ingest")]
             pairs0 = stats.pairs_compared
@@ -1473,6 +1506,7 @@ def phase_ann(line, device_rows):
           f"{len(device)} brute-force links, on exact-copy pairs "
           f"{len(copies & set(ann)) / max(1, len(copies)):.4f} of "
           f"{len(copies)}", flush=True)
+    INGEST_RATES["ann"] = INGEST_RECORDS / ingest_s
     print(f"records/s (ann ingest, {INGEST_RECORDS} records in "
           f"{INGEST_BATCH}-record POSTs): {INGEST_RECORDS / ingest_s:.1f} "
           f"[{line}]")
@@ -1483,7 +1517,216 @@ def phase_ann(line, device_rows):
     print(f"ann ingest {split}; pairs rescored {pairs0}", flush=True)
     for text in host_routes:
         print(text, flush=True)
-    return launches, shapes
+    return launches, shapes, ingest_rows
+
+
+# -- the restart phase: durable state --------------------------------------------
+
+CRASH_SITE = "mid_flush"
+CRASH_NTH = 4
+CRASH_CHILD = REPO / "tests" / "torch_crash_recovery_child.py"
+
+
+@contextlib.contextmanager
+def serving(app):
+    """Serve ``app`` on a free port; shut down and close it on exit (the
+    close drains the link flush and saves the corpus snapshot)."""
+    from sesam_duke_microservice_tpu_torch.service.app import serve
+
+    server = serve(app, port=0, host="127.0.0.1")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield server.server_address[1]
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        app.close()
+
+
+def feed_rows(rows):
+    """A feed as sorted rows without their timestamps (the one field a
+    restart may change)."""
+    return sorted(tuple(sorted((k, v) for k, v in r.items()
+                               if k != "_updated")) for r in rows)
+
+
+def check_same_feed(rows, want, what):
+    got, expected = feed_rows(rows), feed_rows(want)
+    if got != expected:
+        missing = sorted(set(expected) - set(got))[:2]
+        extra = sorted(set(got) - set(expected))[:2]
+        raise AssertionError(
+            f"{what}: feed of {len(got)} links differs from the in-memory "
+            f"phase's {len(expected)} (missing e.g. {missing}, extra e.g. "
+            f"{extra})")
+
+
+def crash_child(data, *args, fault=""):
+    """tests/torch_crash_recovery_child.py on the card: (rc, acks, dump)."""
+    env = dict(os.environ, DUKE_FAULTS=fault)
+    proc = subprocess.run(
+        [sys.executable, str(CRASH_CHILD), "--data", str(data), "--device",
+         DEVICE, *args], capture_output=True, text=True, timeout=600,
+        env=env)
+    acks = [int(l.split()[1]) for l in proc.stdout.splitlines()
+            if l.startswith("ACK ")]
+    dumps = [json.loads(l[5:]) for l in proc.stdout.splitlines()
+             if l.startswith("DUMP ")]
+    if proc.returncode not in (0, -9):
+        raise AssertionError(f"crash child rc {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    return proc.returncode, acks, (dumps[0] if dumps else None)
+
+
+def phase_crash(root):
+    """One crash: a child ingesting under ``crash_at=mid_flush`` is
+    SIGKILLed; its restart (journal replay) and the retry of the unacked
+    batches must give the uncrashed control's link rows."""
+    rc, acks, control = crash_child(root / "control", "--dump", "--close")
+    if rc != 0 or not control["links"]:
+        raise AssertionError("crash control run failed")
+    fault = f"crash_at={CRASH_SITE}:{CRASH_NTH}"
+    rc, acks, _ = crash_child(root / "crashed", fault=fault)
+    if rc != -9:
+        raise AssertionError(f"the child survived {fault} (rc {rc})")
+    resume = max(acks) + 1 if acks else 0
+    rc, _, got = crash_child(root / "crashed", "--start", str(resume),
+                             "--dump", "--close")
+    for key in ("links", "feed", "store_rows"):
+        if got[key] != control[key]:
+            raise AssertionError(f"crash at {CRASH_SITE}: recovered {key} "
+                                 "differ from the uncrashed control")
+    if got["journal_pending"] != 0 or got["replayed"] < 1:
+        raise AssertionError(f"crash at {CRASH_SITE}: journal pending "
+                             f"{got['journal_pending']}, replayed "
+                             f"{got['replayed']}")
+    print(f"crash: SIGKILL at {CRASH_SITE} (arrival {CRASH_NTH}) after "
+          f"{len(acks)} acked batches; restart replayed {got['replayed']} "
+          f"journaled batch(es), retried from batch {resume}: "
+          f"{len(got['links'])} link rows equal to the uncrashed control",
+          flush=True)
+
+
+def phase_restart(line, device_rows, ann_rows):
+    """Durable state on the card: slice 1's ingest into a persistent app
+    (write-behind, journal, overlapped recovery at their defaults), a
+    restart from the snapshot and one from a replay of the store, each
+    serving the in-memory phase's feed (kernel #1 on the restored corpus);
+    the same for ``ann`` from the snapshot (kernels #6 and #4 on the
+    restored corpus); one crash; and the ``restart`` line."""
+    import tempfile
+
+    import torch
+
+    from sesam_duke_microservice_tpu_torch.core.config import parse_config
+    from sesam_duke_microservice_tpu_torch.engine import device_matcher as DM
+    from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
+    from sesam_duke_microservice_tpu_torch.service.app import DukeApp
+
+    path = "/deduplication/people/crm"
+    entities = stresstest_entities(INGEST_RECORDS, 1234, "p")
+    queries = with_copies(stresstest_entities(QUERY_BATCH, 4321, "q"),
+                          entities, 16, 1)
+    saves = []
+    real_save = DM.DeviceIndex.snapshot_save
+
+    def timed_save(index, snap_path):
+        t0 = time.perf_counter()
+        real_save(index, snap_path)
+        saves.append(time.perf_counter() - t0)
+
+    with tempfile.TemporaryDirectory(prefix="duke-restart-") as tmp, \
+            mock.patch.object(DM.DeviceIndex, "snapshot_save", timed_save):
+        root = Path(tmp)
+        times = {}
+        for backend, want in (("device", device_rows), ("ann", ann_rows)):
+            config = parse_config(config_xml({"people": STRESS_SCHEMA},
+                                             data_folder=root / backend))
+            folder = Path(config.deduplications["people"].data_folder)
+            capacity = {"DEVICE_INITIAL_CAPACITY": str(
+                ANN_CAPACITY if backend == "ann" else 0)}
+
+            def start(route):
+                t0 = time.perf_counter()
+                with mock.patch.dict(os.environ, capacity):
+                    app = DukeApp(config, backend=backend, device="cuda")
+                wl = app.deduplications["people"]
+                if wl.restore_route != route:
+                    app.close()
+                    raise AssertionError(f"{backend}: restart took route "
+                                         f"{wl.restore_route}, not {route}")
+                return app, t0
+
+            # 1. the durable ingest, then a graceful close
+            app, _ = start(None)
+            with serving(app) as port:
+                _, ingest_s = ingest(port, path, entities)
+            journal = os.path.getsize(folder / "linkdatabase.journal")
+            snap = folder / "corpus_snapshot.npz"
+            times[backend] = dict(
+                ingest_rps=INGEST_RECORDS / ingest_s,
+                snapshot_bytes=os.path.getsize(snap), save_s=saves[-1])
+            if journal != 0:
+                raise AssertionError(f"{backend}: journal holds {journal} "
+                                     "bytes after a graceful close")
+            print(f"{backend} durable ingest: {INGEST_RECORDS} records in "
+                  f"{ingest_s} s; journal {journal} bytes after close; "
+                  f"snapshot {times[backend]['snapshot_bytes']} bytes saved "
+                  f"in {saves[-1]} s [{line}]", flush=True)
+
+            # 2. restart from the snapshot
+            app, t0 = start("snapshot")
+            with serving(app) as port:
+                rows = feed(port, "/deduplication/people")
+                times[backend]["snapshot_s"] = time.perf_counter() - t0
+                ck.reset_launch_counts()
+                if backend == "device":
+                    post(port, path, queries)
+                    rows = feed(port, "/deduplication/people")
+                    launches = dict(ck.LAUNCHES)
+                    kernels = ("myers_tile",)
+                else:
+                    # ann: the feed right after the restart, then a fresh
+                    # ingest POST on the restored corpus
+                    check_same_feed(rows, want, "ann snapshot restart")
+                    post(port, path, stresstest_entities(INGEST_BATCH, 5678,
+                                                         "n"))
+                    launches = dict(ck.LAUNCHES)
+                    kernels = ("retrieval_segmax", "myers_gathered")
+                torch.cuda.synchronize()
+            print(f"{backend} snapshot restart: first feed read "
+                  f"{times[backend]['snapshot_s']} s after the start "
+                  f"(route snapshot); launches after it {launches} [{line}]",
+                  flush=True)
+            for name in kernels:
+                if launches[name] <= 0:
+                    raise AssertionError(f"kernel {name} never launched on "
+                                         f"the restored {backend} corpus")
+            if backend == "device":
+                check_same_feed(rows, want, "snapshot restart")
+
+                # 3. restart by replaying the store
+                os.remove(snap)
+                app, t0 = start("replay")
+                with serving(app) as port:
+                    rows = feed(port, "/deduplication/people")
+                    times[backend]["replay_s"] = time.perf_counter() - t0
+                check_same_feed(rows, want, "replay restart")
+                print(f"device replay restart: first feed read "
+                      f"{times[backend]['replay_s']} s after the start "
+                      f"(route replay) [{line}]", flush=True)
+        phase_crash(root)
+    dev, ann = times["device"], times["ann"]
+    print(f"restart: durable ingest {dev['ingest_rps']} records/s (in-memory "
+          f"{INGEST_RATES['device']}), ann {ann['ingest_rps']} (in-memory "
+          f"{INGEST_RATES['ann']}); snapshot restart {dev['snapshot_s']} s, "
+          f"replay restart {dev['replay_s']} s, snapshot "
+          f"{dev['snapshot_bytes']} bytes saved in {dev['save_s']} s; ann "
+          f"snapshot restart {ann['snapshot_s']} s, snapshot "
+          f"{ann['snapshot_bytes']} bytes saved in {ann['save_s']} s "
+          f"[{line}]", flush=True)
 
 
 # -- the kernel phase -------------------------------------------------------------
@@ -1956,7 +2199,7 @@ def main() -> int:
 
     (launches1, shapes1, device_rows), (launches2, shapes2, real_sets) = \
         phase_main_paths(line)
-    launches3, shapes3 = phase_ann(line, device_rows)
+    launches3, shapes3, ann_rows = phase_ann(line, device_rows)
 
     peak_ops = int32_peak_ops_per_s()
     print(f"int32 ALU peak: {peak_ops / 1e12:.2f} Top/s ({INT32_LANES_PER_SM}"
@@ -1981,6 +2224,7 @@ def main() -> int:
     segmax_rows = {shape: measure_segmax(shape, peak_flops)
                    for shape in sorted(shapes3["retrieval_segmax"])}
     measure_segmax(SEGMAX_ODD, peak_flops, runs=3)
+    phase_restart(line, device_rows, ann_rows)
 
     def one_word(s):
         return ck.kernel_words(s[2]) == 1

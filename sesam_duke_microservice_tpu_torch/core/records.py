@@ -176,19 +176,32 @@ class Record:
         return f"Record({self._values!r})"
 
 
+def serialize_record(record: Record) -> str:
+    """THE canonical record serialization: the record store's row payload
+    AND the digest input (a copy of the JAX package's
+    ``store.records.serialize_record``)."""
+    return json.dumps(record._values, separators=(",", ":"))
+
+
+def row_digest(rid: str, data: str) -> bytes:
+    """SHA-256 over a record id and its canonical serialization: the
+    record store folds it over stored rows, ``record_digest`` over live
+    records, so the two agree exactly when the record sets do."""
+    h = hashlib.sha256()
+    h.update(rid.encode("utf-8", "surrogatepass"))
+    h.update(b"\x00")
+    h.update(data.encode("utf-8", "surrogatepass"))
+    return h.digest()
+
+
 def record_digest(record: Record) -> bytes:
-    """SHA-256 over the record id and its canonical JSON serialization (a
-    copy of the JAX package's ``store.records.record_digest``), memoized on
-    the record until its next mutation."""
+    """``row_digest`` of a live record (a copy of the JAX package's
+    ``store.records.record_digest``), memoized on the record until its
+    next mutation."""
     if record._digest_cache is not None:
         return record._digest_cache
     rid = record.record_id
     if rid is None:
         raise ValueError("record has no ID property")
-    h = hashlib.sha256()
-    h.update(rid.encode("utf-8", "surrogatepass"))
-    h.update(b"\x00")
-    h.update(json.dumps(record._values, separators=(",", ":")).encode(
-        "utf-8", "surrogatepass"))
-    record._digest_cache = h.digest()
+    record._digest_cache = row_digest(rid, serialize_record(record))
     return record._digest_cache

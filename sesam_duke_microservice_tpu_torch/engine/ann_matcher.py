@@ -49,7 +49,11 @@ class AnnIndex(DeviceIndex):
     def __init__(self, schema: DukeSchema, *, device):
         super().__init__(schema, device=device)
         self.initial_top_c = env_int("DEVICE_ANN_CANDIDATES", 64)
-        self.encoder = E.RecordEncoder(schema, env_int("DEVICE_ANN_DIM", 256))
+        self.dim = env_int("DEVICE_ANN_DIM", 256)
+        self.encoder = E.RecordEncoder(schema, self.dim)
+        # both ride in the snapshot fingerprint: a snapshot written under
+        # another width or storage layout (a DUKE_EMB_INT8 flip) replays
+        self.emb_storage = self.encoder.storage
         self.scorer_cache = _AnnScorerCache(self)
 
     def _extract(self, records: Sequence[Record], plan=None):

@@ -32,6 +32,7 @@ them out of scoring.  Capacity doubles in ``DEVICE_CHUNK`` granules, from
 from __future__ import annotations
 
 import logging
+import os
 import threading
 import time
 from dataclasses import replace
@@ -42,12 +43,20 @@ import torch
 
 from ..core.config import DukeSchema
 from ..core.records import GROUP_NO_PROPERTY_NAME, Record, SchemaError
-from ..env import env_int, env_int_tuple, env_str
+from ..env import env_flag, env_int, env_int_tuple, env_str
 from ..index.base import CandidateIndex
 from ..ops import bounds as B
 from ..ops import encoder as E
 from ..ops import features as F
 from ..ops import scoring as S
+from ..store.records import (
+    EMPTY_CONTENT_HASH,
+    LazyRecordMap,
+    record_digest,
+    xor_fold,
+)
+from ..utils import faults
+from ..utils.atomicio import replace_and_sync_dir
 from ..utils.profiling import trace_armed, trace_batch
 from .finalize import FinalizeExecutor
 from .listeners import MatchListener
@@ -66,6 +75,9 @@ _VALUE_SLOTS_MAX = env_int("DEVICE_VALUE_SLOTS_MAX", 8)
 # demotion width a property moves to host scoring (0 disables demotion)
 _CHARS_CAP = env_int("DEVICE_MAX_CHARS_CAP", 1024)
 _DEMOTE_CHARS = env_int("DEVICE_DEMOTE_CHARS", 256)
+# a restored corpus this small is copied to the device at its first use,
+# not on a background thread (the JAX package's threshold)
+_WARM_UPLOAD_MIN_ROWS = 65536
 
 
 def query_buckets() -> tuple:
@@ -136,6 +148,15 @@ class DeviceCorpus:
         self._dirty_full = True
         self._pending_rows: Optional[Tuple[int, int]] = None  # appended
         self._mask_rows: List[int] = []                        # tombstones
+        # serializes the host-mirror mutators (append, tombstone) with
+        # device_arrays: a restart's warm upload runs on its own thread
+        # (DeviceIndex.warm_upload_async), outside the workload lock, so a
+        # writer or the first query that meets a half-uploaded mirror
+        # waits here for it instead of dropping rows or reading stale ones
+        self._upload_lock = threading.Lock()
+        # the warm upload's failure, raised by the next device_arrays: a
+        # device error during a restore is never a quiet fallback
+        self.warm_error: Optional[BaseException] = None
 
     @classmethod
     def from_numpy(cls, plan, feats: Dict[str, Dict[str, np.ndarray]],
@@ -187,6 +208,11 @@ class DeviceCorpus:
         n = len(ids)
         if n == 0:
             return np.zeros((0,), dtype=np.int64)
+        with self._upload_lock:
+            return self._append_locked(feats, deleted, group, ids)
+
+    def _append_locked(self, feats, deleted, group, ids) -> np.ndarray:
+        n = len(ids)
         if not self.feats:
             # the first append defines per-property tensor shapes
             self.feats = {
@@ -213,15 +239,24 @@ class DeviceCorpus:
         return np.arange(lo, hi)
 
     def tombstone(self, row: int) -> None:
-        if self.row_valid[row] and not self.row_deleted[row]:
-            self.live_rows -= 1
-        self.row_valid[row] = False
-        self._mask_rows.append(int(row))
+        with self._upload_lock:
+            if self.row_valid[row] and not self.row_deleted[row]:
+                self.live_rows -= 1
+            self.row_valid[row] = False
+            self._mask_rows.append(int(row))
 
     # -- device mirror -------------------------------------------------------
 
     def device_arrays(self):
-        """(feats, valid, deleted, group) as tensors on ``self.device``."""
+        """(feats, valid, deleted, group) as tensors on ``self.device``;
+        waits for an in-flight warm upload."""
+        with self._upload_lock:
+            if self.warm_error is not None:
+                raise RuntimeError(
+                    "the warm corpus upload failed") from self.warm_error
+            return self._device_arrays_locked()
+
+    def _device_arrays_locked(self):
         if self._device_feats is None or self._dirty_full:
             self._device_feats = {
                 prop: {name: _to_device(arr, self.device, prop)
@@ -280,7 +315,17 @@ class DeviceIndex(CandidateIndex):
                 + ")"
             )
         self.corpus = DeviceCorpus(self.plan, self.device)
-        self.records: Dict[str, Record] = {}     # id -> latest record
+        # id -> latest record; a store-backed LazyRecordMap after a
+        # snapshot restore (engine.workload)
+        self.records: Dict[str, Record] = {}
+        # running content digest of ``records`` (the record store's
+        # formula): snapshot_save stamps it and snapshot_load compares the
+        # store's, so an index/store divergence forces a replay.  With a
+        # lazy mirror the fold is impossible (the store already holds the
+        # new contents), so the workload stamps the store's hash after
+        # each fully applied batch instead (mark_store_synced).
+        self._content_hash = EMPTY_CONTENT_HASH
+        self._store_synced_hash: Optional[str] = None
         self.id_to_row: Dict[str, int] = {}
         self.indexing_disabled = False
         self._pending: List[Record] = []
@@ -322,7 +367,10 @@ class DeviceIndex(CandidateIndex):
     def _extract(self, records: Sequence[Record], plan=None):
         return F.extract_batch(plan or self.plan, records)
 
-    def _append_records(self, records: Sequence[Record]) -> None:
+    def _append_rows_only(self, records: Sequence[Record]) -> None:
+        """Extract + corpus append + row mapping, without the record
+        mirror or the content fold (the lazy rebuild, where the record set
+        is unchanged)."""
         feats = self._extract(records)
         deleted = np.array([r.is_deleted() for r in records], dtype=bool)
         group = np.array(
@@ -333,7 +381,20 @@ class DeviceIndex(CandidateIndex):
                                   [r.record_id for r in records])
         for r, row in zip(records, rows):
             self.id_to_row[r.record_id] = int(row)
+
+    def _append_records(self, records: Sequence[Record]) -> None:
+        self._append_rows_only(records)
+        lazy = isinstance(self.records, LazyRecordMap)
+        acc = self._content_hash
+        for r in records:
+            if not lazy:
+                old = self.records.get(r.record_id)
+                if old is not None:
+                    acc = xor_fold(acc, record_digest(old))
+                acc = xor_fold(acc, record_digest(r))
             self.records[r.record_id] = r
+        if not lazy:
+            self._content_hash = acc
 
     # -- value-slot and char-width sizing ------------------------------------
 
@@ -461,12 +522,12 @@ class DeviceIndex(CandidateIndex):
         return True
 
     def _rebuild_corpus(self) -> None:
-        """Re-extract every record under the current feature plan."""
+        """Re-extract every record under the current feature plan.  The
+        record set is unchanged, so the content digest is too."""
         with self._lock:
             old_records = self.records
             self.corpus = DeviceCorpus(self.plan, self.device)
             self.id_to_row = {}
-            self.records = {}
             if old_records:
                 logger.info(
                     "plan growth: rebuilding corpus tensors for %d records "
@@ -474,7 +535,350 @@ class DeviceIndex(CandidateIndex):
                     {s.name: s.v for s in self.plan.device_props},
                     {s.name: s.chars for s in self.plan.device_props},
                 )
+            if isinstance(old_records, LazyRecordMap):
+                # stream the store in bounded batches through the capped
+                # LRU instead of materializing every record
+                batch: List[Record] = []
+                for record in old_records.values():
+                    batch.append(record)
+                    if len(batch) >= 50_000:
+                        self._append_rows_only(batch)
+                        batch = []
+                if batch:
+                    self._append_rows_only(batch)
+                return
+            self.records = {}
+            prev_hash = self._content_hash
+            if old_records:
                 self._append_records(list(old_records.values()))
+            self._content_hash = prev_hash
+
+
+    # -- corpus snapshot (restart acceleration) ------------------------------
+    #
+    # The record store is the source of truth; the corpus tensors are a
+    # rebuildable cache.  Rebuilding re-runs feature extraction per record,
+    # so the host mirror is snapshotted to one .npz (the JAX package's
+    # format, key for key) and reloaded in one read; any mismatch (schema
+    # change, env-sized shapes, store drift) falls back to full replay.
+
+    @staticmethod
+    def _snapshot_checksum(entries: Dict[str, np.ndarray]) -> str:
+        """CRC32 chained over (key, dtype, shape, bytes) of the payload
+        arrays in sorted key order: stamped as ``__checksum`` at save and
+        re-derived from the as-stored arrays at load, so a flipped byte,
+        a swapped member or a truncated archive replays instead of
+        scoring corrupt features."""
+        import zlib
+
+        crc = 0
+        for key in sorted(entries):
+            arr = np.ascontiguousarray(entries[key])
+            meta = f"{key}\x1f{arr.dtype.str}\x1f{arr.shape}".encode()
+            crc = zlib.crc32(arr.tobytes(), zlib.crc32(meta, crc))
+        return format(crc & 0xFFFFFFFF, "08x")
+
+    def _snapshot_reject(self, reason: str, detail: str) -> bool:
+        """A snapshot check failed: warn + count (``SNAPSHOT_FALLBACKS``)
+        and fall back to replay.  Never raises: a bad snapshot costs a
+        rebuild, not availability."""
+        with _SNAPSHOT_LOCK:
+            SNAPSHOT_FALLBACKS[reason] = SNAPSHOT_FALLBACKS.get(reason, 0) + 1
+        logger.warning(
+            "corpus snapshot rejected (%s: %s); replaying from the "
+            "record store", reason, detail,
+        )
+        return False
+
+    def _snapshot_fingerprint(self) -> str:
+        """Plan semantics + every env knob that sizes the feature tensors
+        (the JAX package's formula, so each package opens the other's
+        snapshot); data-derived widths ride in the payload instead."""
+        import hashlib
+
+        spec = repr((
+            [(s.name, s.kind, s.low, s.high)
+             for s in self.plan.device_props],
+            env_str("DEVICE_MAX_CHARS", ""),
+            env_str("DEVICE_MAX_CHARS_CAP", ""),
+            env_str("DEVICE_DEMOTE_CHARS", ""),
+            env_str("DEVICE_MAX_GRAMS", ""),
+            env_str("DEVICE_MAX_TOKENS", ""),
+            getattr(self, "dim", None),          # ANN embedding width
+            getattr(self, "emb_storage", None),  # ANN embedding layout
+            str(np.dtype(F.CHAR_DTYPE)),
+        ))
+        return hashlib.sha256(spec.encode()).hexdigest()
+
+    def snapshot_save(self, path: str) -> None:
+        """Write the host mirror to ``path`` (write-then-rename; call with
+        every dispatched block resolved and the link database drained)."""
+        corpus = self.corpus
+        if corpus.size == 0:
+            return
+        # the last store-synced digest when the workload stamps one, else
+        # the index's own fold: a store write whose index pass failed
+        # leaves the stamp behind the store, and the load then replays
+        content_hash = (self._store_synced_hash
+                        if self._store_synced_hash is not None
+                        else self._content_hash.hex())
+        # bf16 embeddings already are uint16 bit patterns on the host; the
+        # JAX package lists its bf16 tensors (saved as uint16 views) in
+        # __bf16_keys, so the port does too
+        flat = {}
+        bf16_keys = []
+        for prop, tensors in corpus.feats.items():
+            for name, arr in tensors.items():
+                key = f"feat\x1f{prop}\x1f{name}"
+                if prop == E.ANN_PROP and arr.dtype == np.uint16:
+                    bf16_keys.append(key)
+                flat[key] = arr[: corpus.size]
+        payload = dict(flat)
+        payload["__row_valid"] = corpus.row_valid[: corpus.size]
+        payload["__row_deleted"] = corpus.row_deleted[: corpus.size]
+        payload["__row_group"] = corpus.row_group[: corpus.size]
+        # fixed-width unicode, never object dtype: an object array would
+        # pickle, and loading it would need allow_pickle
+        payload["__row_ids"] = np.array(
+            [rid or "" for rid in corpus.row_ids], dtype=str)
+        tmp = f"{path}.tmp.{os.getpid()}"
+        savez = (np.savez_compressed if env_flag("SNAPSHOT_COMPRESS", True)
+                 else np.savez)
+        try:
+            savez(
+                tmp,
+                __fingerprint=np.array(self._snapshot_fingerprint()),
+                __content=np.array(content_hash),
+                __checksum=np.array(self._snapshot_checksum(payload)),
+                __bf16_keys=np.array(bf16_keys, dtype=str),
+                __value_slots=np.array(
+                    [s.v for s in self.plan.device_props], dtype=np.int64),
+                __char_widths=np.array(
+                    [s.chars for s in self.plan.device_props],
+                    dtype=np.int64),
+                # a demoted long-text property stays demoted on restart
+                __device_props=np.array(
+                    [s.name for s in self.plan.device_props], dtype=str),
+                **payload,
+            )
+            # crash site: tmp written, rename pending -- the restart must
+            # find the previous snapshot (or none), never the torn tmp
+            faults.check_crash("mid_snapshot_save")
+            # np.savez appends .npz to names without it
+            replace_and_sync_dir(f"{tmp}.npz", path)
+        except BaseException:
+            for cand in (tmp, f"{tmp}.npz"):
+                try:
+                    os.unlink(cand)
+                except OSError:
+                    pass
+            raise
+
+    def snapshot_load(self, path: str, records_by_id,
+                      content_hash: Optional[str] = None) -> bool:
+        """Restore the corpus tensors from a snapshot; False -> replay.
+
+        ``records_by_id`` is the record store's live view (a dict or a
+        ``LazyRecordMap``); the snapshot is rejected unless its live rows
+        are exactly that record set.  ``content_hash`` is the store's
+        incremental digest (an O(1) staleness check; without it the
+        records are rehashed).  Every rejection is counted in
+        ``SNAPSHOT_FALLBACKS`` and returns False; nothing here raises.
+        """
+        if self.corpus.size != 0 or not os.path.exists(path):
+            return False
+        try:
+            with np.load(path) as data:  # no pickle: plain arrays only
+                # re-apply a persisted long-text demotion BEFORE the
+                # fingerprint, which the save computed over the demoted
+                # plan (the JAX package checks the fingerprint first and so
+                # replays every demoted snapshot; the replay would re-demote
+                # on the same values anyway)
+                if "__device_props" in data.files and self._auto_chars:
+                    saved = [str(x) for x in data["__device_props"]]
+                    current = [s.name for s in self.plan.device_props]
+                    missing = [s for s in self.plan.device_props
+                               if s.name not in saved]
+                    if missing and set(saved) < set(current):
+                        self._demote_to_host(missing)
+                if str(data["__fingerprint"]) != self._snapshot_fingerprint():
+                    return self._snapshot_reject(
+                        "fingerprint", "plan/env fingerprint changed")
+                if "__value_slots" not in data.files:
+                    return self._snapshot_reject(
+                        "schema", "missing __value_slots")
+                if "__device_props" in data.files and self._auto_chars and [
+                        s.name for s in self.plan.device_props] != saved:
+                    return self._snapshot_reject(
+                        "schema", "device property set changed")
+                slots = [int(x) for x in data["__value_slots"]]
+                if len(slots) != len(self.plan.device_props):
+                    return self._snapshot_reject(
+                        "schema", "value-slot count mismatch")
+                if any(v > _VALUE_SLOTS_MAX for v in slots):
+                    return self._snapshot_reject(
+                        "schema", "value slots exceed the current cap")
+                if "__char_widths" in data.files:
+                    widths = [int(x) for x in data["__char_widths"]]
+                    if len(widths) != len(self.plan.device_props):
+                        return self._snapshot_reject(
+                            "schema", "char-width count mismatch")
+                    if self._auto_chars:
+                        if any(w > _CHARS_CAP for w in widths):
+                            return self._snapshot_reject(
+                                "schema",
+                                "char widths exceed the current cap")
+                    elif widths != [s.chars for s in self.plan.device_props]:
+                        return self._snapshot_reject(
+                            "schema", "char widths changed")
+                else:
+                    widths = [s.chars for s in self.plan.device_props]
+                # record CONTENT, not just the id set: an in-place update
+                # only the store persisted must not score stale features
+                expected = (content_hash if content_hash is not None
+                            else _records_content_hash(records_by_id))
+                if str(data["__content"]) != expected:
+                    return self._snapshot_reject(
+                        "content", "record store drifted past the snapshot")
+                row_ids = [str(r) for r in data["__row_ids"]]
+                row_valid = data["__row_valid"]
+                row_deleted = data["__row_deleted"]
+                row_group = data["__row_group"]
+                live = {rid for rid, ok in zip(row_ids, row_valid) if ok}
+                if live != set(records_by_id):
+                    return self._snapshot_reject(
+                        "content", "live row set differs from the store")
+                # as-stored arrays: the checksum was stamped over these
+                raw_payload: Dict[str, np.ndarray] = {
+                    "__row_ids": data["__row_ids"],
+                    "__row_valid": row_valid,
+                    "__row_deleted": row_deleted,
+                    "__row_group": row_group,
+                }
+                feats: Dict[str, Dict[str, np.ndarray]] = {}
+                for key in data.files:
+                    if not key.startswith("feat\x1f"):
+                        continue
+                    _, prop, name = key.split("\x1f", 2)
+                    # __bf16_keys tensors stay uint16 bit patterns: the
+                    # port's host layout of bf16 (ops.embedding)
+                    raw_payload[key] = feats.setdefault(prop, {})[name] = \
+                        data[key]
+                if "__checksum" in data.files and (
+                        str(data["__checksum"])
+                        != self._snapshot_checksum(raw_payload)):
+                    return self._snapshot_reject(
+                        "checksum", "stamped content checksum mismatch")
+        except Exception as e:
+            logger.exception("snapshot load failed; replaying from store")
+            return self._snapshot_reject("corrupt", repr(e))
+
+        # every check passed: only now adopt the snapshot's widths (a
+        # rejected snapshot leaves the plan untouched)
+        for spec, v in zip(self.plan.device_props, slots):
+            spec.values_per_record = v
+        if self._auto_chars:
+            for spec, w in zip(self.plan.device_props, widths):
+                spec.max_chars = w
+        corpus = self.corpus
+        n = len(row_ids)
+        rows = corpus.append(feats, np.asarray(row_deleted),
+                             np.asarray(row_group), row_ids)
+        corpus.row_valid[:n] = row_valid
+        # the mask overwrite bypassed append/tombstone: recount
+        corpus.live_rows = int(
+            (np.asarray(row_valid) & ~np.asarray(row_deleted)).sum())
+        # the tensors are assembled: stream them to the device while the
+        # rest of the restore (row map, link DB, HTTP) runs on the host
+        self.warm_upload_async()
+        lazy = isinstance(records_by_id, LazyRecordMap)
+        for rid, row, ok in zip(row_ids, rows, row_valid):
+            if ok:
+                self.id_to_row[rid] = int(row)
+                if not lazy:
+                    self.records[rid] = records_by_id[rid]
+        if lazy:
+            self.records = records_by_id
+        self._prewarm_feature_cache(feats, records_by_id)
+        # the verified digest is the index's running hash AND its
+        # store-synced stamp (the restore bypassed the fold)
+        self._content_hash = bytes.fromhex(expected)
+        self._store_synced_hash = expected
+        logger.info("corpus snapshot restored: %d rows from %s%s", n, path,
+                    " (lazy record mirror)" if lazy else "")
+        return True
+
+    def _prewarm_feature_cache(self, feats, records_by_id) -> None:
+        """Seed the feature cache (``DUKE_FEATURE_CACHE_MB``) from the
+        restored tensors, so the first resync after a restart already
+        hits.  Digests come from the store's raw rows, no record decode.
+        Best-effort: a failure leaves the cache cold."""
+        from ..ops import feature_cache as FC
+
+        cache = FC.active()
+        if cache is None:
+            return
+        try:
+            store = getattr(records_by_id, "_store", None)
+            if store is not None:
+                digest_iter = store.row_digests()
+            else:
+                digest_iter = ((rid, record_digest(r))
+                               for rid, r in records_by_id.items())
+            warmed = FC.prewarm(self.plan, getattr(self, "encoder", None),
+                                feats, self.id_to_row, digest_iter, cache)
+            if warmed:
+                logger.info("feature cache pre-warmed with %d rows from "
+                            "the snapshot", warmed)
+        except Exception:
+            logger.exception("feature-cache pre-warm failed (cache stays "
+                             "cold)")
+
+    def warm_upload_async(self) -> None:
+        """Copy the restored host mirror to the device on a background
+        thread (``DEVICE_WARM_UPLOAD``, on by default; corpora under
+        ``_WARM_UPLOAD_MIN_ROWS`` upload on first use instead).  Writers and the first
+        query wait for the copy on the corpus' upload lock; a failure is
+        raised by the next ``device_arrays``."""
+        corpus = self.corpus
+        if (corpus.size < _WARM_UPLOAD_MIN_ROWS
+                or not env_flag("DEVICE_WARM_UPLOAD", True)):
+            return
+
+        def _upload():
+            try:
+                corpus.device_arrays()
+                if corpus.device.type == "cuda":
+                    torch.cuda.current_stream(corpus.device).synchronize()
+                logger.info("warm corpus upload complete (%d rows)",
+                            corpus.size)
+            except BaseException as e:
+                corpus.warm_error = e
+                logger.exception("warm corpus upload failed")
+
+        threading.Thread(target=_upload, daemon=True,
+                         name="corpus-upload").start()
+
+    def mark_store_synced(self, store_hash: Optional[str]) -> None:
+        """Record that the index applied every store write up to
+        ``store_hash`` (the workload calls this after each fully applied
+        batch); snapshot_save stamps it."""
+        if store_hash is not None:
+            self._store_synced_hash = store_hash
+
+
+def _records_content_hash(records_by_id) -> str:
+    """Order-independent digest of record ids AND values: the store's
+    incremental formula, recomputed (for callers without a store)."""
+    acc = EMPTY_CONTENT_HASH
+    for record in records_by_id.values():
+        acc = xor_fold(acc, record_digest(record))
+    return acc.hex()
+
+
+# Snapshot rejections by reason since process start (each one a replay)
+SNAPSHOT_FALLBACKS: Dict[str, int] = {}
+_SNAPSHOT_LOCK = threading.Lock()
 
 
 class _BlockResult:

@@ -1,0 +1,223 @@
+"""Durable link database on SQLite (a copy of the JAX package's
+``links/sqlite.py``).
+
+The durable backend behind ``link-database-type="h2"`` (the reference embeds
+H2 via Duke's JDBCLinkDatabase, App.java:577-604; SQLite is the natural
+stdlib equivalent).  Same semantics as the in-memory flavor: idempotent
+assert, strictly-greater-than since feed, retraction as a status update.
+Safe for multi-threaded use (one connection per thread).
+"""
+
+from __future__ import annotations
+
+import sqlite3
+import threading
+from typing import Dict, List, Optional, Tuple
+
+from ..utils.sqlite import SqliteConnectionPool
+from .base import Link, LinkDatabase, LinkKind, LinkStatus, is_same_assertion
+
+_SCHEMA = """
+CREATE TABLE IF NOT EXISTS links (
+    id1 TEXT NOT NULL,
+    id2 TEXT NOT NULL,
+    status TEXT NOT NULL,
+    kind TEXT NOT NULL,
+    confidence REAL NOT NULL,
+    timestamp INTEGER NOT NULL,
+    PRIMARY KEY (id1, id2)
+);
+CREATE INDEX IF NOT EXISTS links_ts ON links (timestamp);
+CREATE INDEX IF NOT EXISTS links_id2 ON links (id2);
+"""
+
+
+_UPSERT = (
+    "INSERT INTO links (id1, id2, status, kind, confidence, timestamp) "
+    "VALUES (?,?,?,?,?,?) ON CONFLICT(id1, id2) DO UPDATE SET "
+    "status=excluded.status, kind=excluded.kind, "
+    "confidence=excluded.confidence, timestamp=excluded.timestamp"
+)
+
+
+def _upsert_params(link: Link) -> Tuple:
+    return (link.id1, link.id2, link.status.value, link.kind.value,
+            link.confidence, link.timestamp)
+
+
+class SqliteLinkDatabase(LinkDatabase):
+    def __init__(self, path: str):
+        self.path = path
+        self._pool = SqliteConnectionPool(path)
+        # incremental row counter: /metrics scrapes call count() per
+        # workload, and a full-table COUNT(*) is O(rows) against the
+        # millions-of-links target.  Initialized lazily from one COUNT(*)
+        # and maintained on every write (each write path knows whether the
+        # key existed).  Single-process assumption only — the same one the
+        # per-workload data folder has always made.
+        self._count_lock = threading.Lock()
+        self._count: Optional[int] = None
+        with self._conn() as conn:
+            conn.executescript(_SCHEMA)
+
+    def _conn(self) -> sqlite3.Connection:
+        return self._pool.conn()
+
+    @staticmethod
+    def _row_to_link(row) -> Link:
+        return Link(row[0], row[1], LinkStatus(row[2]), LinkKind(row[3]),
+                    row[4], row[5])
+
+    def assert_link(self, link: Link) -> None:
+        conn = self._conn()
+        cur = conn.execute(
+            "SELECT id1, id2, status, kind, confidence, timestamp FROM links "
+            "WHERE id1=? AND id2=?",
+            (link.id1, link.id2),
+        )
+        row = cur.fetchone()
+        if row is not None and is_same_assertion(self._row_to_link(row), link):
+            return
+        conn.execute(_UPSERT, _upsert_params(link))
+        conn.commit()
+        if row is None:
+            self._count_add(1)
+
+    def assert_links(self, links: List[Link]) -> None:
+        """One transaction for a whole batch of asserts.
+
+        Semantics match sequential ``assert_link`` calls exactly: the
+        batch's keys are prefetched in one chunked query, identical
+        re-asserts (vs the stored row OR an earlier link in the batch) are
+        skipped without a timestamp-visible write, and only each key's
+        final effective state is upserted — the same table contents a
+        per-link loop would leave, at one ``executemany`` + one commit.
+        """
+        if not links:
+            return
+        conn = self._conn()
+        keys = sorted({link.key() for link in links})
+        existing: Dict[Tuple[str, str], Link] = {}
+        for start in range(0, len(keys), 225):  # 2 params per key
+            chunk = keys[start:start + 225]
+            clause = " OR ".join("(id1=? AND id2=?)" for _ in chunk)
+            cur = conn.execute(
+                "SELECT id1, id2, status, kind, confidence, timestamp "
+                f"FROM links WHERE {clause}",
+                [v for key in chunk for v in key],
+            )
+            for row in cur.fetchall():
+                existing[(row[0], row[1])] = self._row_to_link(row)
+        effective = dict(existing)
+        to_write: Dict[Tuple[str, str], Link] = {}
+        for link in links:
+            current = effective.get(link.key())
+            if current is not None and is_same_assertion(current, link):
+                continue
+            effective[link.key()] = link
+            to_write[link.key()] = link
+        if not to_write:
+            return
+        inserted = sum(1 for key in to_write if key not in existing)
+        conn.executemany(
+            _UPSERT,
+            [_upsert_params(link) for link in to_write.values()],
+        )
+        conn.commit()
+        self._count_add(inserted)
+
+    def get_all_links_for(self, record_id: str) -> List[Link]:
+        cur = self._conn().execute(
+            "SELECT id1, id2, status, kind, confidence, timestamp FROM links "
+            "WHERE id1=? OR id2=?",
+            (record_id, record_id),
+        )
+        return [self._row_to_link(r) for r in cur.fetchall()]
+
+    def get_links_for_ids(self, record_ids) -> List[Link]:
+        ids = sorted(set(record_ids))
+        if not ids:
+            return []
+        out: List[Link] = []
+        conn = self._conn()
+        # SQLite caps host parameters (999 on older builds); chunk the IN
+        for start in range(0, len(ids), 450):
+            chunk = ids[start:start + 450]
+            marks = ",".join("?" * len(chunk))
+            cur = conn.execute(
+                "SELECT id1, id2, status, kind, confidence, timestamp "
+                f"FROM links WHERE id1 IN ({marks}) OR id2 IN ({marks})",
+                chunk + chunk,
+            )
+            out.extend(self._row_to_link(r) for r in cur.fetchall())
+        if len(ids) > 450:  # chunks can double-report a joining link
+            out = list({l.key(): l for l in out}.values())
+        return out
+
+    def get_all_links(self) -> List[Link]:
+        cur = self._conn().execute(
+            "SELECT id1, id2, status, kind, confidence, timestamp FROM links"
+        )
+        return [self._row_to_link(r) for r in cur.fetchall()]
+
+    def _count_add(self, inserted: int) -> None:
+        # short critical section AFTER the commit: the lock never spans a
+        # sqlite transaction, so a concurrent count() cannot block on an
+        # in-flight flush.  (A count() initialization racing the window
+        # between a commit and this increment can over-count that batch
+        # once — an accepted one-off skew on a monitoring gauge.)
+        if inserted:
+            with self._count_lock:
+                if self._count is not None:
+                    self._count += inserted
+
+    def count(self) -> int:
+        # O(1) after the first call: the cached counter is maintained by
+        # every write path (ROADMAP open item — COUNT(*) per /metrics
+        # scrape was O(rows) against the millions-of-links target)
+        value = self._count
+        if value is not None:
+            return value
+        with self._count_lock:
+            if self._count is None:
+                cur = self._conn().execute("SELECT COUNT(*) FROM links")
+                self._count = int(cur.fetchone()[0])
+            return self._count
+
+    def get_changes_since(self, since: int) -> List[Link]:
+        cur = self._conn().execute(
+            "SELECT id1, id2, status, kind, confidence, timestamp FROM links "
+            "WHERE timestamp > ? ORDER BY timestamp, id1, id2",
+            (since,),
+        )
+        return [self._row_to_link(r) for r in cur.fetchall()]
+
+    def get_changes_page(self, since: int, limit: int) -> List[Link]:
+        if limit <= 0:
+            return self.get_changes_since(since)
+        conn = self._conn()
+        return self._changes_page(conn, since, limit)
+
+    def _changes_page(self, conn, since: int, limit: int) -> List[Link]:
+        cur = conn.execute(
+            "SELECT id1, id2, status, kind, confidence, timestamp FROM links "
+            "WHERE timestamp > ? ORDER BY timestamp, id1, id2 LIMIT ?",
+            (since, limit),
+        )
+        page = [self._row_to_link(r) for r in cur.fetchall()]
+        if len(page) == limit:
+            # extend over timestamp ties at the page edge (see base): the
+            # next page's strictly-greater cursor must not skip tied rows
+            last = page[-1]
+            cur = conn.execute(
+                "SELECT id1, id2, status, kind, confidence, timestamp "
+                "FROM links WHERE timestamp = ? ORDER BY id1, id2",
+                (last.timestamp,),
+            )
+            for r in cur.fetchall():
+                if (r[0], r[1]) > (last.id1, last.id2):
+                    page.append(self._row_to_link(r))
+        return page
+
+    def close(self) -> None:
+        self._pool.close()

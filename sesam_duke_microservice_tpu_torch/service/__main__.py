@@ -5,7 +5,10 @@ demo config, and serves the REST surface on ``--port`` (default ``PORT`` or
 4567).  ``--backend device`` (the default) scores by brute force,
 ``--backend ann`` by embedding cosine retrieval + exact rescoring.
 ``--device cuda`` (the default) scores on the GPU and fails without one;
-``--device cpu`` runs the plain PyTorch path.
+``--device cpu`` runs the plain PyTorch path.  State persists in each
+workload's data folder (``dataFolder`` in the config, else ``./data``)
+unless ``--ephemeral`` keeps it in memory; SIGTERM/SIGINT shut down
+gracefully (drain, flush, snapshot).
 """
 
 import argparse
@@ -14,7 +17,7 @@ import logging
 from ..core.config import load_default_config, parse_config
 from ..engine.workload import BACKENDS
 from ..env import env_int
-from .app import DEFAULT_PORT, create_app, serve
+from .app import DEFAULT_PORT, create_app, install_shutdown_handlers, serve
 
 
 def main() -> None:
@@ -28,6 +31,8 @@ def main() -> None:
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--backend", choices=BACKENDS, default="device")
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    parser.add_argument("--ephemeral", action="store_true",
+                        help="keep all state in memory (no data folder writes)")
     args = parser.parse_args()
 
     logging.basicConfig(level=logging.INFO)
@@ -36,16 +41,19 @@ def main() -> None:
             config = parse_config(f.read())
     else:
         config = load_default_config()
-    app = create_app(config, backend=args.backend, device=args.device)
+    app = create_app(config, backend=args.backend, device=args.device,
+                     persistent=not args.ephemeral)
     server = serve(app, port=args.port, host=args.host)
+    install_shutdown_handlers(app, server)
     logging.getLogger("duke-torch-service").info(
-        "Serving on %s:%d (backend=%s, device=%s)", args.host,
-        server.server_address[1], app.backend, app.device)
+        "Serving on %s:%d (backend=%s, device=%s, %s)", args.host,
+        server.server_address[1], app.backend, app.device,
+        "ephemeral" if args.ephemeral else "persistent")
     try:
         server.serve_forever()
     finally:
         server.server_close()
-        app.close()
+        app.close()  # idempotent: waits when the signal handler closes
 
 
 if __name__ == "__main__":

@@ -13,6 +13,12 @@ Writers take the workload lock unconditionally; feed readers try for 1 s
 and answer 503 with the reference's message.  A POST body may be a JSON
 array or one object (a single-entity transform answers one object).
 Unknown names 404 on entity endpoints and 400 on feeds.
+
+While a workload's link journal replays after a crash (overlapped
+recovery), every response carries ``X-Recovering: 1`` and a scoring POST
+to that workload answers 503 with ``Retry-After: 1``; feeds serve the
+replayed prefix.  ``install_shutdown_handlers`` turns SIGTERM/SIGINT into
+a graceful ``DukeApp.close()``: drain, flush, snapshot.
 """
 
 from __future__ import annotations
@@ -20,12 +26,14 @@ from __future__ import annotations
 import json
 import logging
 import re
+import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, Optional, Tuple
 from urllib.parse import parse_qs, urlparse
 
 from ..core.config import ServiceConfig, load_default_config
 from ..engine.workload import Workload, build_workload, resolve_device
+from ..links import journal as link_journal
 
 logger = logging.getLogger("duke-torch-service")
 
@@ -47,35 +55,80 @@ class DukeApp:
     """Application state: the parsed config and its live workloads, each
     scoring with ``backend`` (``device`` brute force unless the caller asks
     for ``ann``) on the torch ``device`` (``cuda`` unless the caller asks
-    for ``cpu``)."""
+    for ``cpu``).  ``persistent`` (the default) keeps each workload's state
+    in its data folder and restarts from it; ``persistent=False`` keeps
+    everything in memory."""
 
     def __init__(self, config: ServiceConfig, *, backend: str = "device",
-                 device="cuda"):
+                 device="cuda", persistent: bool = True):
         self.device = resolve_device(device)
         self.backend = backend
+        self.persistent = persistent
         self.config = config
-        self.deduplications: Dict[str, Workload] = {
-            name: build_workload(wc, config, backend=backend,
-                                 device=self.device)
-            for name, wc in config.deduplications.items()
-        }
-        self.record_linkages: Dict[str, Workload] = {
-            name: build_workload(wc, config, backend=backend,
-                                 device=self.device)
-            for name, wc in config.record_linkages.items()
-        }
+        # close() runs from the signal-driven shutdown thread AND the
+        # CLI's finally: one caller drains, every other caller waits for
+        # it (the CLI's exit must not cut a drain or snapshot short)
+        self._close_lock = threading.Lock()
+        self._closed = False  # guarded by: self._close_lock [writes]
+        self._close_done = threading.Event()
+        self.deduplications: Dict[str, Workload] = {}
+        self.record_linkages: Dict[str, Workload] = {}
+        try:
+            for name, wc in config.deduplications.items():
+                self.deduplications[name] = build_workload(
+                    wc, config, backend=backend, device=self.device,
+                    persistent=persistent)
+            for name, wc in config.record_linkages.items():
+                self.record_linkages[name] = build_workload(
+                    wc, config, backend=backend, device=self.device,
+                    persistent=persistent)
+        except BaseException:
+            self.close()
+            raise
+
+    def _workloads(self):
+        return (list(self.deduplications.values())
+                + list(self.record_linkages.values()))
+
+    def recovering(self) -> bool:
+        """Whether any of this app's workloads is still replaying its
+        link journal (one process-wide check while nothing replays)."""
+        if not link_journal.recovery_active(None):
+            return False
+        folders = [wl.config.data_folder for wl in self._workloads()
+                   if wl.config.data_folder]
+        if not folders:
+            return link_journal.recovery_active("")
+        return any(link_journal.recovery_active(f) for f in folders)
 
     def close(self) -> None:
-        for wl in (list(self.deduplications.values())
-                   + list(self.record_linkages.values())):
-            with wl.lock:
-                wl.close()
+        """Graceful shutdown: close every workload -- each drains its
+        write-behind link flush (leaving an EMPTY journal) and saves its
+        corpus snapshot, so a restart finds nothing to recover.
+        Idempotent; a second caller waits for the first one's drain."""
+        with self._close_lock:
+            already, self._closed = self._closed, True
+        if already:
+            self._close_done.wait()
+            return
+        try:
+            for wl in self._workloads():
+                with wl.lock:
+                    try:
+                        wl.close()
+                    except Exception:
+                        logger.exception("Error closing workload %s",
+                                         wl.name)
+        finally:
+            self._close_done.set()
 
 
 class _HttpError(Exception):
-    def __init__(self, status: int, message: str):
+    def __init__(self, status: int, message: str,
+                 extra_headers: Optional[dict] = None):
         self.status = status
         self.message = message
+        self.extra_headers = dict(extra_headers or {})
 
 
 def _kind_label(kind: str) -> str:
@@ -92,10 +145,17 @@ class DukeRequestHandler(BaseHTTPRequestHandler):
         logger.info("%s %s", self.address_string(), fmt % args)
 
     def _reply(self, status: int, body: bytes,
-               content_type: str = "application/json") -> None:
+               content_type: str = "application/json",
+               extra_headers: Optional[dict] = None) -> None:
         self.send_response(status)
         self.send_header("Content-Type", content_type)
         self.send_header("Content-Length", str(len(body)))
+        # staleness contract during overlapped recovery: every response
+        # carries the header while this app's journal replay runs
+        if self.app is not None and self.app.recovering():
+            self.send_header("X-Recovering", "1")
+        for k, v in (extra_headers or {}).items():
+            self.send_header(k, v)
         self.end_headers()
         try:
             self.wfile.write(body)
@@ -106,7 +166,8 @@ class DukeRequestHandler(BaseHTTPRequestHandler):
         try:
             route_fn(urlparse(self.path))
         except _HttpError as e:
-            self._reply(e.status, e.message.encode("utf-8"), "text/plain")
+            self._reply(e.status, e.message.encode("utf-8"), "text/plain",
+                        e.extra_headers)
         except Exception as e:  # noqa: BLE001 - surfaced as a 500
             logger.exception("Request failed")
             self._reply(500, f"Internal error: {e}".encode("utf-8"),
@@ -185,7 +246,9 @@ class DukeRequestHandler(BaseHTTPRequestHandler):
         for entity in batch:
             if not isinstance(entity, dict):
                 raise _HttpError(400, "Batch elements must be JSON objects")
-        _, workload, dataset_id, transform = self._validate_entity_path(m)
+        kind, workload, dataset_id, transform = self._validate_entity_path(m)
+        if not transform:
+            self._check_write_fence(kind, m.group(2), workload)
         try:
             with workload.lock:
                 rows = workload.process_batch(dataset_id, batch,
@@ -198,6 +261,19 @@ class DukeRequestHandler(BaseHTTPRequestHandler):
             self._reply(200, json.dumps(out).encode("utf-8"))
         else:
             self._reply(200, b'{"success": true}')
+
+    def _check_write_fence(self, kind: str, name: str, workload) -> None:
+        """503 a scoring POST while this workload's link journal replays:
+        the write-behind wrapper would fence the write anyway, blocking
+        the handler for the whole replay, so the HTTP layer answers fast
+        with Retry-After instead.  Reads are unaffected."""
+        if getattr(workload.link_database, "recovering", False):
+            raise _HttpError(
+                503,
+                f"The {_kind_label(kind)} '{name}' is replaying its link "
+                "journal; writes resume when recovery completes.",
+                extra_headers={"Retry-After": "1"},
+            )
 
     def _handle_feed(self, m, query) -> None:
         kind, name = m.group(1), m.group(2)
@@ -228,13 +304,39 @@ class DukeRequestHandler(BaseHTTPRequestHandler):
         self._reply(200, body.encode("utf-8"))
 
 
+def install_shutdown_handlers(app: DukeApp, server) -> None:
+    """SIGTERM/SIGINT graceful shutdown: stop accepting, flush the
+    write-behind link batches, save corpus snapshots, close -- so a
+    restart finds an empty journal and a warm snapshot.  The handler only
+    spawns the shutdown thread (signal context must not block on workload
+    locks); a second signal is a no-op (``close`` is idempotent), not an
+    escalation -- a hard kill is what the journal exists for."""
+    import signal
+
+    def _shutdown(signum, frame):
+        logger.info("signal %d: graceful shutdown (drain -> flush -> "
+                    "snapshot -> close)", signum)
+
+        def _run():
+            server.shutdown()  # stop accepting; in-flight requests finish
+            app.close()
+
+        threading.Thread(target=_run, daemon=True,
+                         name="graceful-shutdown").start()
+
+    signal.signal(signal.SIGTERM, _shutdown)
+    signal.signal(signal.SIGINT, _shutdown)
+
+
 def create_app(config: Optional[ServiceConfig] = None, *,
-               backend: str = "device", device="cuda") -> DukeApp:
+               backend: str = "device", device="cuda",
+               persistent: bool = True) -> DukeApp:
     """The app for ``config`` (default: ``CONFIG_STRING`` from the
     environment, else the bundled demo config)."""
     if config is None:
         config = load_default_config()
-    return DukeApp(config, backend=backend, device=device)
+    return DukeApp(config, backend=backend, device=device,
+                   persistent=persistent)
 
 
 def serve(app: DukeApp, port: int = DEFAULT_PORT,

@@ -409,7 +409,8 @@ def _apps(config_xml, monkeypatch, *, fused, top_c=TOP_C):
         _knobs(monkeypatch, {"DUKE_TPU_PALLAS": "0", "DEVICE_ANN_FUSED": "0"})
     monkeypatch.setenv("DEVICE_ANN_CANDIDATES", str(top_c))
     japp = JApp(jparse(config_xml), backend="ann", persistent=False)
-    tapp = TApp(tparse(config_xml), backend="ann", device="cpu")
+    tapp = TApp(tparse(config_xml), backend="ann", device="cpu",
+                persistent=False)
     for wl in (list(japp.deduplications.values())
                + list(japp.record_linkages.values())):
         wl.index.initial_top_c = top_c

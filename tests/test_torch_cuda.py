@@ -310,7 +310,7 @@ def test_mixed_service_on_cuda_matches_cpu_and_certifies(cuda_device):
               "address": pick(2), "person": pick(2)} for i in range(300)]
     feeds, certified = [], []
     for device in (cuda_device, "cpu"):
-        app = DukeApp(parse_config(MIXED), device=device)
+        app = DukeApp(parse_config(MIXED), device=device, persistent=False)
         wl = app.deduplications["mixed"]
         ck.reset_launch_counts()
         with wl.lock:
@@ -348,7 +348,7 @@ def test_service_on_cuda_matches_service_on_cpu(cuda_device, monkeypatch):
         batches.append(batch)
     feeds = []
     for device in (cuda_device, "cpu"):
-        app = DukeApp(parse_config(CONFIG), device=device)
+        app = DukeApp(parse_config(CONFIG), device=device, persistent=False)
         wl = app.deduplications["people"]
         for batch in batches:
             with wl.lock:
@@ -478,7 +478,8 @@ def test_ann_service_on_cuda_matches_cpu(cuda_device, monkeypatch):
              for i in range(250)]
     feeds = []
     for device in (cuda_device, "cpu"):
-        app = DukeApp(parse_config(CONFIG), backend="ann", device=device)
+        app = DukeApp(parse_config(CONFIG), backend="ann", device=device,
+                     persistent=False)
         wl = app.deduplications["people"]
         ck.reset_launch_counts()
         with wl.lock:

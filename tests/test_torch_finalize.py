@@ -1,7 +1,7 @@
 """Slice 2 end to end: certified dd finalization over HTTP, port vs JAX.
 
 The JAX ``DukeApp(backend="device", persistent=False)`` and the port's
-``DukeApp(device="cpu")`` serve the same POSTs on two schemas:
+``DukeApp(device="cpu", persistent=False)`` serve the same POSTs on two schemas:
 
   * ``hostprop``: Levenshtein ``name`` plus a host-only PersonName
     ``person`` (the JAX package's tests/test_dd.py fixture): the optimistic
@@ -135,7 +135,7 @@ def test_certified_finalization_bit_identical_to_jax(schema, device_finalize,
     for module in (jdm, tdm):
         monkeypatch.setattr(module, "_INITIAL_TOP_K", 1 << 20)
     japp = JApp(jparse(_config(schema)), backend="device", persistent=False)
-    tapp = TApp(tparse(_config(schema)), device="cpu")
+    tapp = TApp(tparse(_config(schema)), device="cpu", persistent=False)
     servers = [jserve(japp, port=0, host="127.0.0.1"),
                tserve(tapp, port=0, host="127.0.0.1")]
     threads = [threading.Thread(target=s.serve_forever, daemon=True)

@@ -37,6 +37,14 @@ def test_importing_the_port_loads_no_jax():
         "import sesam_duke_microservice_tpu_torch.ops.feature_cache\n"
         "import sesam_duke_microservice_tpu_torch.ops.embedding\n"
         "import sesam_duke_microservice_tpu_torch.utils.profiling\n"
+        "import sesam_duke_microservice_tpu_torch.utils.faults\n"
+        "import sesam_duke_microservice_tpu_torch.utils.atomicio\n"
+        "import sesam_duke_microservice_tpu_torch.utils.backoff\n"
+        "import sesam_duke_microservice_tpu_torch.utils.sqlite\n"
+        "import sesam_duke_microservice_tpu_torch.store.records\n"
+        "import sesam_duke_microservice_tpu_torch.links.sqlite\n"
+        "import sesam_duke_microservice_tpu_torch.links.journal\n"
+        "import sesam_duke_microservice_tpu_torch.links.write_behind\n"
         "print(json.dumps(sorted(set(sys.modules) - before)))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -45,6 +53,10 @@ def test_importing_the_port_loads_no_jax():
     assert "sesam_duke_microservice_tpu_torch.ops.scoring" in loaded
     assert "sesam_duke_microservice_tpu_torch.ops.encoder" in loaded
     assert "sesam_duke_microservice_tpu_torch.native" in loaded
+    # the durable-state modules load with the workload
+    for mod in ("store.records", "links.write_behind", "links.journal",
+                "utils.faults", "utils.atomicio", "utils.backoff"):
+        assert f"sesam_duke_microservice_tpu_torch.{mod}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
 
@@ -111,12 +123,17 @@ def _imports(path: Path):
 
 
 def test_no_source_file_imports_jax_or_the_jax_package():
-    # chip_smoke.py imports tests/wide_units.py; myers_ab.py imports
-    # chip_smoke.py
+    # chip_smoke.py imports tests/wide_units.py and runs
+    # tests/torch_crash_recovery_child.py; myers_ab.py imports chip_smoke.py
     files = sorted(PORT.rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "myers_ab.py",
-        REPO / "tests" / "wide_units.py"]
+        REPO / "tests" / "wide_units.py",
+        REPO / "tests" / "torch_crash_recovery_child.py"]
     assert len(files) > 15
+    for mod in ("store/records.py", "links/journal.py",
+                "links/write_behind.py", "links/sqlite.py", "utils/faults.py",
+                "utils/sqlite.py", "utils/atomicio.py", "utils/backoff.py"):
+        assert PORT / mod in files
     bad = [(str(f.relative_to(REPO)), m) for f in files
            for m in _imports(f) if _forbidden(m)]
     assert bad == []
@@ -143,6 +160,9 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
     sc = _config()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DukeApp(sc)
+    # the default is persistent: it still refuses before touching a file
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DukeApp(sc, persistent=True)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         create_app(sc)
     wc = next(iter(sc.deduplications.values()))
@@ -152,10 +172,10 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
         DukeApp(sc, backend="ann")
     with pytest.raises(ValueError, match="only the 'device' and 'ann'"):
         build_workload(wc, sc, backend="host", device="cpu")
-    app = DukeApp(sc, device="cpu")
+    app = DukeApp(sc, device="cpu", persistent=False)
     assert app.device.type == "cpu"
     app.close()
-    app = create_app(sc, backend="ann", device="cpu")
+    app = create_app(sc, backend="ann", device="cpu", persistent=False)
     assert {type(wl.processor).__name__ for wl in
             app.deduplications.values()} == {"AnnProcessor"}
     app.close()

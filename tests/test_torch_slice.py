@@ -2,8 +2,8 @@
 backend, POST for POST.
 
 Both apps -- the JAX ``DukeApp(sc, backend="device", persistent=False)``
-and the port's ``DukeApp(sc, device="cpu")`` -- serve over real HTTP and
-receive the same requests: three stresstest batches (~600 records, 15%
+and the port's ``DukeApp(sc, device="cpu", persistent=False)`` -- serve
+over real HTTP and receive the same requests: three stresstest batches (~600 records, 15%
 perturbed near-duplicates plus exact-name repeats), a batch of 40-120-char
 names that grows the name width past the one-word kernel (here to 192
 chars, doubling from the tests' 24-char base), a ``_deleted`` entity
@@ -191,7 +191,7 @@ def served_apps(monkeypatch):
     assert JF.MAX_CHARS == TF.MAX_CHARS
     monkeypatch.delenv("DEVICE_MAX_CHARS", raising=False)
     japp = JApp(jparse(CONFIG_XML), backend="device", persistent=False)
-    tapp = TApp(tparse(CONFIG_XML), device="cpu")
+    tapp = TApp(tparse(CONFIG_XML), device="cpu", persistent=False)
     servers = [jserve(japp, port=0, host="127.0.0.1"),
                tserve(tapp, port=0, host="127.0.0.1")]
     threads = [threading.Thread(target=s.serve_forever, daemon=True)
