@@ -97,6 +97,33 @@ Phases, each fatal on failure:
 8. print the per-kernel JSON line, the card's name and power limit, and
    the result line ``{"ok": true, "device": {...}}`` last.
 
+Between 5 and 6 run two phases of the ingest path (the scheduler and the
+``host`` backend):
+
+5a. concurrent ingest through the scheduler: slice 1's first 65,536
+   stresstest records (half its 131,072, to hold the script's time) in
+   256-record POSTs from 8 client threads, each run on a fresh
+   ``DukeApp(device="cuda", persistent=False)``, in the order S, M, 1, S
+   (S: the scheduler at its defaults; M: ``DUKE_SCHEDULER=0``, the
+   lock-winner merge; 1: one client sending the same POSTs serially).
+   Each run prints records/s, POST latency p50 / p99, scoring passes, the
+   scheduler's microbatches (mean requests and records each, queue wait,
+   429s), Myers W=1 launches and the wrapper's shapes, and the split.
+   Every POST must answer 200, S must dispatch fewer microbatches than
+   POSTs and launch Myers fewer times than run 1, and the four feeds must
+   be equal as unordered pairs with status and confidence.  Then the
+   admission check: ``DUKE_SCHED_QUEUE_MAX=1``, 8 clients x 4 POSTs, at
+   least one 429 with an integer ``Retry-After`` >= 1, every client that
+   sleeps it out gets its 200, and the feed equals the serial run's.  The
+   kernel phase holds Myers at the shapes this phase gave it too;
+5b. the ``host`` backend: ``DukeApp(backend="host")`` (which must never
+   resolve a device) serves the 512-record oracle traffic of step 4 (its
+   feed within the oracle's, confidences equal; the links it misses, its
+   blocking recall, are printed) and slice 1's first 16,384 records in
+   2,048-record POSTs, beside a fresh device app on the same records: its
+   records/s beside the device's, and every host link in the device feed
+   with an equal confidence.
+
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
 """
@@ -113,6 +140,7 @@ import sys
 import threading
 import time
 import types
+import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -591,6 +619,11 @@ def oracle_links(workload, entities):
     return links
 
 
+# {workload name: (entities, the host oracle's links)} of the main paths'
+# oracle checks; the host-backend phase serves the same traffic
+ORACLES = {}
+
+
 def check_oracle(port, app, name, entities):
     post(port, f"/deduplication/{name}/crm", entities)
     got = {r["_id"]: r["confidence"]
@@ -601,6 +634,7 @@ def check_oracle(port, app, name, entities):
             f"{name}: oracle feed differs: {len(got)} links vs {len(want)} "
             f"expected; missing {sorted(set(want) - set(got))[:5]}, "
             f"extra {sorted(set(got) - set(want))[:5]}")
+    ORACLES[name] = (entities, want)
     print(f"oracle: {name}'s {len(entities)}-record feed equals the host "
           f"oracle ({len(want)} links)", flush=True)
 
@@ -1520,6 +1554,285 @@ def phase_ann(line, device_rows):
     return launches, shapes, ingest_rows
 
 
+# -- concurrent ingest through the scheduler, and the host backend ---------------
+
+# slice 1's first 65,536 stresstest records (of its 131,072: halved to hold
+# the script's time), in 256-record POSTs from 8 client threads
+CONCURRENT_RECORDS = 65536
+CONCURRENT_POST = 256
+CONCURRENT_CLIENTS = 8
+# the admission check: DUKE_SCHED_QUEUE_MAX=1, 8 clients x 4 POSTs
+ADMISSION_POSTS = 4
+# the host backend's share of slice 1's traffic, in INGEST_BATCH POSTs
+HOST_RECORDS = 16384
+
+
+def post_status(port, path, body):
+    """POST without raising on an error status: (status, Retry-After,
+    seconds)."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=900) as resp:
+            resp.read()
+            return resp.status, None, time.perf_counter() - t0
+    except urllib.error.HTTPError as e:
+        e.read()
+        return e.code, e.headers.get("Retry-After"), time.perf_counter() - t0
+
+
+def link_set(rows):
+    """A feed as unordered entity pairs with status and confidence: what
+    does not depend on the order the records arrived in."""
+    return {(frozenset((r["entity1"], r["entity2"])), r["_deleted"],
+             r["confidence"]) for r in rows}
+
+
+def stress_app(env=None, **kwargs):
+    """A fresh in-memory app of the stresstest schema; ``env`` holds for
+    its construction (the scheduler reads its knobs there)."""
+    from sesam_duke_microservice_tpu_torch.core.config import parse_config
+    from sesam_duke_microservice_tpu_torch.service.app import DukeApp
+
+    with mock.patch.dict(os.environ, env or {}):
+        return DukeApp(parse_config(config_xml({"people": STRESS_SCHEMA})),
+                       persistent=False, **kwargs)
+
+
+def send(port, path, posts, clients):
+    """Send ``posts`` from ``clients`` threads (client c sends posts c, c +
+    clients, ... in order); every POST must answer 200.  Returns (latencies,
+    wall)."""
+    def client(c):
+        out = []
+        for body in posts[c::clients]:
+            status, _, dt = post_status(port, path, body)
+            if status != 200:
+                raise AssertionError(f"POST {path}: status {status}")
+            out.append(dt)
+        return out
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(clients) as pool:
+        latencies = [dt for f in [pool.submit(client, c)
+                                  for c in range(clients)]
+                     for dt in f.result()]
+    return latencies, time.perf_counter() - t0
+
+
+def concurrent_run(label, posts, line):
+    """One run of the concurrent-ingest phase on a fresh device app: ``S``
+    the scheduler at its defaults, ``M`` DUKE_SCHEDULER=0 (the lock-winner
+    merge), ``1`` one client sending the POSTs serially.  Returns its
+    numbers, the Myers shapes and the feed's link set."""
+    from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
+
+    path = "/deduplication/people/crm"
+    app = stress_app({"DUKE_SCHEDULER": "0" if label == "M" else "1"},
+                     device="cuda")
+    people = app.deduplications["people"]
+    with serving(app) as port:
+        with recording_shapes() as shapes:
+            before = split_fields(people.processor.stats)
+            ck.reset_launch_counts()
+            latencies, wall = send(port, path, posts,
+                                   1 if label == "1" else CONCURRENT_CLIENTS)
+            launches = dict(ck.LAUNCHES)
+        stats = people.processor.stats
+        split = split_line(stats_since(stats, before), wall, line)
+        passes = stats.batches
+        sched = (app.scheduler.stats_snapshot()["workloads"][0]
+                 if app.scheduler is not None else None)
+        rows = feed(port, "/deduplication/people")
+    if launches["myers_tile"] <= 0:
+        raise AssertionError(f"concurrent ingest [{label}]: kernel "
+                             "myers_tile never launched")
+    check_rows(rows, f"concurrent ingest [{label}]")
+    records = sum(map(len, posts))
+    q = statistics.quantiles(latencies, n=100)
+    sched_text = "no scheduler"
+    if sched is not None:
+        mb = sched["microbatches"]
+        sched_text = (f"scheduler microbatches {mb} (mean "
+                      f"{sched['merged_requests'] / mb} requests, "
+                      f"{sched['records_dispatched'] / mb} records each; "
+                      f"mean queue wait {sched['avg_wait_ms']} ms; 429s "
+                      f"{sched['rejected']})")
+    myers = dict(sorted(shapes["myers_distance_tiles"].items()))
+    print(f"concurrent ingest [{label}]: {records} records in {len(posts)} "
+          f"{CONCURRENT_POST}-record POSTs from "
+          f"{1 if label == '1' else CONCURRENT_CLIENTS} client(s): "
+          f"{records / wall} records/s; POST latency p50 "
+          f"{statistics.median(latencies) * 1e3} ms, p99 {q[98] * 1e3} ms; "
+          f"scoring passes {passes}; {sched_text}; Myers W=1 launches "
+          f"{launches['myers_tile']}, wrapper calls by (Q, C, L) {myers}; "
+          f"{split}; {len(rows)} links", flush=True)
+    return dict(label=label, rps=records / wall, passes=passes,
+                microbatches=sched and sched["microbatches"],
+                rejected=sched and sched["rejected"],
+                myers=launches["myers_tile"], launches=launches,
+                shapes=shapes, links=link_set(rows))
+
+
+def admission_check(posts, line):
+    """DUKE_SCHED_QUEUE_MAX=1 under 8 clients x ADMISSION_POSTS POSTs: at
+    least one 429 with an integer Retry-After >= 1, every client retrying
+    after it (sleeping Retry-After) gets its 200, and the feed equals the
+    same POSTs sent serially."""
+    path = "/deduplication/people/crm"
+    rejects = []
+
+    def client(port, c):
+        for body in posts[c::CONCURRENT_CLIENTS]:
+            for _ in range(120):
+                status, retry_after, _ = post_status(port, path, body)
+                if status == 200:
+                    break
+                if status != 429 or int(retry_after) < 1:
+                    raise AssertionError(f"admission: status {status}, "
+                                         f"Retry-After {retry_after!r}")
+                rejects.append(int(retry_after))
+                time.sleep(int(retry_after))
+            else:
+                raise AssertionError(f"admission: client {c} never got "
+                                     "its 200")
+
+    app = stress_app({"DUKE_SCHEDULER": "1", "DUKE_SCHED_QUEUE_MAX": "1"},
+                     device="cuda")
+    t0 = time.perf_counter()
+    with serving(app) as port:
+        with ThreadPoolExecutor(CONCURRENT_CLIENTS) as pool:
+            for f in [pool.submit(client, port, c)
+                      for c in range(CONCURRENT_CLIENTS)]:
+                f.result()
+        wall = time.perf_counter() - t0
+        got = link_set(feed(port, "/deduplication/people"))
+    serial = stress_app({"DUKE_SCHEDULER": "1"}, device="cuda")
+    with serving(serial) as port:
+        send(port, path, posts, 1)
+        want = link_set(feed(port, "/deduplication/people"))
+    if not rejects:
+        raise AssertionError("admission: no POST was answered 429 at "
+                             "DUKE_SCHED_QUEUE_MAX=1")
+    if got != want:
+        raise AssertionError(f"admission: feed of {len(got)} links differs "
+                             f"from the serial run's {len(want)}")
+    print(f"admission (DUKE_SCHED_QUEUE_MAX=1, {CONCURRENT_CLIENTS} clients x "
+          f"{ADMISSION_POSTS} POSTs): {len(rejects)} 429s, Retry-After "
+          f"{sorted(set(rejects))} s; every client got its 200s in {wall} s; "
+          f"feed of {len(got)} links equals the serial run's [{line}]",
+          flush=True)
+
+
+def phase_concurrent(line):
+    """Concurrent ingest through the scheduler on the card: runs S, M, 1,
+    S (S: the scheduler at its defaults; M: DUKE_SCHEDULER=0, the
+    lock-winner merge; 1: one client, the same POSTs serially), each on a
+    fresh app; then the admission check.  Returns (launches, shapes) of the
+    first S run."""
+    import torch
+
+    t0 = time.perf_counter()
+    entities = stresstest_entities(CONCURRENT_RECORDS, 1234, "p")
+    posts = [entities[s:s + CONCURRENT_POST]
+             for s in range(0, CONCURRENT_RECORDS, CONCURRENT_POST)]
+    runs = [concurrent_run(label, posts, line)
+            for label in ("S", "M", "1", "S")]
+    torch.cuda.synchronize()
+    first, serial = runs[0], runs[2]
+    for run in runs:
+        if run["links"] != first["links"]:
+            raise AssertionError(
+                f"concurrent ingest [{run['label']}]: {len(run['links'])} "
+                f"links differ from run S's {len(first['links'])}")
+    for run in (runs[0], runs[3]):
+        if run["microbatches"] >= len(posts):
+            raise AssertionError(f"scheduler: {run['microbatches']} "
+                                 f"microbatches for {len(posts)} POSTs")
+        if run["myers"] >= serial["myers"]:
+            raise AssertionError(f"scheduler: {run['myers']} Myers launches,"
+                                 f" not fewer than the serial run's "
+                                 f"{serial['myers']}")
+    print(f"concurrent ingest: S, M, 1, S records/s "
+          f"{[r['rps'] for r in runs]}; scoring passes "
+          f"{[r['passes'] for r in runs]}; Myers W=1 launches "
+          f"{[r['myers'] for r in runs]}; the four feeds equal "
+          f"({len(first['links'])} links) [{line}]", flush=True)
+    admission_check(posts[:CONCURRENT_CLIENTS * ADMISSION_POSTS], line)
+    print(f"concurrent ingest phase: {time.perf_counter() - t0} s",
+          flush=True)
+    return first["launches"], first["shapes"]
+
+
+def phase_host_backend(line):
+    """The ``host`` backend beside the card: ``DukeApp(backend="host")``
+    serves the main paths' oracle traffic (its feed within the brute-force
+    oracle's, confidences equal; the links it misses are its blocking
+    recall) and slice 1's first HOST_RECORDS records, whose links must all
+    be in a fresh device app's feed of the same records with equal
+    confidences.  The host app must never resolve a device."""
+    from sesam_duke_microservice_tpu_torch.core.config import parse_config
+    from sesam_duke_microservice_tpu_torch.engine import workload as W
+    from sesam_duke_microservice_tpu_torch.service import app as A
+
+    t0 = time.perf_counter()
+    entities = stresstest_entities(HOST_RECORDS, 1234, "p")
+    path = "/deduplication/people/crm"
+    resolved = []
+
+    def refusing(*args, **kwargs):
+        resolved.append(args)
+        raise AssertionError("the host backend resolved a device")
+
+    recall = {}
+    with mock.patch.object(A, "resolve_device", refusing), \
+            mock.patch.object(W, "resolve_device", refusing):
+        app = A.DukeApp(parse_config(config_xml({
+            "people": STRESS_SCHEMA, "oracle": STRESS_SCHEMA,
+            "mixed_oracle": MIXED_SCHEMA})), backend="host",
+            persistent=False)
+        with serving(app) as port:
+            for name, (oracle_entities, want) in sorted(ORACLES.items()):
+                post(port, f"/deduplication/{name}/crm", oracle_entities)
+                got = {r["_id"]: r["confidence"]
+                       for r in feed(port, f"/deduplication/{name}")}
+                stray = [k for k, v in got.items() if want.get(k) != v]
+                if stray:
+                    raise AssertionError(
+                        f"host {name}: {len(stray)} links not in the oracle "
+                        f"with equal confidence, e.g. {stray[:3]}")
+                recall[name] = (len(got), len(want))
+            latencies, host_s = ingest(port, path, entities)
+            host_rows = feed(port, "/deduplication/people")
+    if resolved:
+        raise AssertionError("the host backend resolved a device")
+    device = stress_app(device="cuda")
+    with serving(device) as port:
+        _, device_s = ingest(port, path, entities)
+        device_rows = feed(port, "/deduplication/people")
+    check_rows(host_rows, "host")
+    want = {r["_id"]: r["confidence"] for r in device_rows}
+    stray = [r["_id"] for r in host_rows
+             if want.get(r["_id"]) != r["confidence"]]
+    if stray:
+        raise AssertionError(f"host: {len(stray)} links not in the device "
+                             f"feed with equal confidence, e.g. {stray[:3]}")
+    print(f"host backend: oracle feeds within the brute-force oracle with "
+          f"equal confidences; blocking recall "
+          f"{ {n: f'{g}/{w} ({g / max(1, w):.4f}), missed {w - g}' for n, (g, w) in recall.items()} }",
+          flush=True)
+    print(f"host backend: {HOST_RECORDS} stresstest records in "
+          f"{INGEST_BATCH}-record POSTs: {HOST_RECORDS / host_s} records/s "
+          f"(p50 POST {statistics.median(latencies) * 1e3} ms), the device "
+          f"backend {HOST_RECORDS / device_s} records/s in the same run; "
+          f"{len(host_rows)} host links, all in the device feed of "
+          f"{len(device_rows)} with equal confidences (recall "
+          f"{len(host_rows) / len(device_rows):.4f}) [{line}]", flush=True)
+    print(f"host backend phase: {time.perf_counter() - t0} s", flush=True)
+
+
 # -- the restart phase: durable state --------------------------------------------
 
 CRASH_SITE = "mid_flush"
@@ -2200,13 +2513,15 @@ def main() -> int:
     (launches1, shapes1, device_rows), (launches2, shapes2, real_sets) = \
         phase_main_paths(line)
     launches3, shapes3, ann_rows = phase_ann(line, device_rows)
+    _, shapes4 = phase_concurrent(line)
+    phase_host_backend(line)
 
     peak_ops = int32_peak_ops_per_s()
     print(f"int32 ALU peak: {peak_ops / 1e12:.2f} Top/s ({INT32_LANES_PER_SM}"
           f" lanes x {torch.cuda.get_device_properties(0).multi_processor_count}"
           f" SMs x max SM clock) [{line}]", flush=True)
     shapes = {name: {} for name in WRAPPER_SHAPES}
-    for recorded in (shapes1, shapes2):
+    for recorded in (shapes1, shapes2, shapes4):
         for name, calls in recorded.items():
             for s, n in calls.items():
                 shapes[name][s] = shapes[name].get(s, 0) + n

@@ -1,19 +1,44 @@
-"""Host pair scoring: the exact f64 oracle the device path finalizes with.
+"""The matching engine: the host reference implementation.
 
-Counterpart of the JAX package's ``engine/processor.py``, reduced to what
-the device backend uses: ``Processor.compare`` (per comparison property,
-the max over value pairs of ``Property.compare_probability``, folded with
-naive Bayes from a 0.5 prior; properties with no values on either side
-contribute nothing) and the ``ProfileStats`` counters.
+Counterpart of the JAX package's ``engine/processor.py`` without its
+telemetry (phase recorder, cost ledger, trace spans, decision monitors).
+It reproduces the Duke 1.2 ``Processor.deduplicate(List<Record>)``
+contract the reference drives for both workloads (App.java:1005,
+App.java:1159):
+
+    batch_ready(n)
+    index every record; commit the blocking database
+    for each record: candidates = database.find_candidate_matches(record)
+        for each candidate (skipping self): prob = compare(record, candidate)
+            prob > threshold        -> matches()
+            prob > maybe_threshold  -> matches_perhaps()
+        no qualifying candidate     -> no_match_for()
+    batch_done()
+
+Pair probability: per comparison property, the max over value pairs of
+``Property.compare_probability``, folded with naive Bayes from a 0.5 prior;
+properties with no values on either side contribute nothing.  The device
+backends finalize with the same ``compare`` (the exact f64 oracle).
+
+With ``backend="host"`` this engine over ``index.inverted.InvertedIndex``
+is the whole backend (the JAX package's default and conformance oracle).
+``threads`` mirrors the reference's ``Processor.setThreads``
+(App.java:344) by fanning the per-record loop over a thread pool.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass, fields
+from typing import List, Optional, Sequence
 
 from ..core.bayes import combine_probabilities
 from ..core.config import DukeSchema
 from ..core.records import Record
+from ..index.base import CandidateIndex
+from .listeners import MatchListener
 
 
 @dataclass
@@ -45,14 +70,36 @@ class ProfileStats:
     compare_seconds: float = 0.0
     dd_seconds: float = 0.0
 
+    def merge(self, other: "ProfileStats") -> None:
+        """Add ``other``'s counters and clocks into this one."""
+        for f in fields(self):
+            setattr(self, f.name,
+                    getattr(self, f.name) + getattr(other, f.name))
+
 
 class Processor:
-    """Naive-Bayes pair probability over a schema's comparison properties."""
+    """``deduplicate`` over a candidate index, plus the naive-Bayes pair
+    probability (``compare``) every backend emits its confidences with.
+    ``database`` may be None for a caller that only compares pairs."""
 
-    def __init__(self, schema: DukeSchema):
+    def __init__(self, schema: DukeSchema,
+                 database: Optional[CandidateIndex] = None, *,
+                 group_filtering: bool = False, threads: int = 1):
         self.schema = schema
+        self.database = database
+        self.group_filtering = group_filtering
+        self.threads = max(1, threads)
+        self.listeners: List[MatchListener] = []
+        self.stats = ProfileStats()
+        self._listener_lock = threading.Lock()
+
+    def add_match_listener(self, listener: MatchListener) -> None:
+        self.listeners.append(listener)
+
+    # -- pair scoring -------------------------------------------------------
 
     def compare(self, r1: Record, r2: Record) -> float:
+        """Naive-Bayes pair probability over comparison properties."""
         probs = []
         for prop in self.schema.comparison_properties():
             vs1 = [v for v in r1.get_values(prop.name) if v]
@@ -67,3 +114,59 @@ class Processor:
                         best = p
             probs.append(best)
         return combine_probabilities(probs)
+
+    # -- batch processing ---------------------------------------------------
+
+    def deduplicate(self, records: Sequence[Record]) -> None:
+        for listener in self.listeners:
+            listener.batch_ready(len(records))
+        for record in records:
+            self.database.index(record)
+        self.database.commit()
+        if self.threads == 1:
+            for record in records:
+                self._match_record(record)
+        else:
+            with ThreadPoolExecutor(max_workers=self.threads) as pool:
+                list(pool.map(self._match_record, records))
+        self.stats.batches += 1
+        for listener in self.listeners:
+            listener.batch_done()
+
+    def _match_record(self, record: Record) -> None:
+        t0 = time.monotonic()
+        candidates = self.database.find_candidate_matches(
+            record, group_filtering=self.group_filtering)
+        t1 = time.monotonic()
+
+        found = False
+        threshold = self.schema.threshold
+        maybe = self.schema.maybe_threshold
+        pairs = 0
+        for candidate in candidates:
+            if candidate.record_id == record.record_id:
+                continue
+            prob = self.compare(record, candidate)
+            pairs += 1
+            if prob > threshold:
+                found = True
+                self._emit("matches", record, candidate, prob)
+            elif maybe is not None and maybe != 0.0 and prob > maybe:
+                found = True
+                self._emit("matches_perhaps", record, candidate, prob)
+        if not found:
+            with self._listener_lock:
+                for listener in self.listeners:
+                    listener.no_match_for(record)
+
+        t2 = time.monotonic()
+        self.stats.records_processed += 1
+        self.stats.candidates_retrieved += len(candidates)
+        self.stats.pairs_compared += pairs
+        self.stats.retrieval_seconds += t1 - t0
+        self.stats.compare_seconds += t2 - t1
+
+    def _emit(self, event: str, r1: Record, r2: Record, prob: float) -> None:
+        with self._listener_lock:
+            for listener in self.listeners:
+                getattr(listener, event)(r1, r2, prob)

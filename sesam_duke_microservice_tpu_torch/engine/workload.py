@@ -1,18 +1,25 @@
 """Per-workload runtime bundle and the ingest/feed flows.
 
-Counterpart of the JAX package's ``engine/workload.py`` for the ``device``
-and ``ann`` backends: each workload owns its datasources, the device index
-and processor, the match listener, its link database and (when persistent)
-its record store, plus a lock serializing access (writers block; the HTTP
-layer gives readers 1 s).
+Counterpart of the JAX package's ``engine/workload.py`` for the ``device``,
+``ann`` and ``host`` backends: each workload owns its datasources, the
+candidate index and processor, the match listener, its link database and
+(when persistent) its record store, plus a lock serializing access
+(writers block; the HTTP layer gives readers 1 s).
+
+Ingest requests arrive through ``submit_batch`` (the lock-winner merge:
+whichever request wins the lock runs every request queued behind it as one
+batch) or through ``engine.scheduler.IngestScheduler``; both end in
+``_run_merged``, whose conflict split keeps events and link rows equal to
+serial execution.
 
 Durable state (``persistent=True``, the default) lives in the workload's
 data folder, in the JAX package's formats: ``records.sqlite`` (the record
 store, the source of truth), ``linkdatabase.sqlite`` (or
 ``recordlinkdatabase.sqlite``) behind write-behind with its
-``.journal``, and ``corpus_snapshot.npz``.  A restart restores the corpus
-from the snapshot, else replays the store, then copies the corpus to the
-device in the background.
+``.journal``, and ``corpus_snapshot.npz``.  A restart restores a device
+corpus from the snapshot, else replays the store, then copies the corpus
+to the device in the background; the ``host`` backend's inverted index has
+no snapshot and always replays.
 
 Flow (App.java:924-1028 / 1065-1179): parse -> records -> partition
 deleted/live -> tombstone + retract links for deleted -> deduplicate live.
@@ -26,6 +33,7 @@ from __future__ import annotations
 import logging
 import os
 import threading
+import time
 from typing import Dict, List, Optional, Sequence
 
 import torch
@@ -36,6 +44,8 @@ from ..core.records import (
     ORIGINAL_ENTITY_ID_PROPERTY_NAME,
     Record,
 )
+from ..index.base import CandidateIndex
+from ..index.inverted import InvertedIndex
 from ..links import create_link_database
 from ..links.base import LinkDatabase, LinkStatus
 from ..service.datasource import IncrementalDataSource
@@ -43,6 +53,8 @@ from ..store.records import LazyRecordMap, RecordStore, SqliteRecordStore
 from ..utils import faults
 from .device_matcher import DeviceIndex, DeviceProcessor
 from .listeners import ServiceMatchListener
+from .processor import Processor
+from .scheduler import fold_ewma, retry_after_seconds
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -64,9 +76,21 @@ def _snapshot_path(data_folder: str) -> str:
     return os.path.join(data_folder, "corpus_snapshot.npz")
 
 
+class _BatchRequest:
+    """One queued ingest request awaiting the merged batch."""
+
+    __slots__ = ("dataset_id", "entities", "event", "error")
+
+    def __init__(self, dataset_id: str, entities: Sequence[dict]):
+        self.dataset_id = dataset_id
+        self.entities = entities
+        self.event = threading.Event()
+        self.error: Optional[Exception] = None
+
+
 class Workload:
-    def __init__(self, config: WorkloadConfig, index: DeviceIndex,
-                 processor: DeviceProcessor, listener: ServiceMatchListener,
+    def __init__(self, config: WorkloadConfig, index: CandidateIndex,
+                 processor, listener: ServiceMatchListener,
                  link_database: LinkDatabase,
                  record_store: Optional[RecordStore] = None,
                  restore_route: Optional[str] = None):
@@ -82,6 +106,18 @@ class Workload:
         # (ephemeral, or nothing stored yet)
         self.restore_route = restore_route
         self.lock = threading.Lock()
+        # set under self.lock by close(); the scheduler and submit_batch
+        # re-check it after locking
+        self.closed = False
+        # ingest microbatching: concurrent POSTs queue here and whichever
+        # thread wins the workload lock processes the whole queue as ONE
+        # batch (self._mb_mutex orders queue access; it is never held
+        # while acquiring self.lock)
+        self._mb_mutex = threading.Lock()
+        self._mb_queue: List[_BatchRequest] = []
+        # recent write-side lock-hold EWMA (seconds), the busy-503's
+        # Retry-After; written under self.lock, read lock-free
+        self._hold_ewma: Optional[float] = None
         # sticky store/index divergence latch: a store write committed
         # but its index application failed.  While set, _mark_synced never
         # stamps again in this process (the store hash would cover rows
@@ -91,6 +127,69 @@ class Workload:
             ds.dataset_id: IncrementalDataSource(ds)
             for ds in config.duke.data_sources
         }
+
+    # -- lock-hold observations ---------------------------------------------
+
+    def note_lock_hold(self, seconds: float) -> None:
+        """Fold one write-side lock-hold duration into the EWMA (call with
+        ``self.lock`` held -- batch paths and the scheduler dispatcher)."""
+        self._hold_ewma = fold_ewma(self._hold_ewma, seconds)
+
+    def busy_retry_after(self) -> int:
+        """Whole-second Retry-After hint for lock-timeout busy replies:
+        the recent write hold, ceil'd and clamped (the scheduler's
+        ``retry_after_seconds`` policy)."""
+        ewma = self._hold_ewma
+        if ewma is None:
+            return 1
+        return retry_after_seconds(ewma)
+
+    # -- ingest + match -----------------------------------------------------
+
+    def submit_batch(self, dataset_id: str, entities: Sequence[dict],
+                     http_transform: bool = False) -> Optional[List[dict]]:
+        """Handler entry with the scheduler off: lock discipline + ingest
+        microbatching.
+
+        Non-transform POSTs that arrive while another request holds the
+        workload lock are queued; whichever thread next wins the lock runs
+        the whole queue as ONE merged batch (per-request conversion errors
+        stay per-request).  Transforms keep their own lock-held call:
+        their response rows are per-request state on the shared listener.
+        Returns None when the workload closed mid-flight (the caller
+        re-resolves and resubmits); raises this request's error otherwise.
+        """
+        if http_transform:
+            with self.lock:
+                if self.closed:
+                    return None
+                return self.process_batch(dataset_id, entities,
+                                          http_transform=True)
+
+        req = _BatchRequest(dataset_id, entities)
+        with self._mb_mutex:
+            self._mb_queue.append(req)
+        with self.lock:
+            if not req.event.is_set():
+                with self._mb_mutex:
+                    if self.closed:
+                        # withdraw (if a pre-close leader already took the
+                        # request its event is set and we fall through)
+                        if req in self._mb_queue:
+                            self._mb_queue.remove(req)
+                            return None
+                    work, self._mb_queue = self._mb_queue, []
+                if work:
+                    t0 = time.monotonic()
+                    try:
+                        self._run_merged(work)
+                    finally:
+                        self.note_lock_hold(time.monotonic() - t0)
+        if not req.event.is_set():  # withdrawn post-close without a leader
+            return None
+        if req.error is not None:
+            raise req.error
+        return []
 
     def _retract_links_for(self, deleted: Sequence[Record]) -> None:
         """Retract every link touching the deleted records (one batched
@@ -104,16 +203,112 @@ class Workload:
 
     def _mark_synced(self) -> None:
         """Stamp the index as caught up with the store (the snapshot's
-        staleness guard, ``DeviceIndex.mark_store_synced``), unless a
-        batch ever left the store ahead of the index."""
+        staleness guard, ``DeviceIndex.mark_store_synced``; the host
+        index has none), unless a batch ever left the store ahead of the
+        index."""
         if self.record_store is None or self._store_dirty:
             return
-        self.index.mark_store_synced(self.record_store.content_hash())
+        mark = getattr(self.index, "mark_store_synced", None)
+        if mark is not None:
+            mark(self.record_store.content_hash())
+
+    def _run_merged(self, work: List[_BatchRequest]) -> None:
+        """Process queued requests as one batch (call with self.lock held).
+
+        Serializability: merging applies every request's deletes before one
+        shared scoring pass, so a merged group whose requests delete and
+        upsert the SAME record id with opposite polarity (req A deletes X /
+        adds Y merged with req B deletes Y / adds X) would end in a state
+        matching no serial order.  Such conflicts split the queue: the
+        merged group flushes (deletes + one scoring pass) before the
+        conflicting request starts a new group, making the outcome equal to
+        executing the groups -- and therefore the requests -- in queue
+        order.  Same-polarity overlap needs no split: repeated deletes
+        retract idempotently and repeated upserts index in queue order
+        inside one scoring pass (later content wins), as serial execution.
+        """
+        group: List[_BatchRequest] = []
+        group_records: List[List[Record]] = []
+        deleted_ids: set = set()
+        live_ids: set = set()
+
+        def flush():
+            nonlocal group, group_records, deleted_ids, live_ids
+            all_live: List[Record] = []
+            any_deleted = False
+            ok: List[_BatchRequest] = []
+            for req, records in zip(group, group_records):
+                put_done = False
+                try:
+                    if self.record_store is not None:
+                        self.record_store.put_many(records)
+                        # store rows durable, index/scoring/links not yet
+                        # applied
+                        faults.check_crash("post_store_put")
+                        put_done = True
+                    deleted = [r for r in records if r.is_deleted()]
+                    for record in deleted:
+                        self.index.index(record)
+                    self._retract_links_for(deleted)
+                except Exception as e:  # store errors stay per-request
+                    if put_done:
+                        # the store committed rows the index will never
+                        # apply: latch the divergence so no later stamp
+                        # can mask it (_mark_synced honors the latch)
+                        self._store_dirty = True
+                    req.error = e
+                    req.event.set()
+                    continue
+                any_deleted = any_deleted or bool(deleted)
+                all_live.extend(r for r in records if not r.is_deleted())
+                ok.append(req)
+            try:
+                if any_deleted:
+                    self.index.commit()
+                    # seal the retraction writes even when no scoring pass
+                    # (and thus no listener batch_done/commit) follows
+                    self.link_database.commit()
+                if all_live:
+                    self.processor.deduplicate(all_live)
+                if ok:
+                    self._mark_synced()
+            except Exception as e:
+                if self.record_store is not None and ok:
+                    # the group's store writes committed but the shared
+                    # scoring/commit pass did not complete
+                    self._store_dirty = True
+                for req in ok:
+                    req.error = e
+            finally:
+                for req in ok:
+                    req.event.set()
+            group, group_records = [], []
+            deleted_ids, live_ids = set(), set()
+
+        for req in work:
+            try:  # conversion errors stay per-request
+                datasource = self.datasources[req.dataset_id]
+                records = datasource.records_for_batch(req.entities)
+            except Exception as e:
+                req.error = e
+                req.event.set()
+                continue
+            req_deleted = {r.record_id for r in records if r.is_deleted()}
+            req_live = {r.record_id for r in records if not r.is_deleted()}
+            if (req_deleted & live_ids) or (req_live & deleted_ids):
+                flush()
+            group.append(req)
+            group_records.append(records)
+            deleted_ids |= req_deleted
+            live_ids |= req_live
+        if group:
+            flush()
 
     def process_batch(self, dataset_id: str, entities: Sequence[dict],
                       http_transform: bool = False) -> List[dict]:
         """Ingest a batch and run matching (call with ``self.lock`` held);
         returns the transform response rows when ``http_transform``."""
+        t_hold = time.monotonic()
         records = self.datasources[dataset_id].records_for_batch(entities)
         live = [r for r in records if not r.is_deleted()]
         deleted = [r for r in records if r.is_deleted()]
@@ -149,6 +344,7 @@ class Workload:
                 self._store_dirty = True
             raise
         finally:
+            self.note_lock_hold(time.monotonic() - t_hold)
             self.index.set_indexing_disabled(False)
             self.listener.set_link_database_updates_disabled(False)
 
@@ -185,7 +381,7 @@ class Workload:
         """The materialized feed: every link changed after ``since``, in
         (timestamp, id1, id2) order."""
         links = self.link_database.get_changes_since(since)
-        records = self.index.records
+        records = getattr(self.index, "records", None)
         if isinstance(records, LazyRecordMap):
             # resolve the endpoints in batched store reads, not one
             # SELECT per link end
@@ -193,10 +389,12 @@ class Workload:
         return [self._link_row(l) for l in links]
 
     def save_corpus_snapshot(self) -> None:
-        """Persist the corpus snapshot (call with ``self.lock`` held).
-        Best-effort: a failed save only logs -- the record store stays the
-        source of truth and the next start replays."""
-        if self.record_store is None:
+        """Persist the corpus snapshot (call with ``self.lock`` held; a
+        no-op for the host backend).  Best-effort: a failed save only logs
+        -- the record store stays the source of truth and the next start
+        replays."""
+        if (self.record_store is None
+                or not hasattr(self.index, "snapshot_save")):
             return
         try:
             # a snapshot must never be newer than the link rows its
@@ -208,28 +406,35 @@ class Workload:
                              "rebuild)")
 
     def close(self, save_snapshot: bool = True) -> None:
-        """Save the corpus snapshot (persistent workloads), then release
-        the finalizer, the link database (draining write-behind: the
-        journal is left empty) and the record store."""
+        """Save the corpus snapshot (persistent device workloads), then
+        release the finalizer, the index, the link database (draining
+        write-behind: the journal is left empty) and the record store
+        (call with ``self.lock`` held)."""
+        self.closed = True
         if save_snapshot:
             self.save_corpus_snapshot()
-        self.processor.finalizer.shutdown()
+        finalizer = getattr(self.processor, "finalizer", None)
+        if finalizer is not None:
+            finalizer.shutdown()
+        self.index.close()
         self.link_database.close()
         if self.record_store is not None:
             self.record_store.close()
 
 
-BACKENDS = ("device", "ann")
+BACKENDS = ("device", "ann", "host")
 
 
-def _restore(index: DeviceIndex, store: RecordStore,
+def _restore(index: CandidateIndex, store: RecordStore,
              data_folder: str) -> Optional[str]:
-    """Bring the index back from the store: the corpus snapshot first
-    (with a lazy store-backed record mirror), else a full replay; then the
-    corpus is copied to the device in the background.  Returns the route
-    taken, or None when the store is empty."""
+    """Bring the index back from the store: a device corpus from its
+    snapshot first (with a lazy store-backed record mirror), else a full
+    replay, after which a device corpus is copied to the device in the
+    background.  The host index has no snapshot and always replays.
+    Returns the route taken, or None when the store is empty."""
+    device = isinstance(index, DeviceIndex)
     snap = _snapshot_path(data_folder)
-    if os.path.exists(snap) and index.snapshot_load(
+    if device and os.path.exists(snap) and index.snapshot_load(
             snap, LazyRecordMap(store), content_hash=store.content_hash()):
         return "snapshot"  # snapshot_load kicked the warm upload
     route = None
@@ -239,20 +444,25 @@ def _restore(index: DeviceIndex, store: RecordStore,
         for record in records.values():
             index.index(record)
         index.commit()
-        index.warm_upload_async()
-    index.mark_store_synced(store.content_hash())
+        if device:
+            index.warm_upload_async()
+    if device:
+        index.mark_store_synced(store.content_hash())
     return route
 
 
 def build_workload(wc: WorkloadConfig, sc: ServiceConfig, *,
                    backend: str = "device", device="cuda",
                    persistent: bool = True) -> Workload:
-    """Assemble a workload: device index + processor + listener + link DB
-    (+ record store when ``persistent``).
+    """Assemble a workload: candidate index + processor + listener + link
+    DB (+ record store when ``persistent``).
 
     ``backend``: ``"device"`` (exact brute-force scoring,
     engine.device_matcher) or ``"ann"`` (embedding cosine blocking + exact
-    rescoring, engine.ann_matcher), on the torch ``device``.
+    rescoring, engine.ann_matcher), on the torch ``device``; or ``"host"``
+    (the Lucene-parity inverted index + the host ``Processor``, the JAX
+    package's default and conformance backend), which runs no device code:
+    it neither resolves nor touches ``device``.
     ``persistent`` (the default): the link database is the config's
     ``link-database-type`` in the workload's data folder (``h2``: SQLite
     behind write-behind and its journal), records persist in
@@ -262,15 +472,17 @@ def build_workload(wc: WorkloadConfig, sc: ServiceConfig, *,
     if backend not in BACKENDS:
         raise ValueError(
             f"unknown backend {backend!r}: the PyTorch port serves only the "
-            "'device' and 'ann' backends")
-    dev = resolve_device(device)
-    if backend == "ann":
+            "'device', 'ann' and 'host' backends")
+    if backend == "host":
+        index, processor_cls = InvertedIndex(wc.duke, sc.tunables), Processor
+    elif backend == "ann":
         from .ann_matcher import AnnIndex, AnnProcessor
 
-        index, processor_cls = AnnIndex(wc.duke, device=dev), AnnProcessor
+        index = AnnIndex(wc.duke, device=resolve_device(device))
+        processor_cls = AnnProcessor
     else:
-        index, processor_cls = DeviceIndex(wc.duke, device=dev), \
-            DeviceProcessor
+        index = DeviceIndex(wc.duke, device=resolve_device(device))
+        processor_cls = DeviceProcessor
     processor = processor_cls(
         wc.duke, index, group_filtering=wc.is_record_linkage,
         threads=sc.threads,
@@ -297,7 +509,9 @@ def build_workload(wc: WorkloadConfig, sc: ServiceConfig, *,
     except BaseException:
         # a half-built workload never reaches the caller: release whatever
         # opened (the finalizer's threads too)
-        processor.finalizer.shutdown()
+        finalizer = getattr(processor, "finalizer", None)
+        if finalizer is not None:
+            finalizer.shutdown()
         for resource in (link_database, record_store):
             if resource is not None:
                 try:

@@ -3,8 +3,12 @@
 The framework's equivalent of Duke's ``Database`` plugin point as the
 reference subclasses it (IncrementalLuceneDatabase.java:57,459-492): index
 records, answer candidate queries with group/deleted filtering, point-lookup
-by id.  The port's one implementation is ``engine.device_matcher.DeviceIndex``:
-the corpus as device-resident padded feature tensors scored brute force.
+by id.  Implementations:
+
+  * ``index.inverted.InvertedIndex`` -- host token inverted index with
+    Lucene-compatible semantics, the ``host`` backend;
+  * ``engine.device_matcher.DeviceIndex`` -- the corpus as device-resident
+    padded feature tensors scored brute force.
 """
 
 from __future__ import annotations

@@ -3,9 +3,12 @@
 Loads ``--config`` (an XML file), else ``CONFIG_STRING``, else the bundled
 demo config, and serves the REST surface on ``--port`` (default ``PORT`` or
 4567).  ``--backend device`` (the default) scores by brute force,
-``--backend ann`` by embedding cosine retrieval + exact rescoring.
-``--device cuda`` (the default) scores on the GPU and fails without one;
-``--device cpu`` runs the plain PyTorch path.  State persists in each
+``--backend ann`` by embedding cosine retrieval + exact rescoring,
+``--backend host`` by the Lucene-parity inverted index and the host
+processor (no device code; ``--device`` is ignored).  ``--device cuda``
+(the default) scores on the GPU and fails without one; ``--device cpu``
+runs the plain PyTorch path.  POSTs go through the ingest scheduler
+unless ``DUKE_SCHEDULER=0``.  State persists in each
 workload's data folder (``dataFolder`` in the config, else ``./data``)
 unless ``--ephemeral`` keeps it in memory; SIGTERM/SIGINT shut down
 gracefully (drain, flush, snapshot).

@@ -1,4 +1,4 @@
-"""The HTTP frontend: the reference REST surface for the device backends.
+"""The HTTP frontend: the reference REST surface for the port's backends.
 
 Counterpart of the JAX package's ``service/app.py`` reduced to the
 matching routes (App.java:649-887) on the stdlib threading HTTP server:
@@ -9,10 +9,17 @@ matching routes (App.java:649-887) on the stdlib threading HTTP server:
     GET  /deduplication/:name?since=N                     incremental feed
     (same shapes under /recordlinkage)
 
-Writers take the workload lock unconditionally; feed readers try for 1 s
-and answer 503 with the reference's message.  A POST body may be a JSON
-array or one object (a single-entity transform answers one object).
-Unknown names 404 on entity endpoints and 400 on feeds.
+A scoring POST goes through the ingest scheduler
+(``engine.scheduler.IngestScheduler``, on unless ``DUKE_SCHEDULER=0``):
+it queues per workload, coalesces concurrent POSTs into microbatches that
+one dispatcher thread runs through ``Workload._run_merged``, and answers a
+full queue with 429 and ``Retry-After``.  With the scheduler off the POST
+goes through ``Workload.submit_batch`` (the lock-winner merge).
+Transforms take the workload lock directly.  Feed readers try for 1 s and
+answer 503 with the reference's message and a ``Retry-After`` from the
+recent write holds.  A POST body may be a JSON array or one object (a
+single-entity transform answers one object).  Unknown names 404 on entity
+endpoints and 400 on feeds.
 
 While a workload's link journal replays after a crash (overlapped
 recovery), every response carries ``X-Recovering: 1`` and a scoring POST
@@ -32,6 +39,14 @@ from typing import Dict, Optional, Tuple
 from urllib.parse import parse_qs, urlparse
 
 from ..core.config import ServiceConfig, load_default_config
+from ..engine.scheduler import (
+    DatasetGone,
+    IngestScheduler,
+    SchedulerClosed,
+    SchedulerReject,
+    WorkloadGone,
+    scheduler_enabled,
+)
 from ..engine.workload import Workload, build_workload, resolve_device
 from ..links import journal as link_journal
 
@@ -52,16 +67,18 @@ _FEED_PATH = re.compile(r"^/(deduplication|recordlinkage)/([^/]*)$")
 
 
 class DukeApp:
-    """Application state: the parsed config and its live workloads, each
-    scoring with ``backend`` (``device`` brute force unless the caller asks
-    for ``ann``) on the torch ``device`` (``cuda`` unless the caller asks
-    for ``cpu``).  ``persistent`` (the default) keeps each workload's state
-    in its data folder and restarts from it; ``persistent=False`` keeps
-    everything in memory."""
+    """Application state: the parsed config, its live workloads and the
+    ingest scheduler.  Each workload scores with ``backend`` (``device``
+    brute force unless the caller asks for ``ann`` or ``host``) on the
+    torch ``device`` (``cuda`` unless the caller asks for ``cpu``; the
+    ``host`` backend runs no device code and leaves ``device`` None).
+    ``persistent`` (the default) keeps each workload's state in its data
+    folder and restarts from it; ``persistent=False`` keeps everything in
+    memory."""
 
     def __init__(self, config: ServiceConfig, *, backend: str = "device",
                  device="cuda", persistent: bool = True):
-        self.device = resolve_device(device)
+        self.device = None if backend == "host" else resolve_device(device)
         self.backend = backend
         self.persistent = persistent
         self.config = config
@@ -73,6 +90,7 @@ class DukeApp:
         self._close_done = threading.Event()
         self.deduplications: Dict[str, Workload] = {}
         self.record_linkages: Dict[str, Workload] = {}
+        self.scheduler: Optional[IngestScheduler] = None
         try:
             for name, wc in config.deduplications.items():
                 self.deduplications[name] = build_workload(
@@ -82,9 +100,19 @@ class DukeApp:
                 self.record_linkages[name] = build_workload(
                     wc, config, backend=backend, device=self.device,
                     persistent=persistent)
+            # queues are keyed by (kind, name) and dispatch re-resolves
+            # from the registries; DUKE_SCHEDULER=0 leaves POSTs to
+            # Workload.submit_batch
+            if scheduler_enabled():
+                self.scheduler = IngestScheduler(self._resolve_workload)
         except BaseException:
             self.close()
             raise
+
+    def _resolve_workload(self, kind: str, name: str) -> Optional[Workload]:
+        registry = (self.deduplications if kind == "deduplication"
+                    else self.record_linkages)
+        return registry.get(name)
 
     def _workloads(self):
         return (list(self.deduplications.values())
@@ -102,16 +130,22 @@ class DukeApp:
         return any(link_journal.recovery_active(f) for f in folders)
 
     def close(self) -> None:
-        """Graceful shutdown: close every workload -- each drains its
-        write-behind link flush (leaving an EMPTY journal) and saves its
-        corpus snapshot, so a restart finds nothing to recover.
-        Idempotent; a second caller waits for the first one's drain."""
+        """Graceful shutdown: drain the ingest scheduler, then close every
+        workload -- each drains its write-behind link flush (leaving an
+        EMPTY journal) and saves its corpus snapshot, so a restart finds
+        nothing to recover.  Idempotent; a second caller waits for the
+        first one's drain."""
         with self._close_lock:
             already, self._closed = self._closed, True
         if already:
             self._close_done.wait()
             return
         try:
+            # drain FIRST: queued requests complete against still-open
+            # workloads (none is lost), and the dispatcher must be able to
+            # take the workload locks this method is about to hold
+            if self.scheduler is not None:
+                self.scheduler.shutdown()
             for wl in self._workloads():
                 with wl.lock:
                     try:
@@ -249,13 +283,48 @@ class DukeRequestHandler(BaseHTTPRequestHandler):
         kind, workload, dataset_id, transform = self._validate_entity_path(m)
         if not transform:
             self._check_write_fence(kind, m.group(2), workload)
-        try:
-            with workload.lock:
-                rows = workload.process_batch(dataset_id, batch,
-                                              http_transform=transform)
-        except Exception as e:
-            logger.exception("Batch processing failed")
-            raise _HttpError(500, f"Batch processing failed: {e}")
+        sched = self.app.scheduler
+        if sched is not None and not transform:
+            name, label = m.group(2), _kind_label(kind)
+            try:
+                sched.submit(kind, name, dataset_id, batch)
+            except SchedulerReject as e:
+                raise _HttpError(
+                    429,
+                    f"The {label} '{name}' ingest queue is full "
+                    f"({e.depth} requests pending). Please retry after "
+                    f"{e.retry_after}s.",
+                    extra_headers={"Retry-After": str(e.retry_after)},
+                )
+            except WorkloadGone:
+                raise _HttpError(
+                    404,
+                    f"Unknown {label} '{name}'! (All {label}s must be "
+                    f"specified in the configuration)",
+                )
+            except DatasetGone as e:
+                raise _HttpError(
+                    404,
+                    f"Unknown dataset-id '{e.dataset_id}' for the "
+                    f"{label} '{name}'!",
+                )
+            except SchedulerClosed:
+                raise _HttpError(503, "The service is shutting down.")
+            except Exception as e:
+                logger.exception("Batch processing failed")
+                raise _HttpError(500, f"Batch processing failed: {e}")
+            rows = []
+        else:
+            try:
+                rows = workload.submit_batch(dataset_id, batch,
+                                             http_transform=transform)
+            except Exception as e:
+                logger.exception("Batch processing failed")
+                raise _HttpError(500, f"Batch processing failed: {e}")
+            if rows is None:
+                # the port replaces no workload while serving: a closed
+                # one means the app is shutting down
+                raise _HttpError(503, "The service is shutting down.")
         if transform:
             out = rows[0] if single and len(rows) == 1 else rows
             self._reply(200, json.dumps(out).encode("utf-8"))
@@ -295,7 +364,10 @@ class DukeRequestHandler(BaseHTTPRequestHandler):
                 f"the configuration)",
             )
         if not workload.lock.acquire(timeout=READ_LOCK_TIMEOUT_SECONDS):
-            raise _HttpError(503, _BUSY_TEMPLATE.format(kind=label))
+            raise _HttpError(
+                503, _BUSY_TEMPLATE.format(kind=label),
+                extra_headers={
+                    "Retry-After": str(workload.busy_retry_after())})
         try:
             rows = workload.links_since(since)
         finally:

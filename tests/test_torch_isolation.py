@@ -31,6 +31,8 @@ def test_importing_the_port_loads_no_jax():
         "import sesam_duke_microservice_tpu_torch.service.__main__\n"
         "import sesam_duke_microservice_tpu_torch.ops.cuda_kernels\n"
         "import sesam_duke_microservice_tpu_torch.engine.workload\n"
+        "import sesam_duke_microservice_tpu_torch.engine.scheduler\n"
+        "import sesam_duke_microservice_tpu_torch.index.inverted\n"
         "import sesam_duke_microservice_tpu_torch.engine.ann_matcher\n"
         "import sesam_duke_microservice_tpu_torch.native\n"
         "import sesam_duke_microservice_tpu_torch.ops.parallel_extract\n"
@@ -53,9 +55,11 @@ def test_importing_the_port_loads_no_jax():
     assert "sesam_duke_microservice_tpu_torch.ops.scoring" in loaded
     assert "sesam_duke_microservice_tpu_torch.ops.encoder" in loaded
     assert "sesam_duke_microservice_tpu_torch.native" in loaded
-    # the durable-state modules load with the workload
+    # the durable-state modules, the scheduler and the host backend load
+    # with the workload
     for mod in ("store.records", "links.write_behind", "links.journal",
-                "utils.faults", "utils.atomicio", "utils.backoff"):
+                "utils.faults", "utils.atomicio", "utils.backoff",
+                "engine.scheduler", "engine.processor", "index.inverted"):
         assert f"sesam_duke_microservice_tpu_torch.{mod}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -170,8 +174,14 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
         build_workload(wc, sc)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DukeApp(sc, backend="ann")
-    with pytest.raises(ValueError, match="only the 'device' and 'ann'"):
-        build_workload(wc, sc, backend="host", device="cpu")
+    with pytest.raises(ValueError, match="'device', 'ann' and 'host'"):
+        build_workload(wc, sc, backend="lucene", device="cpu")
+    # the host backend runs no device code: it serves without a card
+    app = DukeApp(sc, backend="host", persistent=False)
+    assert app.device is None
+    assert {type(wl.index).__name__ for wl in
+            app.deduplications.values()} == {"InvertedIndex"}
+    app.close()
     app = DukeApp(sc, device="cpu", persistent=False)
     assert app.device.type == "cpu"
     app.close()
