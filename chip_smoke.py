@@ -94,7 +94,28 @@ Phases, each fatal on failure:
    pytest tests/test_torch_persistence.py tests/test_torch_restart.py
    tests/test_torch_crash_recovery.py -q`` (their data folders are
    pytest tmp dirs too, never ``<cwd>/data``);
-8. print the per-kernel JSON line, the card's name and power limit, and
+8. the control phase (the service's control and read surface): slice
+   1's first 65,536 records into a persistent ``DukeApp`` in 2,048-record
+   POSTs; ``/metrics`` and ``/stats`` scraped (the scrape wall printed)
+   and held against the app: records processed, live corpus rows, link
+   rows against the feed, the POST count by route and status, the
+   per-phase ``duke_cost_device_seconds_total`` summing to the busy
+   seconds this app added within 1e-9 relative, ``duke_device_bytes``
+   ``corpus_tensors`` equal to the corpus tensors' ``nbytes`` and at most
+   ``torch.cuda.memory_allocated()``, the headroom against
+   ``mem_get_info``'s total; the streamed feed at ``FEED_PAGE_SIZE=256``
+   byte-identical to the HTTP/1.0 buffered one; a multipart ``POST
+   /config`` adding a second workload (seconds to the 302), which must
+   restore through the corpus snapshot (no
+   ``duke_snapshot_fallbacks_total``), keep the feed, free the old
+   corpus (allocated bytes less than half a corpus above the level
+   before: a leaked old corpus would add a whole one), and
+   launch Myers W=1 on the rebuilt corpus for a 2,048-record query POST
+   whose links equal those of a control app that never reloaded; a POST
+   to the new workload; a malformed reload (400, ``GET /config``
+   unchanged); ``/readyz`` ready, ``/healthz`` ok and a 413 at a 1 KiB
+   ``MAX_REQUEST_BYTES``; then the ``control`` line;
+9. print the per-kernel JSON line, the card's name and power limit, and
    the result line ``{"ok": true, "device": {...}}`` last.
 
 Between 5 and 6 run two phases of the ingest path (the scheduler and the
@@ -2042,6 +2063,352 @@ def phase_restart(line, device_rows, ann_rows):
           f"[{line}]", flush=True)
 
 
+# -- the control and read surface --------------------------------------------
+
+CONTROL_RECORDS = 65536
+CONTROL_FEED_PAGE = 256
+
+
+def scrape(port):
+    """(/metrics samples {(name, ((label, value), ...)): value}, /stats
+    JSON, wall ms of the two GETs)."""
+    import re
+
+    sample_line = re.compile(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})? "
+                             r"(\S+)$")
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=60) as resp:
+        text = resp.read().decode()
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/stats",
+                                timeout=60) as resp:
+        stats = json.loads(resp.read())
+    wall_ms = (time.perf_counter() - t0) * 1000.0
+    samples = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        name, labels, value = sample_line.match(line).groups()
+        pairs = tuple(re.findall(r'([a-zA-Z_]\w*)="((?:\\.|[^"\\])*)"',
+                                 labels or ""))
+        samples[(name, pairs)] = float(value)
+    return samples, stats, wall_ms
+
+
+def family(samples, name, **labels):
+    """The samples of ``name`` whose labels include ``labels``."""
+    return {k: v for k, v in samples.items() if k[0] == name
+            and all((l, str(v)) in k[1] for l, v in labels.items())}
+
+
+def one(samples, name, **labels):
+    found = family(samples, name, **labels)
+    if len(found) != 1:
+        raise AssertionError(f"/metrics: {len(found)} samples of {name} "
+                             f"{labels}")
+    return next(iter(found.values()))
+
+
+def raw_feed(port, path, version):
+    """(body bytes, seconds) of one ``?since=0`` GET: HTTP/1.1 is read
+    de-chunked by urllib, HTTP/1.0 from a raw socket (the buffered body
+    with a Content-Length; the server's status line says HTTP/1.1)."""
+    import socket
+
+    t0 = time.perf_counter()
+    if version == "HTTP/1.1":
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}?since=0",
+                                    timeout=900) as resp:
+            if resp.headers.get("Transfer-Encoding") != "chunked":
+                raise AssertionError("the HTTP/1.1 feed is not chunked")
+            body = resp.read()
+        return body, time.perf_counter() - t0
+    with socket.create_connection(("127.0.0.1", port), timeout=900) as sock:
+        sock.sendall(f"GET {path}?since=0 HTTP/1.0\r\n\r\n".encode())
+        data = bytearray()
+        while chunk := sock.recv(1 << 20):
+            data += chunk
+    head, _, body = bytes(data).partition(b"\r\n\r\n")
+    if not head.startswith(b"HTTP/1.1 200") or b"Content-Length" not in head:
+        raise AssertionError(f"HTTP/1.0 feed: {head[:80]!r}")
+    return body, time.perf_counter() - t0
+
+
+def multipart_post(port, path, field, payload):
+    """(status, seconds) of a multipart/form-data POST of one file field."""
+    boundary = "----chipsmoke"
+    body = (f"--{boundary}\r\nContent-Disposition: form-data; "
+            f'name="{field}"; filename="duke.xml"\r\nContent-Type: '
+            f"application/xml\r\n\r\n{payload}\r\n--{boundary}--\r\n").encode()
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=body, method="POST",
+        headers={"Content-Type": f"multipart/form-data; boundary={boundary}"})
+
+    class NoRedirect(urllib.request.HTTPRedirectHandler):
+        def redirect_request(self, *args, **kwargs):
+            return None
+
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.build_opener(NoRedirect).open(
+                req, timeout=900) as resp:
+            resp.read()
+            status = resp.status
+    except urllib.error.HTTPError as e:
+        e.read()
+        status = e.code
+    return status, time.perf_counter() - t0
+
+
+def over_limit_post(port, path, length):
+    """The raw answer to a POST announcing a ``length``-byte body and
+    sending none: the server must refuse it from the header alone and
+    close the connection (the read ends at EOF)."""
+    import socket
+
+    with socket.create_connection(("127.0.0.1", port), timeout=60) as sock:
+        sock.sendall(f"POST {path} HTTP/1.1\r\nHost: x\r\n"
+                     f"Content-Length: {length}\r\n\r\n".encode())
+        data = bytearray()
+        while chunk := sock.recv(1 << 16):
+            data += chunk
+    return bytes(data)
+
+
+def compare_feeds(port, path, rows, line):
+    """The streamed feed at FEED_PAGE_SIZE=256 must equal the HTTP/1.0
+    buffered one byte for byte (and decode to ``rows``); returns (links,
+    bytes, HTTP/1.1 seconds, HTTP/1.0 seconds)."""
+    with mock.patch.dict(os.environ,
+                         {"FEED_PAGE_SIZE": str(CONTROL_FEED_PAGE)}):
+        streamed, s11 = raw_feed(port, path, "HTTP/1.1")
+    buffered, s10 = raw_feed(port, path, "HTTP/1.0")
+    if streamed != buffered or json.loads(streamed) != rows:
+        raise AssertionError("control: the streamed feed differs from the "
+                             "HTTP/1.0 feed")
+    print(f"control feeds: {len(rows)} links, {len(streamed)} bytes; "
+          f"HTTP/1.1 at FEED_PAGE_SIZE={CONTROL_FEED_PAGE} {s11} s, "
+          f"HTTP/1.0 buffered {s10} s, byte-identical [{line}]", flush=True)
+    return len(rows), len(streamed), s11, s10
+
+
+def corpus_tensor_bytes(workload):
+    """Bytes of the corpus tensors on the card, summed here from the
+    tensors themselves (the ledger's ``corpus_tensors`` component)."""
+    corpus = workload.index.corpus
+    feats = sum(t.nbytes for tensors in corpus._device_feats.values()
+                for t in tensors.values())
+    return feats + sum(t.nbytes for t in corpus._device_masks)
+
+
+def phase_control(line):
+    """The control and read surface on the card: a persistent app takes
+    slice 1's first 65,536 records; /metrics and /stats are scraped and
+    held against the app's own state (records, rows, links, requests, the
+    cost ledger's balance, the device-byte ledger against the allocator);
+    the streamed feed at FEED_PAGE_SIZE=256 against the HTTP/1.0 buffered
+    one, byte for byte; a multipart POST /config reload (the same workload
+    plus a second one) through the corpus snapshot, with the feed, a
+    query POST's links (Myers W=1 on the rebuilt corpus) and the device
+    memory checked after it against a control app that never reloaded;
+    a malformed reload (400, the old config kept), the probes and a 413.
+    Prints the ``control`` line."""
+    import tempfile
+
+    import torch
+
+    from sesam_duke_microservice_tpu_torch.core.config import parse_config
+    from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
+    from sesam_duke_microservice_tpu_torch.service.app import DukeApp
+    from sesam_duke_microservice_tpu_torch.telemetry import memory
+
+    path, feed_path = "/deduplication/people/crm", "/deduplication/people"
+    entities = stresstest_entities(INGEST_RECORDS, 1234, "p")[:CONTROL_RECORDS]
+    queries = with_copies(stresstest_entities(INGEST_BATCH, 4321, "q"),
+                          entities, 16, 1)
+    posts = [entities[s:s + INGEST_BATCH]
+             for s in range(0, len(entities), INGEST_BATCH)]
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="duke-control-") as tmp:
+        xml = config_xml({"people": STRESS_SCHEMA}, data_folder=tmp)
+        xml2 = config_xml({"people": STRESS_SCHEMA, "people2": STRESS_SCHEMA},
+                          data_folder=tmp)
+        app = DukeApp(parse_config(xml), device=DEVICE)
+        with serving(app) as port:
+            before, _, _ = scrape(port)
+            busy0 = one(before, "duke_cost_busy_seconds_total")
+            t0 = time.perf_counter()
+            for body in posts:
+                post(port, path, body)
+            out["ingest_rps"] = CONTROL_RECORDS / (time.perf_counter() - t0)
+            wl = app.deduplications["people"]
+            torch.cuda.synchronize()
+
+            # 1. /metrics and /stats against the app's own state, after a
+            # feed read: it drains the write-behind link flush, and the
+            # link-row gauge reads the durable store without draining
+            rows = feed(port, feed_path)
+            samples, stats, out["scrape_ms"] = scrape(port)
+            people = {"kind": "deduplication", "workload": "people"}
+            row = next(r for r in stats["workloads"] if r["name"] == "people")
+            checks = {
+                "records processed": (one(
+                    samples, "duke_engine_records_processed_total", **people),
+                    CONTROL_RECORDS),
+                "corpus rows": (one(samples, "duke_corpus_rows", state="live",
+                                    **people), row["records_indexed"]),
+                "links rows": (one(samples, "duke_links_rows", **people),
+                               len(rows)),
+                "POST 200s": (one(
+                    samples, "duke_http_requests_total",
+                    route="/deduplication/:name/:datasetId", method="POST",
+                    status="200"), len(posts)),
+            }
+            for what, (got, want) in checks.items():
+                if got != want:
+                    raise AssertionError(f"control: /metrics {what} {got}, "
+                                         f"expected {want}")
+            phase_sum = sum(family(samples, "duke_cost_device_seconds_total",
+                                   **people).values())
+            busy = one(samples, "duke_cost_busy_seconds_total") - busy0
+            if abs(phase_sum - busy) > 1e-9 * max(busy, 1e-12):
+                raise AssertionError(f"control: per-phase cost seconds "
+                                     f"{phase_sum} != busy {busy}")
+            out["corpus_bytes"] = corpus_tensor_bytes(wl)
+            ledger = one(samples, "duke_device_bytes",
+                         component="corpus_tensors", **people)
+            # the ledger's cross-check: torch.cuda.memory_allocated
+            out["allocated"] = memory.live_arrays_bytes()
+            if ledger != out["corpus_bytes"] or ledger > out["allocated"]:
+                raise AssertionError(
+                    f"control: duke_device_bytes corpus_tensors {ledger}, "
+                    f"tensors {out['corpus_bytes']}, allocated "
+                    f"{out['allocated']}")
+            total_mem = torch.cuda.mem_get_info()[1]
+            headroom = one(samples, "duke_device_headroom_bytes")
+            registered = sum(family(samples, "duke_device_bytes").values())
+            if memory.budget_bytes() != (float(total_mem), "device") or \
+                    headroom != total_mem - registered:
+                raise AssertionError(
+                    f"control: headroom {headroom}, card memory {total_mem}, "
+                    f"registered {registered}, budget "
+                    f"{memory.budget_bytes()}")
+            out["headroom"] = headroom
+            print(f"control scrape: {out['scrape_ms']} ms for /metrics + "
+                  f"/stats; records {CONTROL_RECORDS}, corpus rows "
+                  f"{row['records_indexed']}, links {len(rows)}, POST 200s "
+                  f"{len(posts)}; per-phase cost seconds {phase_sum} = busy "
+                  f"{busy}; corpus_tensors {ledger} bytes (allocated "
+                  f"{out['allocated']}), headroom {headroom} of {total_mem} "
+                  f"[{line}]", flush=True)
+
+            # 2. the streamed feed against the buffered one
+            out["feeds"] = [compare_feeds(port, feed_path, rows, line)]
+
+            # 3. the reload through the corpus snapshot
+            fallbacks = sum(family(samples,
+                                   "duke_snapshot_fallbacks_total").values())
+            out["before_reload"] = memory.live_arrays_bytes()
+            status, out["reload_s"] = multipart_post(port, "/config",
+                                                     "configfile", xml2)
+            if status != 302:
+                raise AssertionError(f"control: reload answered {status}")
+            new = app.deduplications["people"]
+            if new is wl or not wl.closed or new.restore_route != "snapshot":
+                raise AssertionError(f"control: reload route "
+                                     f"{new.restore_route}")
+            new.index.corpus.device_arrays()  # waits for the warm upload
+            torch.cuda.synchronize()
+            out["after_reload"] = memory.live_arrays_bytes()
+            # the replacement corpus is as large as the old one, so a
+            # leaked old corpus would add a whole corpus_bytes: half of it
+            # is the most the allocator's rounding may explain
+            if out["after_reload"] - out["before_reload"] >= \
+                    out["corpus_bytes"] // 2:
+                raise AssertionError(
+                    f"control: device memory {out['before_reload']} before "
+                    f"the reload, {out['after_reload']} after: the old "
+                    f"corpus ({out['corpus_bytes']} bytes) was not freed")
+            samples, _, _ = scrape(port)
+            if sum(family(samples, "duke_snapshot_fallbacks_total").values()) \
+                    != fallbacks:
+                raise AssertionError("control: the reload fell back to a "
+                                     "replay")
+            if feed(port, feed_path) != rows:
+                raise AssertionError("control: the feed changed across the "
+                                     "reload")
+            ck.reset_launch_counts()
+            post(port, path, queries)
+            torch.cuda.synchronize()
+            out["launches"] = ck.LAUNCHES["myers_tile"]
+            if out["launches"] <= 0:
+                raise AssertionError("control: Myers W=1 never launched on "
+                                     "the rebuilt corpus")
+            reloaded_rows = feed(port, feed_path)
+            # the feed again, now holding the query POST's links
+            out["feeds"].append(compare_feeds(port, feed_path,
+                                              reloaded_rows, line))
+            if not reloaded_rows:
+                raise AssertionError("control: no links after the query "
+                                     "POST")
+            post(port, "/deduplication/people2/crm", posts[0])
+
+            # 4. a malformed reload keeps the old config
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/config", data=b"<DukeMicroService>",
+                method="POST", headers={"Content-Type": "application/xml"})
+            try:
+                urllib.request.urlopen(req, timeout=60)
+                raise AssertionError("control: a malformed reload answered "
+                                     "2xx")
+            except urllib.error.HTTPError as e:
+                if e.code != 400:
+                    raise AssertionError(f"control: malformed reload {e.code}")
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/config",
+                                        timeout=60) as resp:
+                if resp.read().decode() != xml2:
+                    raise AssertionError("control: GET /config lost the "
+                                         "config after a failed reload")
+
+            # 5. the probes and a 413
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/readyz",
+                                        timeout=60) as resp:
+                ready = json.loads(resp.read())
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                        timeout=60) as resp:
+                health = json.loads(resp.read())
+            if (ready["status"] != "ready" or not ready["checks"][
+                    "device_backend"] or health["status"] != "ok"):
+                raise AssertionError(f"control: /readyz {ready}, /healthz "
+                                     f"{health}")
+            with mock.patch.dict(os.environ, {"MAX_REQUEST_BYTES": "1024"}):
+                answer = over_limit_post(port, path, 4096)
+            if not answer.startswith(b"HTTP/1.1 413"):
+                raise AssertionError(f"control: a 4 KiB POST over a 1 KiB "
+                                     f"limit answered {answer[:40]!r}")
+
+        # the control app: the same POSTs, never reloaded
+        control = DukeApp(parse_config(config_xml({"people": STRESS_SCHEMA})),
+                          device=DEVICE, persistent=False)
+        with serving(control) as port:
+            for body in posts:
+                post(port, path, body)
+            post(port, path, queries)
+            check_same_feed(reloaded_rows, feed(port, feed_path),
+                            "control: the query POST after the reload")
+    print(f"control: ingest {out['ingest_rps']} records/s ({CONTROL_RECORDS} "
+          f"records, durable); scrape {out['scrape_ms']} ms; feeds (links, "
+          f"bytes, HTTP/1.1 s at page {CONTROL_FEED_PAGE}, HTTP/1.0 s) "
+          f"{out['feeds']}; reload "
+          f"{out['reload_s']} s to the 302 (route snapshot, no fallback); "
+          f"device memory {out['before_reload']} bytes before the reload, "
+          f"{out['after_reload']} after (corpus_tensors "
+          f"{out['corpus_bytes']}); headroom {out['headroom']}; myers_tile "
+          f"launches {out['launches']} on the rebuilt corpus, links equal to "
+          f"the control app's; readyz ready, healthz ok, 413 [{line}]",
+          flush=True)
+
+
 # -- the kernel phase -------------------------------------------------------------
 
 
@@ -2540,6 +2907,7 @@ def main() -> int:
                    for shape in sorted(shapes3["retrieval_segmax"])}
     measure_segmax(SEGMAX_ODD, peak_flops, runs=3)
     phase_restart(line, device_rows, ann_rows)
+    phase_control(line)
 
     def one_word(s):
         return ck.kernel_words(s[2]) == 1

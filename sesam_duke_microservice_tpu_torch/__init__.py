@@ -7,3 +7,5 @@ pairwise Levenshtein kernels written by hand in CUDA for Hopper
 ``sesam_duke_microservice_tpu`` so each counterpart is easy to find; this
 package imports nothing from it.
 """
+
+__version__ = "0.1.0"

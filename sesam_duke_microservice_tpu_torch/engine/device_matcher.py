@@ -41,6 +41,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..core.config import DukeSchema
 from ..core.records import GROUP_NO_PROPERTY_NAME, Record, SchemaError
 from ..env import env_flag, env_int, env_int_tuple, env_str
@@ -55,12 +56,20 @@ from ..store.records import (
     record_digest,
     xor_fold,
 )
+from ..telemetry import PhaseRecorder, costs
 from ..utils import faults
 from ..utils.atomicio import replace_and_sync_dir
 from ..utils.profiling import trace_armed, trace_batch
 from .finalize import FinalizeExecutor
 from .listeners import MatchListener
-from .processor import Processor, ProfileStats
+from .processor import (
+    PHASE_ENCODE,
+    PHASE_PERSIST,
+    PHASE_RETRIEVE,
+    PHASE_SCORE,
+    Processor,
+    ProfileStats,
+)
 
 logger = logging.getLogger("device-matcher")
 
@@ -90,6 +99,16 @@ def bucket_for(n: int) -> int:
         if n <= b:
             return b
     return _QUERY_BUCKETS[-1]
+
+
+# Pre-resolved registry children: the padding ladder is a closed set, so
+# per-bucket children resolve once at import and the scoring path writes
+# plain single-writer child counters with no family-lock lookup per block.
+_BUCKET_CHILDREN = {
+    b: (telemetry.QUERY_BLOCKS.labels(bucket=str(b)),
+        telemetry.QUERY_PAD_ROWS.labels(bucket=str(b)))
+    for b in _QUERY_BUCKETS
+}
 
 
 def _to_device(arr: np.ndarray, device: torch.device,
@@ -191,6 +210,10 @@ class DeviceCorpus:
             cap *= 2
         if cap == self.capacity:
             return
+        if self.capacity > 0:
+            # a doubling of an existing corpus: the next device_arrays
+            # call re-uploads everything
+            telemetry.CORPUS_GROWTHS.inc()
         self.row_valid = _grow_1d(self.row_valid, cap, False)
         self.row_deleted = _grow_1d(self.row_deleted, cap, False)
         self.row_group = _grow_1d(self.row_group, cap, -1)
@@ -258,6 +281,7 @@ class DeviceCorpus:
 
     def _device_arrays_locked(self):
         if self._device_feats is None or self._dirty_full:
+            telemetry.CORPUS_FULL_UPLOADS.inc()
             self._device_feats = {
                 prop: {name: _to_device(arr, self.device, prop)
                        for name, arr in tensors.items()}
@@ -291,6 +315,35 @@ class DeviceCorpus:
                                           self.device)
         valid, deleted, group = self._device_masks
         return self._device_feats, valid, deleted, group
+
+    def device_bytes(self) -> Dict[str, int]:
+        """Bytes of the corpus tensors on the device, by the ledger's
+        components: ``corpus_tensors`` (the property features and the
+        valid / deleted / group row masks), and for ``ann`` the embedding
+        tree (``corpus_embeddings``, and ``int8_scales`` under int8
+        storage).  ``nbytes`` is a host read (no device sync); lock-free,
+        so a scrape racing an upload may read the previous tensors."""
+        feats, masks = self._device_feats, self._device_masks
+        out = {"corpus_tensors": 0, "corpus_embeddings": 0, "int8_scales": 0}
+        for prop, tensors in list((feats or {}).items()):
+            for name, t in list(tensors.items()):
+                if prop == E.ANN_PROP:
+                    out["int8_scales" if name == E.ANN_SCALE
+                        else "corpus_embeddings"] += t.nbytes
+                else:
+                    out["corpus_tensors"] += t.nbytes
+        for t in masks or ():
+            out["corpus_tensors"] += t.nbytes
+        return out
+
+    def release_device(self) -> None:
+        """Drop the device copy (a closed workload's corpus: a reload
+        builds the replacement's before the old one closes, so the old
+        tensors must go with it).  Waits for an in-flight warm upload."""
+        with self._upload_lock:
+            self._device_feats = None
+            self._device_masks = None
+            self._dirty_full = True
 
 
 class DeviceIndex(CandidateIndex):
@@ -361,8 +414,20 @@ class DeviceIndex(CandidateIndex):
     def find_record_by_id(self, record_id: str) -> Optional[Record]:
         return self.records.get(record_id)
 
+    @property
+    def live_records(self) -> int:
+        """Live (non-dukeDeleted) indexed records, O(1) and lock-free for
+        /stats and /metrics: every record id's latest row is valid, so
+        the corpus' live-row count is the live-record count."""
+        return self.corpus.live_rows
+
     def set_indexing_disabled(self, disabled: bool) -> None:
         self.indexing_disabled = disabled
+
+    def close(self) -> None:
+        """Free the corpus' device tensors and the built scorers."""
+        self.scorer_cache.clear()
+        self.corpus.release_device()
 
     def _extract(self, records: Sequence[Record], plan=None):
         return F.extract_batch(plan or self.plan, records)
@@ -579,11 +644,10 @@ class DeviceIndex(CandidateIndex):
         return format(crc & 0xFFFFFFFF, "08x")
 
     def _snapshot_reject(self, reason: str, detail: str) -> bool:
-        """A snapshot check failed: warn + count (``SNAPSHOT_FALLBACKS``)
-        and fall back to replay.  Never raises: a bad snapshot costs a
-        rebuild, not availability."""
-        with _SNAPSHOT_LOCK:
-            SNAPSHOT_FALLBACKS[reason] = SNAPSHOT_FALLBACKS.get(reason, 0) + 1
+        """A snapshot check failed: warn + count
+        (``duke_snapshot_fallbacks_total``) and fall back to replay.  Never
+        raises: a bad snapshot costs a rebuild, not availability."""
+        telemetry.SNAPSHOT_FALLBACKS.labels(reason=reason).inc()
         logger.warning(
             "corpus snapshot rejected (%s: %s); replaying from the "
             "record store", reason, detail,
@@ -683,7 +747,8 @@ class DeviceIndex(CandidateIndex):
         are exactly that record set.  ``content_hash`` is the store's
         incremental digest (an O(1) staleness check; without it the
         records are rehashed).  Every rejection is counted in
-        ``SNAPSHOT_FALLBACKS`` and returns False; nothing here raises.
+        ``duke_snapshot_fallbacks_total`` and returns False; nothing here
+        raises.
         """
         if self.corpus.size != 0 or not os.path.exists(path):
             return False
@@ -876,11 +941,6 @@ def _records_content_hash(records_by_id) -> str:
     return acc.hex()
 
 
-# Snapshot rejections by reason since process start (each one a replay)
-SNAPSHOT_FALLBACKS: Dict[str, int] = {}
-_SNAPSHOT_LOCK = threading.Lock()
-
-
 class _BlockResult:
     """Scored query block: per-query candidate rows above the survivor
     bound.  ``dd_ctx`` carries the query side the scorer used (for the dd
@@ -977,6 +1037,11 @@ def resolve_block(pending) -> _BlockResult:
         k = min(k * 2, pending.capacity)
         with _ESCALATIONS_LOCK:
             ESCALATIONS[pending.stage] += 1
+        # mirrored on /metrics; escalations are rare by construction (each
+        # doubles the width), so the registry writes are off the steady
+        # state
+        telemetry.SCORER_ESCALATIONS.inc()
+        telemetry.RETRIEVAL_ESCALATIONS.labels(stage=pending.stage).inc()
         logger.info("escalation: %d candidates at the bound, retrying with "
                     "width=%d", cmax, k)
         fetch = pending.call(k)
@@ -1025,6 +1090,12 @@ class _ScorerCache:
         index = self.index
         device = index.device
         bucket = bucket_for(len(records))
+        # padding-bucket visibility: which shapes blocks land on and how
+        # many padded rows they carry (unlocked single-writer children)
+        blocks_child, pad_child = _BUCKET_CHILDREN[bucket]
+        blocks_child.inc()
+        if bucket > len(records):
+            pad_child.inc(bucket - len(records))
         rows = [index.id_to_row.get(r.record_id, -1) for r in records]
         from_rows = all(row >= 0 for row in rows)
         if from_rows:
@@ -1127,6 +1198,9 @@ class DeviceProcessor:
         self.group_filtering = group_filtering
         self.listeners: List[MatchListener] = []
         self.stats = ProfileStats()
+        # single-writer per-batch phase durations (one thread scores a
+        # workload at a time); /metrics and /stats read them lock-free
+        self.phases = PhaseRecorder()
         self._host = Processor(schema)
         self._scorers = database.scorer_cache
         self.finalizer = FinalizeExecutor(threads)
@@ -1140,15 +1214,40 @@ class DeviceProcessor:
         return self._host.compare(r1, r2)
 
     def deduplicate(self, records: Sequence[Record]) -> None:
+        """One batch, with the JAX package's four phases observed on the
+        host clock at its sites: encode (listener batch_ready, index,
+        commit: extraction and the corpus append), retrieve and score (the
+        ``retrieval_seconds`` / ``compare_seconds`` this batch added in
+        ``_score_blocks``), persist (listener batch_done: the link
+        commit).  With the one-block lookahead, retrieve holds each
+        block's wait for its results, in which the next block's dispatch
+        runs and the card may still be scoring the block before; score
+        holds the dd rescore and the host finalization, which overlap the
+        next block on the card.  The four durations also go to the cost
+        ledger (``costs.note_busy``), so the per-phase counters sum to the
+        busy total."""
+        t0 = time.monotonic()
         for listener in self.listeners:
             listener.batch_ready(len(records))
         for record in records:
             self.database.index(record)
         self.database.commit()
+        encode_dt = time.monotonic() - t0
+        self.phases.observe(PHASE_ENCODE, encode_dt)
+        retrieval0 = self.stats.retrieval_seconds
+        compare0 = self.stats.compare_seconds
         self._score_blocks(records)
         self.stats.batches += 1
+        retrieve_dt = self.stats.retrieval_seconds - retrieval0
+        score_dt = self.stats.compare_seconds - compare0
+        self.phases.observe(PHASE_RETRIEVE, retrieve_dt)
+        self.phases.observe(PHASE_SCORE, score_dt)
+        t_persist = time.monotonic()
         for listener in self.listeners:
             listener.batch_done()
+        persist_dt = time.monotonic() - t_persist
+        self.phases.observe(PHASE_PERSIST, persist_dt)
+        costs.note_busy(encode_dt + retrieve_dt + score_dt + persist_dt)
 
     def _score_blocks(self, records: Sequence[Record]) -> None:
         """Double-buffered block dispatch: block N+1's program is queued

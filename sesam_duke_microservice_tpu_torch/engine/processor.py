@@ -1,7 +1,8 @@
 """The matching engine: the host reference implementation.
 
-Counterpart of the JAX package's ``engine/processor.py`` without its
-telemetry (phase recorder, cost ledger, trace spans, decision monitors).
+Counterpart of the JAX package's ``engine/processor.py`` with its phase
+recorder and cost-ledger writes (its trace spans and decision monitors
+wait for the port's tracer and decision recorder).
 It reproduces the Duke 1.2 ``Processor.deduplicate(List<Record>)``
 contract the reference drives for both workloads (App.java:1005,
 App.java:1159):
@@ -38,7 +39,23 @@ from ..core.bayes import combine_probabilities
 from ..core.config import DukeSchema
 from ..core.records import Record
 from ..index.base import CandidateIndex
+from ..telemetry import PhaseRecorder, costs
 from .listeners import MatchListener
+
+# Per-batch engine phases recorded into each processor's PhaseRecorder
+# (surfaced as the duke_engine_phase_seconds histogram and the /stats
+# phase_seconds map):
+#   encode   — record indexing + index commit (feature extraction and
+#              the device corpus append live inside commit on the device
+#              backends)
+#   retrieve — candidate retrieval (host index walk / device scoring
+#              program wait)
+#   score    — pair scoring + host finalization of survivors
+#   persist  — listener batch_done work (link-database flush)
+PHASE_ENCODE = "encode"
+PHASE_RETRIEVE = "retrieve"
+PHASE_SCORE = "score"
+PHASE_PERSIST = "persist"
 
 
 @dataclass
@@ -91,6 +108,10 @@ class Processor:
         self.threads = max(1, threads)
         self.listeners: List[MatchListener] = []
         self.stats = ProfileStats()
+        # single-writer (one thread runs a workload's batches at a time):
+        # plain attribute math, no locks on the scoring path; /metrics and
+        # /stats read it lock-free like the ProfileStats counters
+        self.phases = PhaseRecorder()
         self._listener_lock = threading.Lock()
 
     def add_match_listener(self, listener: MatchListener) -> None:
@@ -120,9 +141,13 @@ class Processor:
     def deduplicate(self, records: Sequence[Record]) -> None:
         for listener in self.listeners:
             listener.batch_ready(len(records))
+        t0 = time.monotonic()
         for record in records:
             self.database.index(record)
         self.database.commit()
+        t1 = time.monotonic()
+        retrieval0 = self.stats.retrieval_seconds
+        compare0 = self.stats.compare_seconds
         if self.threads == 1:
             for record in records:
                 self._match_record(record)
@@ -130,8 +155,21 @@ class Processor:
             with ThreadPoolExecutor(max_workers=self.threads) as pool:
                 list(pool.map(self._match_record, records))
         self.stats.batches += 1
+        t2 = time.monotonic()
         for listener in self.listeners:
             listener.batch_done()
+        # per-batch phase observations (per-record splits accumulated in
+        # ProfileStats above; the histogram granule is the batch)
+        retrieve_dt = self.stats.retrieval_seconds - retrieval0
+        score_dt = self.stats.compare_seconds - compare0
+        persist_dt = time.monotonic() - t2
+        self.phases.observe(PHASE_ENCODE, t1 - t0)
+        self.phases.observe(PHASE_RETRIEVE, retrieve_dt)
+        self.phases.observe(PHASE_SCORE, score_dt)
+        self.phases.observe(PHASE_PERSIST, persist_dt)
+        # the same four durations feed the process-wide busy ledger, so
+        # per-workload phase counters reconcile against it by definition
+        costs.note_busy((t1 - t0) + retrieve_dt + score_dt + persist_dt)
 
     def _match_record(self, record: Record) -> None:
         t0 = time.monotonic()

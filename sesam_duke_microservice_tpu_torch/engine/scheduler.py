@@ -1,8 +1,10 @@
 """Continuous cross-request microbatching scheduler.
 
-A copy of the JAX package's ``engine/scheduler.py`` without its telemetry
-(trace spans, the SLO tracker and feed meter, the /metrics families):
-same knobs, same defaults, same dispatch order.
+A copy of the JAX package's ``engine/scheduler.py`` without its trace
+spans: same knobs, same defaults, same dispatch order, and the same
+telemetry (the ingest SLO tracker and feed-lag meter per microbatch, the
+single-writer queue counters and histograms the /metrics ``duke_sched_*``
+families and ``duke_tenant_throttled_total`` read).
 
 The inference-serving "continuous batching" pattern (Orca, OSDI '22; vLLM,
 SOSP '23) applied to record matching: instead of each HTTP POST walking the
@@ -35,8 +37,8 @@ engine and a single dispatcher thread:
   * **enforces per-tenant quotas**: ``DUKE_TENANT_WEIGHT`` scales each
     tenant's per-round quantum (``kind/name=2,name=0.5`` comma map) and
     ``DUKE_TENANT_MIN_SHARE`` is the starvation-proof floor every tenant
-    earns regardless of weight.  Deficit-starved rounds count into the
-    queue's ``throttled`` counter, and a down-weighted tenant's 429
+    earns regardless of weight.  Deficit-starved rounds count into
+    ``duke_tenant_throttled_total``, and a down-weighted tenant's 429
     Retry-After scales by its weight so its clients back off at the rate
     it actually drains.
 
@@ -66,6 +68,8 @@ from bisect import bisect_left
 from typing import Callable, Deque, Dict, List, Optional, Sequence, Tuple
 
 from ..env import env_flag, env_float, env_int, env_str
+from ..telemetry import slo
+from ..telemetry.registry import histogram_snapshot
 
 logger = logging.getLogger("ingest-scheduler")
 
@@ -173,8 +177,9 @@ class DatasetGone(Exception):
 
 class _MonitorHist:
     """Single-writer histogram state (a copy of the JAX package's
-    ``telemetry.decisions._MonitorHist`` without its Prometheus
-    rendering): plain attribute math on the dispatcher thread."""
+    ``telemetry.decisions._MonitorHist``): plain attribute math on the
+    dispatcher thread, ``samples()`` renders the Prometheus shape at
+    scrape time."""
 
     __slots__ = ("bounds", "counts", "total", "count")
 
@@ -188,6 +193,11 @@ class _MonitorHist:
         self.counts[bisect_left(self.bounds, value)] += 1
         self.total += value
         self.count += 1
+
+    def samples(self, labels: Tuple[Tuple[str, str], ...]):
+        return histogram_snapshot(
+            self.bounds, list(self.counts), self.total, self.count, labels
+        )
 
 
 class _SchedRequest:
@@ -213,6 +223,9 @@ class _SchedRequest:
 # wait-time buckets: sub-window waits up to reload-stall territory
 _WAIT_BOUNDS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
                 1.0, 2.5, 5.0, 10.0, 30.0)
+# microbatch fill in records: the ladder region the coalescer targets
+_FILL_BOUNDS = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0, 256.0, 512.0,
+                1024.0, 2048.0, 4096.0)
 
 
 class _TenantQueue:
@@ -224,7 +237,8 @@ class _TenantQueue:
 
     __slots__ = ("kind", "name", "weight", "pending", "queued", "deficit",
                  "admitted", "rejected", "throttled", "microbatches",
-                 "merged_requests", "dispatched_records", "wait_hist")
+                 "merged_requests", "dispatched_records", "wait_hist",
+                 "fill_hist")
 
     def __init__(self, kind: str, name: str, weight: float = 1.0):
         self.kind = kind
@@ -239,8 +253,8 @@ class _TenantQueue:
         self.throttled = 0  # guarded by: self._cv [writes]
         self.pending: Deque[_SchedRequest] = deque()  # guarded by: self._cv [writes]
         # record count mirror of ``pending``, maintained under the
-        # scheduler condition — stats_snapshot reads it (and
-        # len(pending)) lock-free, so it must never ITERATE the deque
+        # scheduler condition — /metrics and /stats read it (and
+        # len(pending)) lock-free, so they must never ITERATE the deque
         # (a concurrent append would raise "deque mutated during
         # iteration" and 500 the scrape)
         self.queued = 0  # guarded by: self._cv [writes]
@@ -251,6 +265,7 @@ class _TenantQueue:
         self.merged_requests = 0  # single-writer: dispatcher thread
         self.dispatched_records = 0  # single-writer: dispatcher thread
         self.wait_hist = _MonitorHist(_WAIT_BOUNDS)
+        self.fill_hist = _MonitorHist(_FILL_BOUNDS)
 
     def queued_records(self) -> int:
         return self.queued
@@ -502,7 +517,7 @@ class IngestScheduler:
                     break
                 if not batch and head.records > q.deficit:
                     # earns more deficit next round; the counter is the
-                    # quota-throttle signal
+                    # quota-throttle signal (duke_tenant_throttled_total)
                     q.throttled += 1
                     return None, None
                 q.pending.popleft()
@@ -588,9 +603,20 @@ class IngestScheduler:
                     wl.note_lock_hold(hold)
                 finally:
                     wl.lock.release()
+                # always-on SLO signal: per-request ingest latency from
+                # SCHEDULER ARRIVAL to microbatch completion -- the
+                # queueing delay included -- folded under ONE leaf tracker
+                # lock per microbatch, taken with no other lock held; the
+                # feed-lag meter marks the rows this batch may have minted
+                # (plain attribute write).
+                done = time.monotonic()
+                slo.tracker("ingest", q.kind, q.name).record_batch(
+                    [done - req.enqueued for req in batch], done)
+                slo.feed_meter(q.kind, q.name).note_write()
                 q.microbatches += 1
                 q.merged_requests += len(batch)
                 q.dispatched_records += total
+                q.fill_hist.observe(float(total))
                 # once per microbatch, and admission reads the estimator
                 # under _cv — fold under the same lock so a Retry-After
                 # computed mid-fold can never mix old/new EWMA state
@@ -610,12 +636,12 @@ class IngestScheduler:
     # -- observability ------------------------------------------------------
 
     def queues(self) -> List[_TenantQueue]:
-        """Stable snapshot of the tenant queues."""
+        """Stable snapshot of the tenant queues for scrape-time walkers."""
         with self._cv:
             return list(self._queues.values())
 
     def stats_snapshot(self) -> dict:
-        """The JAX package's /stats scheduler block."""
+        """The /stats scheduler block."""
         out = {
             "window_ms": round(self.window_seconds * 1000.0, 3),
             "queue_max": self.queue_max,

@@ -34,22 +34,21 @@ import logging
 import os
 import threading
 import time
+import weakref
 from typing import Dict, List, Optional, Sequence
 
 import torch
 
 from ..core.config import ServiceConfig, WorkloadConfig
-from ..core.records import (
-    DATASET_ID_PROPERTY_NAME,
-    ORIGINAL_ENTITY_ID_PROPERTY_NAME,
-    Record,
-)
+from ..core.records import Record
 from ..index.base import CandidateIndex
 from ..index.inverted import InvertedIndex
 from ..links import create_link_database
-from ..links.base import LinkDatabase, LinkStatus
+from ..links.base import LinkDatabase
+from ..links.replica import links_feed_page
 from ..service.datasource import IncrementalDataSource
 from ..store.records import LazyRecordMap, RecordStore, SqliteRecordStore
+from ..telemetry import memory
 from ..utils import faults
 from .device_matcher import DeviceIndex, DeviceProcessor
 from .listeners import ServiceMatchListener
@@ -74,6 +73,21 @@ logger = logging.getLogger("workload")
 
 def _snapshot_path(data_folder: str) -> str:
     return os.path.join(data_folder, "corpus_snapshot.npz")
+
+
+def _hbm_components(wl_ref) -> Dict[str, int]:
+    """Device-buffer bytes for one workload, keyed by component -- the
+    device-byte ledger's registered callable.  Reads the ``nbytes`` of
+    the corpus' device tensors (``DeviceCorpus.device_bytes``, a host
+    read: no device sync) lock-free; the host backend (no device corpus)
+    and a corpus not yet copied to the device report nothing."""
+    wl = wl_ref()
+    if wl is None:
+        return {}
+    corpus = getattr(wl.index, "corpus", None)
+    if corpus is None:
+        return {}
+    return corpus.device_bytes()
 
 
 class _BatchRequest:
@@ -127,6 +141,14 @@ class Workload:
             ds.dataset_id: IncrementalDataSource(ds)
             for ds in config.duke.data_sources
         }
+        # device-byte ledger enrollment (telemetry/memory.py): the
+        # components callable holds this workload weakly, so a replaced
+        # workload drops out of the books with its last reference and the
+        # closed flag hides it meanwhile
+        wl_ref = weakref.ref(self)
+        memory.register(self, self.kind, self.name,
+                        lambda: _hbm_components(wl_ref))
+        memory.note_device(getattr(index, "device", None))
 
     # -- lock-hold observations ---------------------------------------------
 
@@ -360,33 +382,31 @@ class Workload:
 
     # -- incremental feed (call with self.lock held) ------------------------
 
-    def _link_row(self, link) -> dict:
-        """One feed row (wire format per App.java:744-770)."""
-        r1 = self.index.find_record_by_id(link.id1)
-        r2 = self.index.find_record_by_id(link.id2)
-        return {
-            "_id": f"{link.id1}_{link.id2}".replace(":", "_"),
-            "_updated": link.timestamp,
-            "_deleted": link.status == LinkStatus.RETRACTED,
-            "entity1": (r1.get_value(ORIGINAL_ENTITY_ID_PROPERTY_NAME)
-                        if r1 else None),
-            "entity2": (r2.get_value(ORIGINAL_ENTITY_ID_PROPERTY_NAME)
-                        if r2 else None),
-            "dataset1": r1.get_value(DATASET_ID_PROPERTY_NAME) if r1 else None,
-            "dataset2": r2.get_value(DATASET_ID_PROPERTY_NAME) if r2 else None,
-            "confidence": link.confidence,
-        }
-
     def links_since(self, since: int = 0) -> List[dict]:
-        """The materialized feed: every link changed after ``since``, in
-        (timestamp, id1, id2) order."""
-        links = self.link_database.get_changes_since(since)
-        records = getattr(self.index, "records", None)
-        if isinstance(records, LazyRecordMap):
-            # resolve the endpoints in batched store reads, not one
-            # SELECT per link end
-            records.prefetch([rid for l in links for rid in (l.id1, l.id2)])
-        return [self._link_row(l) for l in links]
+        """The full materialized feed, every link changed after ``since``
+        in (timestamp, id1, id2) order (the HTTP layer streams via
+        ``links_page``; this serves the HTTP/1.0 path and tests).
+        Internally paged, so a lazy record mirror resolves endpoints in
+        bounded batched prefetches instead of one SELECT per link end."""
+        rows: List[dict] = []
+        cursor = since
+        while True:
+            page, cursor = self.links_page(cursor, 5000)
+            if not page:
+                return rows
+            rows.extend(page)
+
+    def links_page(self, since: int, limit: int):
+        """One bounded feed page: (rows, next_cursor).
+
+        The HTTP layer streams a large ``?since=`` poll as a sequence of
+        these pages, re-taking the workload lock per page, so a long
+        backlog never holds the lock for the whole response (the
+        reference holds it across the entire row loop, App.java:827-874).
+        ``next_cursor`` is the last row's timestamp (strictly-greater-than
+        feed semantics; the link databases extend a page over timestamp
+        ties); an empty ``rows`` means the feed is drained."""
+        return links_feed_page(self.link_database, self.index, since, limit)
 
     def save_corpus_snapshot(self) -> None:
         """Persist the corpus snapshot (call with ``self.lock`` held; a

@@ -52,6 +52,7 @@ import threading
 import zlib
 from typing import List, Optional, Sequence, Tuple
 
+from .. import telemetry
 from ..env import env_str
 from ..utils import faults
 
@@ -283,6 +284,7 @@ class LinkJournal:
             torn, good = tear.reason, tear.good
         if torn is not None:
             self.torn_tails += 1
+            telemetry.JOURNAL_TORN_TAILS.inc()
             logger.warning(
                 "truncating torn journal tail in %s at byte %d (%s; %d "
                 "byte(s) dropped) -- everything before the tear is intact",

@@ -42,6 +42,7 @@ import time
 from collections import deque
 from typing import Callable, List, Optional, Sequence, Tuple
 
+from .. import telemetry
 from ..env import env_int
 from ..utils import faults
 from ..utils.backoff import full_jitter_delay
@@ -344,15 +345,23 @@ class WriteBehindLinkDatabase(LinkDatabase):
         # every batch at or below it -- a 10k-batch backlog replays in a
         # few dozen transactions instead of 10k commits
         chunk_size = 256
+        # progress gauges: while /readyz still says `recovering`,
+        # remaining counts down per chunk so an operator can tell "almost
+        # done" from "wedged".  inc/dec (not set) so concurrent
+        # per-workload overlapped recoveries sum correctly.
+        telemetry.RECOVERY_REPLAY_REMAINING.inc(len(batches))
         for start in range(0, len(batches), chunk_size):
             chunk = batches[start:start + chunk_size]
             self.inner.assert_links(
                 [decode_link(r) for _, rows in chunk for r in rows])
             self.inner.commit()
             self.journal.mark_applied(chunk[-1][0])
+            telemetry.RECOVERY_REPLAY_APPLIED.inc(len(chunk))
+            telemetry.RECOVERY_REPLAY_REMAINING.dec(len(chunk))
         self.journal.compact()
         if batches:
             self.replayed += len(batches)
+            telemetry.RECOVERY_REPLAYED.inc(len(batches))
             logger.warning(
                 "recovered %d journaled link batch(es) the previous "
                 "process never applied (crash between ack and flush)",

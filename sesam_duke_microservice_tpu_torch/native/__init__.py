@@ -23,12 +23,14 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..env import env_flag
+from ..telemetry import costs
 
 _SRC = Path(__file__).resolve().parent / "duke_native.cpp"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -50,10 +52,13 @@ def library_path() -> Path:
 def build_library() -> Path:
     """Compile ``duke_native.cpp`` once per content of the source and
     return the library's path.  Safe against concurrent builds: it
-    compiles to a private name and renames into place."""
+    compiles to a private name and renames into place.  A build's wall
+    time goes to the cost ledger as compile time
+    (``costs.note_compile``)."""
     target = library_path()
     if target.exists():
         return target
+    t0 = time.monotonic()
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
     cmd = [_CXX, *_CXX_FLAGS, "-o", str(tmp), str(_SRC)]
@@ -74,6 +79,7 @@ def build_library() -> Path:
             f"{proc.returncode}):\n{proc.stderr.strip()}\n"
             "set DUKE_TPU_NATIVE=0 to run the Python paths")
     os.replace(tmp, target)
+    costs.note_compile(time.monotonic() - t0)
     return target
 
 

@@ -39,10 +39,12 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import torch
 
+from ..telemetry import costs
 from . import pairwise as pw
 from .pairwise import MASK32, levenshtein_sim_from_distance
 
@@ -118,7 +120,8 @@ def build_library() -> dict:
     the headers ``csrc/*.cuh``) and return ``{source stem: shared library
     path}``.  One ``nvcc`` per source, all running at once.  Safe against
     concurrent builds: each compiles to a private name and renames into
-    place."""
+    place.  A build's wall time goes to the cost ledger as compile time
+    (``costs.note_compile``: the port's counterpart of an XLA compile)."""
     sources = sorted(_CSRC.glob("*.cu"))
     digest = hashlib.sha256()
     for src in sources + sorted(_CSRC.glob("*.cuh")):
@@ -129,6 +132,7 @@ def build_library() -> dict:
                for src in sources}
     todo = [src for src in sources if not targets[src.stem].exists()]
     if todo:
+        t0 = time.monotonic()
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         procs = []
         for src in todo:
@@ -147,6 +151,7 @@ def build_library() -> dict:
                 os.replace(tmp, target)
         if failed:
             raise RuntimeError("nvcc failed building " + "\n".join(failed))
+        costs.note_compile(time.monotonic() - t0)
     return targets
 
 

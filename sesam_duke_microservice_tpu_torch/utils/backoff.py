@@ -1,7 +1,8 @@
 """Capped exponential backoff with full jitter (a copy of the JAX
 package's ``utils/backoff.py``): the write-behind flusher's retry ladder
-draws its delays here.  Full jitter (uniform(0, ceiling)) decorrelates
-retriers contending for the same resource."""
+and the feed handler's mid-stream lock retries draw their delays here.
+Full jitter (uniform(0, ceiling)) decorrelates retriers contending for
+the same resource."""
 
 from __future__ import annotations
 

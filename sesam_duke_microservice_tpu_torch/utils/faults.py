@@ -28,6 +28,7 @@ import sys
 import threading
 from typing import Dict, Optional, Tuple
 
+from .. import telemetry
 from ..env import env_str
 
 
@@ -64,6 +65,7 @@ class FaultPlan:
 
     def crash_now(self, site: str) -> None:
         """Die the way a real crash dies: SIGKILL to self."""
+        telemetry.FAULTS_INJECTED.labels(kind="crash_at").inc()
         print(f"duke-faults: injected crash at {site}", file=sys.stderr,
               flush=True)
         os.kill(os.getpid(), signal.SIGKILL)

@@ -47,6 +47,10 @@ def test_importing_the_port_loads_no_jax():
         "import sesam_duke_microservice_tpu_torch.links.sqlite\n"
         "import sesam_duke_microservice_tpu_torch.links.journal\n"
         "import sesam_duke_microservice_tpu_torch.links.write_behind\n"
+        "import sesam_duke_microservice_tpu_torch.links.replica\n"
+        "import sesam_duke_microservice_tpu_torch.service.metrics\n"
+        "import sesam_duke_microservice_tpu_torch.service.homepage\n"
+        "import sesam_duke_microservice_tpu_torch.telemetry.logctx\n"
         "print(json.dumps(sorted(set(sys.modules) - before)))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -60,6 +64,12 @@ def test_importing_the_port_loads_no_jax():
     for mod in ("store.records", "links.write_behind", "links.journal",
                 "utils.faults", "utils.atomicio", "utils.backoff",
                 "engine.scheduler", "engine.processor", "index.inverted"):
+        assert f"sesam_duke_microservice_tpu_torch.{mod}" in loaded
+    # the control and read surface: the telemetry modules load with the
+    # app, the feed materialization with the workload
+    for mod in ("telemetry", "telemetry.registry", "telemetry.costs",
+                "telemetry.slo", "telemetry.memory", "telemetry.logctx",
+                "links.replica", "service.metrics", "service.homepage"):
         assert f"sesam_duke_microservice_tpu_torch.{mod}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -136,7 +146,12 @@ def test_no_source_file_imports_jax_or_the_jax_package():
     assert len(files) > 15
     for mod in ("store/records.py", "links/journal.py",
                 "links/write_behind.py", "links/sqlite.py", "utils/faults.py",
-                "utils/sqlite.py", "utils/atomicio.py", "utils/backoff.py"):
+                "utils/sqlite.py", "utils/atomicio.py", "utils/backoff.py",
+                "telemetry/__init__.py", "telemetry/registry.py",
+                "telemetry/costs.py", "telemetry/slo.py",
+                "telemetry/memory.py", "telemetry/logctx.py",
+                "links/replica.py", "service/metrics.py",
+                "service/homepage.py"):
         assert PORT / mod in files
     bad = [(str(f.relative_to(REPO)), m) for f in files
            for m in _imports(f) if _forbidden(m)]

@@ -53,6 +53,7 @@ from sesam_duke_microservice_tpu.store.records import (
 from sesam_duke_microservice_tpu.store.records import (
     SqliteRecordStore as JStore,
 )
+from sesam_duke_microservice_tpu_torch import telemetry as tport_telemetry
 from sesam_duke_microservice_tpu_torch.core.config import (
     parse_config as tparse,
 )
@@ -159,6 +160,13 @@ def _fixed_clocks_and_knobs(monkeypatch):
     monkeypatch.setenv("DEVICE_ANN_FUSED", "0")
     monkeypatch.setattr(JE, "_native_embed", lambda: None)
     monkeypatch.setattr(TH, "_native_embed", lambda: None)
+
+
+def _fallbacks():
+    """The port's snapshot rejections by reason since process start
+    (``duke_snapshot_fallbacks_total``)."""
+    return {dict(labels)["reason"]: value for _, labels, value
+            in tport_telemetry.SNAPSHOT_FALLBACKS.collect().samples}
 
 
 def _jax_app(folder, backend):
@@ -318,10 +326,10 @@ def test_restart_and_cross_open_match_jax(backend, int8, tmp_path,
     # the replay route: no snapshot
     for d in (jdir, tdir):
         os.remove(os.path.join(_folder(d), "corpus_snapshot.npz"))
-    before = dict(tdm.SNAPSHOT_FALLBACKS)
+    before = _fallbacks()
     apps = (_jax_app(jdir, backend), _port_app(tdir, backend))
     assert [_route(app) for app in apps] == ["replay", "replay"]
-    assert tdm.SNAPSHOT_FALLBACKS == before  # no snapshot, no rejection
+    assert _fallbacks() == before  # no snapshot, no rejection
     with _served(*apps) as ports:
         assert _feed(ports[0]) == _feed(ports[1]) == feed
         _next_post_events(apps, ports, _entities(6, 14, "d"))
@@ -347,12 +355,12 @@ def test_demoted_property_restores_from_snapshot(tmp_path):
     assert list(meta["__value_slots"]) == [1, 4]
     xt = str(tmp_path / "jax-by-port")
     shutil.copytree(jdir, xt)
-    before = sum(tdm.SNAPSHOT_FALLBACKS.values())
+    before = sum(_fallbacks().values())
     apps = (_jax_app(jdir, "device"), _port_app(tdir, "device"),
             _port_app(xt, "device"))
     assert [_route(app) for app in apps] == ["replay", "snapshot",
                                              "snapshot"]
-    assert sum(tdm.SNAPSHOT_FALLBACKS.values()) == before
+    assert sum(_fallbacks().values()) == before
     for app in apps[1:]:
         plan = app.deduplications["people"].index.plan
         assert [s.name for s in plan.device_props] == ["NAME", "SSN"]
@@ -399,7 +407,7 @@ def test_tombstones_and_a_stale_snapshot(tmp_path):
         rec.add_value("NAME", "changed behind the snapshot")
         store.put(rec)
         store.close()
-    before = tdm.SNAPSHOT_FALLBACKS.get("content", 0)
+    before = _fallbacks().get("content", 0)
     for app in (_jax_app(dirs["jax"], "device"),
                 _port_app(dirs["port"], "device")):
         assert _route(app) == "replay"
@@ -407,7 +415,7 @@ def test_tombstones_and_a_stale_snapshot(tmp_path):
         assert rec.get_values("NAME") == ["ola nordmann",
                                           "changed behind the snapshot"]
         app.close()
-    assert tdm.SNAPSHOT_FALLBACKS["content"] == before + 1
+    assert _fallbacks()["content"] == before + 1
 
 
 def test_snapshot_rejections_replay_and_never_raise(tmp_path, monkeypatch):
@@ -460,11 +468,11 @@ def test_snapshot_rejections_replay_and_never_raise(tmp_path, monkeypatch):
         data = damaged(kind)
         with open(snap, "wb") as f:
             f.write(data)
-        before = tdm.SNAPSHOT_FALLBACKS.get(kind, 0)
+        before = _fallbacks().get(kind, 0)
         app = _port_app(d, "device")
         wl = app.deduplications["people"]
         assert wl.restore_route == "replay", kind
-        assert tdm.SNAPSHOT_FALLBACKS[kind] == before + 1, kind
+        assert _fallbacks()[kind] == before + 1, kind
         with wl.lock:
             assert wl.links_since(0) == feed, kind
         app.close()
@@ -573,11 +581,11 @@ def test_store_ahead_of_the_index_forces_a_replay(tmp_path, monkeypatch):
         wl.process_batch("crm", _entities(6, 42, "b"))
     assert wl._store_dirty
     app.close()
-    before = tdm.SNAPSHOT_FALLBACKS.get("content", 0)
+    before = _fallbacks().get("content", 0)
     app = _port_app(d, "device")
     wl = app.deduplications["people"]
     assert wl.restore_route == "replay"
-    assert tdm.SNAPSHOT_FALLBACKS["content"] == before + 1
+    assert _fallbacks()["content"] == before + 1
     assert wl.index.find_record_by_id("crm__a0").get_value(
         "NAME") == "ola nordmann"
     assert not wl._store_dirty
