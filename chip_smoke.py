@@ -115,6 +115,33 @@ Phases, each fatal on failure:
    to the new workload; a malformed reload (400, ``GET /config``
    unchanged); ``/readyz`` ready, ``/healthz`` ok and a 413 at a 1 KiB
    ``MAX_REQUEST_BYTES``; then the ``control`` line;
+8a. the debug phase: slice 1's first 65,536 records in 2,048-record
+   POSTs (and, second, one POST of copies of the first's records) into
+   four fresh apps, ``DUKE_STREAM_APPEND`` on (the default), at 0, at 0
+   and on: ``duke_stream_append_slices_total`` must rise by 4 a POST
+   (0 on the cold first POST and on the POSTs whose pre-grow doubles the
+   capacity, none at 0), the two feeds byte-identical (link clocks are
+   counters), every corpus tensor on the card equal to its twin and to
+   the host mirror, Myers W=1 launched on a closing query POST, records/s
+   on and off printed; the second POST carries a sampled
+   ``traceparent``: its ``/debug/traces/<id>`` must hold the request
+   root, ``sched.*``, ``encode`` with ``encode.stream_append``,
+   ``retrieve``, ``score``, ``persist`` and ``links:assert_batch``, its
+   Chrome export must parse, its reply carry ``X-Trace-Id``, and
+   ``/debug/requests`` the unsampled POSTs; the slowest request the tail
+   latch kept over the whole script, and the three slowest of the
+   concurrent-ingest phase's POSTs, are printed span by span; ``POST
+   /debug/profile?seconds=6`` around a query POST another thread sends
+   (a second capture must answer 409) must hold Myers W=1 among its
+   kernels (its kernels and ``record_function`` ranges are printed);
+   then ``POST /explain`` on the mixed schema at 4,096 records of the
+   feed's first linked pair and of an unlinked one: ``sigmoid`` of the
+   host contributions equal to the explain's probability and the feed's
+   confidence bit for bit, the per-property device logits within
+   ``certified_f32_margin`` of the same call on CPU copies, the band
+   verdict and ``decided_path`` printed with the one-pair launches;
+   ``/debug/decisions`` and ``/stats`` ``decisions`` not empty; the same
+   for one ``ann`` pair (capacity 524,288), its retrieval route printed;
 9. print the per-kernel JSON line, the card's name and power limit, and
    the result line ``{"ok": true, "device": {...}}`` last.
 
@@ -2409,6 +2436,417 @@ def phase_control(line):
           flush=True)
 
 
+# -- the debug phase: the streamed append, tracing, a capture, explain --------------
+
+DEBUG_RECORDS = 65536
+EXPLAIN_RECORDS = 4096
+
+
+def slices_total():
+    from sesam_duke_microservice_tpu_torch import telemetry
+
+    return telemetry.STREAM_APPEND_SLICES.single().value
+
+
+def get_json(port, path):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=120) as resp:
+        return resp.status, dict(resp.headers), json.loads(resp.read())
+
+
+def post_json(port, path, payload, headers=None):
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(payload).encode(),
+        method="POST", headers=dict({"Content-Type": "application/json"},
+                                    **(headers or {})))
+    try:
+        with urllib.request.urlopen(req, timeout=900) as resp:
+            return resp.status, dict(resp.headers), json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def raw_since(port, path):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}?since=0",
+                                timeout=900) as resp:
+        return resp.read()
+
+
+def streamed_ingest(app, port, posts, queries, traced, line):
+    """POST ``posts`` (the POST at index 1 with a sampled ``traceparent``)
+    and the closing query POST; the link clock is a counter, so two apps
+    on the same traffic write the same feed bytes.  Returns the numbers,
+    the feed bytes and the traced POST's reply headers."""
+    from sesam_duke_microservice_tpu_torch.links import base as linkbase
+    from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
+
+    path = "/deduplication/people/crm"
+    corpus = app.deduplications["people"].index.corpus
+    slices, growths, headers = [], [], None
+    ticks = iter(range(1_700_000_000_000, 1_800_000_000_000))
+    with mock.patch.object(linkbase, "now_millis", lambda: next(ticks)):
+        t0 = time.perf_counter()
+        for i, body in enumerate(posts):
+            s0, cap0 = slices_total(), corpus.capacity
+            if i == 1:
+                status, headers, _ = post_json(
+                    port, path, body, {"traceparent": traced})
+                if status != 200:
+                    raise AssertionError(f"debug: traced POST {status}")
+            else:
+                post(port, path, body)
+            slices.append(int(slices_total() - s0))
+            growths.append(corpus.capacity != cap0)
+        rps = sum(map(len, posts)) / (time.perf_counter() - t0)
+        ck.reset_launch_counts()
+        post(port, path, queries)
+        import torch
+
+        torch.cuda.synchronize()
+        myers = ck.LAUNCHES["myers_tile"]
+    if myers <= 0:
+        raise AssertionError("debug: Myers W=1 never launched on the "
+                             "closing query POST")
+    return dict(rps=rps, slices=slices, growths=growths, myers=myers,
+                feed=raw_since(port, "/deduplication/people")), headers
+
+
+def capture_around_post(port, path, body, line):
+    """``POST /debug/profile?seconds=N`` around a query POST sent by
+    another thread: the capture's kernels and ``record_function`` ranges.
+    Returns (kernel names and counts, range names, the POST's wall)."""
+    seconds = 6
+    status, _, info = post_json(port, f"/debug/profile?seconds={seconds}",
+                                {})
+    if status != 200 or info["capturing"] is None:
+        raise AssertionError(f"debug: POST /debug/profile {status} {info}")
+    status, _, again = post_json(port, "/debug/profile?seconds=1", {})
+    if status != 409:
+        raise AssertionError(f"debug: a second capture answered {status}")
+    wall = []
+    sender = threading.Thread(target=lambda: wall.append(post(port, path,
+                                                              body)))
+    sender.start()
+    sender.join()
+    deadline = time.monotonic() + seconds + 30
+    while get_json(port, "/debug/profile")[2]["capturing"] is not None:
+        if time.monotonic() > deadline:
+            raise AssertionError("debug: the capture never stopped")
+        time.sleep(0.2)
+    files = sorted(Path(info["capturing"]["dir"]).glob("capture-*.json"))
+    if len(files) != 1:
+        raise AssertionError(f"debug: the capture wrote {len(files)} files")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    kernels, ranges = {}, {}
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        bucket = (kernels if e.get("cat") == "kernel" else ranges
+                  if e.get("cat") == "user_annotation" else None)
+        if bucket is not None:
+            name = e["name"][:60]
+            bucket[name] = bucket.get(name, 0) + 1
+    return kernels, ranges, wall[0]
+
+
+def explain_pair_on_card(port, app, workload, id1, id2, line):
+    """``POST /explain`` of one pair, with the launches it made; the same
+    device breakdown on CPU copies of the pair's tensors (the plain
+    versions) within ``certified_f32_margin``.  Returns (the reply, the
+    launches, the CPU breakdown, the margin)."""
+    import torch
+
+    from sesam_duke_microservice_tpu_torch.engine import explain as X
+    from sesam_duke_microservice_tpu_torch.ops import bounds as B
+    from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
+
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    status, _, out = post_json(port, "/explain", {
+        "name": workload, "id1": id1, "id2": id2})
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in ck.LAUNCHES.items() if v}
+    if status != 200:
+        raise AssertionError(f"debug: POST /explain {status} {out}")
+    index = app.deduplications[workload].index
+    cpu_index = types.SimpleNamespace(
+        plan=index.plan, schema=index.schema, _extract=index._extract,
+        device=torch.device("cpu"))
+    r1, r2 = (index.find_record_by_id(i) for i in (id1, id2))
+    cpu = X.device_breakdown(cpu_index, r1, r2)
+    margin = B.certified_f32_margin(index.plan)
+    card = out["device"]
+    for a, b in zip(card["per_property"], cpu["per_property"]):
+        if abs(a["logit"] - b["logit"]) > margin:
+            raise AssertionError(f"debug: {workload} {a['name']} logit "
+                                 f"{a['logit']} on the card, {b['logit']} "
+                                 f"on CPU copies (margin {margin})")
+    for key in ("band_verdict", "decided_path"):
+        if card.get(key) != cpu.get(key):
+            raise AssertionError(f"debug: {workload} {key} "
+                                 f"{card.get(key)} / {cpu.get(key)}")
+    return out, launches, wall, margin
+
+
+def folded_probability(out):
+    """``sigmoid`` of the host contributions summed in the fold's order."""
+    import math
+
+    total = 0.0
+    for prop in out["properties"]:
+        total += prop["logit"]
+    return 1.0 / (1.0 + math.exp(-total))
+
+
+def phase_debug(line):
+    """The streamed append, request tracing, an on-demand capture and
+    ``/explain`` on the card.  Prints the ``debug`` lines."""
+    import torch
+
+    from sesam_duke_microservice_tpu_torch.core.config import parse_config
+    from sesam_duke_microservice_tpu_torch.engine.device_matcher import (
+        _to_device,
+    )
+    from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
+    from sesam_duke_microservice_tpu_torch.ops import encoder as E
+    from sesam_duke_microservice_tpu_torch.service.app import DukeApp
+
+    t_phase = time.perf_counter()
+    entities = stresstest_entities(INGEST_RECORDS, 1234, "p")[:DEBUG_RECORDS]
+    queries = with_copies(stresstest_entities(INGEST_BATCH, 4321, "q"),
+                          entities, 16, 1)
+    posts = [entities[s:s + INGEST_BATCH]
+             for s in range(0, len(entities), INGEST_BATCH)]
+    # the traced POST, second: copies of the first POST's records under
+    # new ids (links, so the persist span holds ``links:assert_batch``),
+    # on a warm corpus it does not outgrow (``encode.stream_append``)
+    posts.insert(1, with_copies(stresstest_entities(INGEST_BATCH, 777, "t"),
+                                posts[0], 4, 3))
+
+    # 1. the streamed append in four fresh apps, in the order on (the
+    # default), 0, 0, on; the last two stay up for the tensor comparison,
+    # and the last serves the tracing and the capture
+    runs = []
+    with contextlib.ExitStack() as keep:
+        for i, label in enumerate(("on", "off", "off", "on")):
+            app = stress_app(device=DEVICE)
+            stack = contextlib.ExitStack()
+            port = stack.enter_context(serving(app))
+            tid = f"d{i}" * 16
+            with mock.patch.dict(os.environ, {} if label == "on" else
+                                 {"DUKE_STREAM_APPEND": "0"}):
+                run, headers = streamed_ingest(
+                    app, port, posts, queries, f"00-{tid}-{'e2' * 8}-01",
+                    line)
+            runs.append(dict(run, label=label, app=app, port=port, tid=tid,
+                             headers=headers))
+            if i < 2:
+                stack.close()
+            else:
+                keep.enter_context(stack)
+        off, on = runs[2], runs[3]
+        a = on["app"].deduplications["people"].index.corpus
+        b = off["app"].deduplications["people"].index.corpus
+        da, db = a.device_arrays(), b.device_arrays()
+        torch.cuda.synchronize()
+        twins = 0
+        for prop, tensors in da[0].items():
+            for name, t in tensors.items():
+                mirror = _to_device(a.feats[prop][name], t.device, prop)
+                if not (torch.equal(t, db[0][prop][name])
+                        and torch.equal(t, mirror)):
+                    raise AssertionError(f"debug: corpus tensor "
+                                         f"{prop}.{name} differs")
+                twins += 1
+        for x, y, host in zip(da[1:], db[1:], (a.row_valid, a.row_deleted,
+                                               a.row_group)):
+            if not (torch.equal(x, y) and torch.equal(
+                    x, _to_device(host, x.device))):
+                raise AssertionError("debug: a corpus mask differs")
+            twins += 1
+        if any(r["feed"] != on["feed"] for r in runs):
+            raise AssertionError("debug: the feeds of DUKE_STREAM_APPEND on "
+                                 "and 0 differ")
+        want = [0 if i == 0 or grew else 4
+                for i, grew in enumerate(on["growths"])]
+        for r in runs:
+            if r["slices"] != (want if r["label"] == "on"
+                               else [0] * len(want)):
+                raise AssertionError(f"debug: slices a POST {r['slices']} "
+                                     f"[{r['label']}], expected {want} on")
+        print(f"debug stream append: {sum(map(len, posts))} records in "
+              f"{len(posts)} POSTs, four fresh apps: records/s on / 0 / 0 / "
+              f"on {[r['rps'] for r in runs]}; slices a POST "
+              f"{on['slices']} (0 on the cold POST and on the "
+              f"{sum(on['growths'][1:])} that doubled the capacity; none at "
+              f"0); feeds byte-identical ({len(on['feed'])} bytes); {twins} "
+              f"corpus tensors equal to their twins and the host mirror; "
+              f"Myers W=1 launches on the query POST "
+              f"{[r['myers'] for r in runs]} [{line}]", flush=True)
+        port, headers, trace_id = on["port"], on["headers"], on["tid"]
+
+        # 2. tracing: the sampled POST's tree, its Chrome export, the
+        # unsampled requests' digests
+        if headers.get("X-Trace-Id") != trace_id:
+            raise AssertionError(f"debug: X-Trace-Id {headers}")
+        _, _, tree = get_json(port, f"/debug/traces/{trace_id}")
+        names = {s["name"] for s in tree["spans"]}
+        need = {"POST /deduplication/:name/:datasetId", "sched.queued",
+                "sched.microbatch", "encode", "encode.stream_append",
+                "retrieve", "score", "persist", "links:assert_batch"}
+        if not need <= names:
+            raise AssertionError(f"debug: the trace lacks {need - names}")
+        _, _, chrome = get_json(port,
+                                f"/debug/traces/{trace_id}?format=chrome")
+        digests = get_json(port, "/debug/requests")[2]["requests"]
+        unsampled = [d for d in digests if not d["sampled"]
+                     and d["name"].startswith("POST /deduplication")]
+        if not unsampled:
+            raise AssertionError("debug: /debug/requests holds no unsampled "
+                                 "POST")
+        phases = {s["name"]: round(s["duration_us"] / 1e3, 3)
+                  for s in tree["spans"] if s["name"] in need}
+        print(f"debug trace: {len(tree['spans'])} spans, "
+              f"{tree['duration_ms']} ms; ms by span {phases}; chrome "
+              f"{len(chrome['traceEvents'])} events; /debug/requests "
+              f"{len(digests)} digests, {len(unsampled)} unsampled POSTs "
+              f"[{line}]", flush=True)
+
+        # the slowest requests the tail latch kept (TRACE_SLOW_MS) over
+        # the whole script: where their time went, span by span -- the
+        # slowest of all, and the slowest of the concurrent-ingest phase's
+        # CONCURRENT_POST-record POSTs (its p99)
+        slow = sorted((t for t in get_json(port, "/debug/traces")[2][
+            "traces"] if t["slow"]), key=lambda t: -t["duration_ms"])
+        concurrent = []
+        for rank, t in enumerate(slow):
+            try:
+                spans = get_json(port, f"/debug/traces/{t['trace_id']}")[2][
+                    "spans"]
+            except urllib.error.HTTPError:  # evicted since the listing
+                continue
+            queued = [sp for sp in spans if sp["name"] == "sched.queued"]
+            mine = (queued and queued[0]["attributes"].get("records")
+                    == CONCURRENT_POST)
+            if rank > 0 and not (mine and len(concurrent) < 3):
+                continue
+            concurrent += [t] if mine else []
+            ms = {}
+            for sp in spans:
+                ms[sp["name"]] = round(ms.get(sp["name"], 0.0)
+                                       + sp["duration_us"] / 1e3, 3)
+            batch = next((sp["attributes"] for sp in spans
+                          if sp["name"] == "sched.microbatch"), None)
+            batch = (f"its microbatch of {batch['requests']} requests, "
+                     f"{batch['records']} records" if batch else
+                     "it rode another request's microbatch, whose trace "
+                     "holds the engine spans")
+            print(f"debug slow trace {t['trace_id']} ({t['name']}, "
+                  f"{t['duration_ms']} ms{', a concurrent POST' if mine else ''}"
+                  f"): ms by span {ms}; {batch} [{line}]", flush=True)
+        print(f"debug slow traces: {len(slow)} retained over the script, "
+              f"{len(concurrent)} of them concurrent POSTs printed [{line}]",
+              flush=True)
+
+        # 3. an on-demand capture around a query POST from another thread
+        kernels, ranges, wall = capture_around_post(
+            port, "/deduplication/people/crm",
+            with_copies(stresstest_entities(INGEST_BATCH, 999, "r"),
+                        entities, 16, 2), line)
+        mine = sorted(k for k in ck.LAUNCHES for n in kernels
+                      if f"{k}_kernel" in n)
+        print(f"debug capture: query POST {wall:.3f} s inside a 6 s "
+              f"capture; {sum(kernels.values())} kernels, top "
+              f"{sorted(kernels.items(), key=lambda kv: -kv[1])[:8]}; the "
+              f"port's kernels {sorted(set(mine))}; record_function ranges "
+              f"{sorted(ranges.items())[:12]} [{line}]", flush=True)
+        if "myers_tile" not in mine:
+            raise AssertionError("debug: the capture holds no Myers kernel")
+
+    # 4. explain and decisions: the mixed schema, then one ann pair
+    mixed = DukeApp(parse_config(config_xml({"mixed": MIXED_SCHEMA})),
+                    device=DEVICE, persistent=False)
+    with serving(mixed) as port:
+        ents = mixed_entities(EXPLAIN_RECORDS, 2024, "x")
+        ingest(port, "/deduplication/mixed/crm", ents)
+        rows = feed(port, "/deduplication/mixed")
+        check_rows(rows, "debug mixed")
+        linked = {frozenset((r["entity1"], r["entity2"])) for r in rows}
+        first = rows[0]
+        pair = ("crm__" + first["entity1"], "crm__" + first["entity2"])
+        other = next(f"crm__{e['_id']}" for e in ents[1:]
+                     if frozenset((ents[0]["_id"], e["_id"])) not in linked)
+        explained = []
+        for (id1, id2), want in ((pair, first["confidence"]),
+                                 ((f"crm__{ents[0]['_id']}", other), None)):
+            out, launches, wall, margin = explain_pair_on_card(
+                port, mixed, "mixed", id1, id2, line)
+            folded = folded_probability(out)
+            if folded != out["probability"] or (
+                    want is not None and folded != want):
+                raise AssertionError(f"debug: sigmoid of the contributions "
+                                     f"{folded!r}, explain "
+                                     f"{out['probability']!r}, feed "
+                                     f"{want!r}")
+            explained.append((id1, id2, out, launches, wall))
+            print(f"debug explain [mixed, {'linked' if want else 'unlinked'}"
+                  f" {id1} {id2}]: probability {out['probability']!r} "
+                  f"(sigmoid of the contributions equal"
+                  f"{', and to the feed' if want else ''}); "
+                  f"{out['classification']}; band "
+                  f"{out['device']['band_verdict']}, decided_path "
+                  f"{out['device'].get('decided_path')}; device logit "
+                  f"{out['device']['logit']} within {margin} of the CPU "
+                  f"copies' per property; launches {launches}; "
+                  f"{wall * 1e3:.3f} ms [{line}]", flush=True)
+        if not explained[0][3].get("myers_tile") or not explained[0][3].get(
+                "jw_tile") or explained[0][3].get("intersect_tile", 0) < 2:
+            raise AssertionError(f"debug: the explain call launched "
+                                 f"{explained[0][3]}")
+        _, _, decisions = get_json(port, "/debug/decisions")
+        _, _, stats = get_json(port, "/stats")
+        block = stats["workloads"][0].get("decisions")
+        if not decisions["decisions"] or not block or not sum(
+                block["outcomes"].values()):
+            raise AssertionError(f"debug: decisions {len(decisions)} / "
+                                 f"{block}")
+        print(f"debug decisions: ring {len(decisions['decisions'])} records; "
+              f"/stats {block} [{line}]", flush=True)
+
+    with mock.patch.dict(os.environ,
+                         {"DEVICE_INITIAL_CAPACITY": str(ANN_CAPACITY)}):
+        ann = DukeApp(parse_config(config_xml({"people": STRESS_SCHEMA})),
+                      backend="ann", device=DEVICE, persistent=False)
+    with serving(ann) as port:
+        ents = with_copies(stresstest_entities(EXPLAIN_RECORDS, 55, "a"),
+                           stresstest_entities(EXPLAIN_RECORDS, 55, "a"),
+                           8, 5)
+        ingest(port, "/deduplication/people/crm", ents)
+        rows = feed(port, "/deduplication/people")
+        check_rows(rows, "debug ann")
+        routes0 = dict(E.ROUTES)
+        id1, id2 = "crm__" + rows[0]["entity1"], "crm__" + rows[0]["entity2"]
+        out, launches, wall, margin = explain_pair_on_card(
+            port, ann, "people", id1, id2, line)
+        routes = {k: E.ROUTES[k] - routes0[k] for k in E.ROUTES}
+        if folded_probability(out) != rows[0]["confidence"]:
+            raise AssertionError("debug: ann explain probability differs "
+                                 "from the feed's confidence")
+        if not out["retrieval"].get("retrieved"):
+            raise AssertionError(f"debug: ann retrieval {out['retrieval']}")
+        print(f"debug explain [ann {id1} {id2}]: probability "
+              f"{out['probability']!r} equal to the feed's; retrieval rank "
+              f"{out['retrieval']['rank']} of C "
+              f"{out['retrieval']['effective_top_c']}, cosine "
+              f"{out['retrieval']['cosine']}, route {routes}; band "
+              f"{out['device']['band_verdict']}, decided_path "
+              f"{out['device'].get('decided_path')}; launches {launches}; "
+              f"{wall * 1e3:.3f} ms [{line}]", flush=True)
+    print(f"debug: phase {time.perf_counter() - t_phase:.1f} s [{line}]",
+          flush=True)
+
+
 # -- the kernel phase -------------------------------------------------------------
 
 
@@ -2908,6 +3346,7 @@ def main() -> int:
     measure_segmax(SEGMAX_ODD, peak_flops, runs=3)
     phase_restart(line, device_rows, ann_rows)
     phase_control(line)
+    phase_debug(line)
 
     def one_word(s):
         return ck.kernel_words(s[2]) == 1

@@ -37,6 +37,7 @@ from .device_matcher import (
     _PendingBlock,
     _Fetch,
     _ScorerCache,
+    resolve_block,
 )
 
 
@@ -59,6 +60,36 @@ class AnnIndex(DeviceIndex):
     def _extract(self, records: Sequence[Record], plan=None):
         return F.extract_batch(plan or self.plan, records,
                                encoder=self.encoder)
+
+    def explain_retrieval(self, record: Record, candidate: Record,
+                          group_filtering: bool = False) -> dict:
+        """ANN retrieval provenance: the embedding cosine between the
+        pair plus the candidate's actual rank in the query's top-C
+        retrieval and the effective C after recall escalation (the width
+        the search finished at).  The rank re-runs the two-stage scorer
+        for this one query (on the card: the segment-max kernel or the
+        scan, then the gathered Myers rescore, at Q = 1)."""
+        out = super().explain_retrieval(record, candidate, group_filtering)
+        out["mode"] = "ann"
+        out["exhaustive"] = False
+        out["top_c"] = self.initial_top_c
+        out["emb_storage"] = self.emb_storage
+        e1 = self.encoder.encode(record)
+        e2 = self.encoder.encode(candidate)
+        out["cosine"] = float(np.dot(e1, e2))  # encode() normalizes
+        row = self.id_to_row.get(candidate.record_id)
+        if row is not None:
+            result = resolve_block(self.scorer_cache.dispatch_block(
+                [record], group_filtering=group_filtering))
+            out["effective_top_c"] = int(result.top_index.shape[1])
+            positions = np.nonzero(result.top_index[0] == row)[0]
+            if positions.size:
+                out["rank"] = int(positions[0])
+                out["retrieved"] = True
+            else:
+                out["rank"] = None
+                out["retrieved"] = False
+        return out
 
 
 class _AnnScorerCache(_ScorerCache):

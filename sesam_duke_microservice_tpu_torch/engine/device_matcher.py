@@ -56,7 +56,7 @@ from ..store.records import (
     record_digest,
     xor_fold,
 )
-from ..telemetry import PhaseRecorder, costs
+from ..telemetry import PhaseRecorder, costs, tracing
 from ..utils import faults
 from ..utils.atomicio import replace_and_sync_dir
 from ..utils.profiling import trace_armed, trace_batch
@@ -77,6 +77,10 @@ logger = logging.getLogger("device-matcher")
 # are split.  Same knobs and defaults as the JAX package.
 _QUERY_BUCKETS = env_int_tuple("DEVICE_QUERY_BUCKETS", "16,128,1024,2048,4096")
 _CHUNK = env_int("DEVICE_CHUNK", 8192)
+# incremental device-update slices of the streamed append, independent of
+# the scan chunk: a steady-state commit of a few hundred rows must not pay
+# a chunk-sized transfer
+_UPDATE_SLICE = env_int("DEVICE_UPDATE_SLICE", 512)
 _INITIAL_TOP_K = env_int("DEVICE_TOP_K", 64)
 # value-slot auto-growth cap (pair scoring is O(V^2) combos per property)
 _VALUE_SLOTS_MAX = env_int("DEVICE_VALUE_SLOTS_MAX", 8)
@@ -109,6 +113,25 @@ _BUCKET_CHILDREN = {
         telemetry.QUERY_PAD_ROWS.labels(bucket=str(b)))
     for b in _QUERY_BUCKETS
 }
+_STREAM_SLICES_CHILD = telemetry.STREAM_APPEND_SLICES.single()
+
+
+def _stream_append_slice(n: int) -> Optional[int]:
+    """Slice size for the streamed extract -> upload append, or None for
+    the whole-batch path (small batches have nothing to overlap).
+
+    ``DUKE_STREAM_APPEND=0`` pins the whole-batch behavior.  When the full
+    batch qualifies for the shared-memory parallel extractor, slices grow
+    to its minimum slab so every slice still rides the process pool.
+    """
+    if not env_flag("DUKE_STREAM_APPEND", True):
+        return None
+    slice_n = _UPDATE_SLICE
+    from ..ops import parallel_extract as PX
+
+    if PX.enabled(n):
+        slice_n = max(slice_n, PX.min_records())
+    return slice_n if n > slice_n else None
 
 
 def _to_device(arr: np.ndarray, device: torch.device,
@@ -268,6 +291,36 @@ class DeviceCorpus:
             self.row_valid[row] = False
             self._mask_rows.append(int(row))
 
+    def reserve(self, total_rows: int) -> None:
+        """Pre-grow capacity to fit ``total_rows`` ahead of a sliced
+        append: a capacity doubling mid-stream would set ``_dirty_full``
+        and turn every remaining slice flush into a no-op (the whole
+        corpus re-uploads at scoring time instead).  No-op before the
+        first append -- tensor shapes are defined by the first batch."""
+        with self._upload_lock:
+            if self.feats and total_rows > self.capacity:
+                self._grow(total_rows)
+
+    def stream_flush(self) -> bool:
+        """Streamed append: copy the rows appended so far to the device
+        (the incremental branch of ``device_arrays``), so slice N's copy
+        is queued before the host extracts slice N+1.  The copies are
+        ``non_blocking`` from pageable host memory, so the host still
+        stages each one; what the slices save is the whole-batch copy at
+        scoring time.
+
+        No-op (returns False) while a full upload is pending (cold
+        corpus, capacity growth, restored snapshot, released device
+        copy): re-running the whole-corpus upload per slice would
+        multiply the transfer, and the scoring-time ``device_arrays``
+        pays it exactly once instead.
+        """
+        with self._upload_lock:
+            if self._device_feats is None or self._dirty_full:
+                return False
+            self._device_arrays_locked()
+            return True
+
     # -- device mirror -------------------------------------------------------
 
     def device_arrays(self):
@@ -421,6 +474,33 @@ class DeviceIndex(CandidateIndex):
         the corpus' live-row count is the live-record count."""
         return self.corpus.live_rows
 
+    def explain_retrieval(self, record: Record, candidate: Record,
+                          group_filtering: bool = False) -> Dict:
+        """Retrieval provenance: brute force scores every live
+        corpus row, so the only ways a pair can fail to meet are corpus
+        state (not indexed / tombstoned) and the candidate-mask policy
+        (self-pair, same group) — the pair's actual f32 verdict and
+        bounds ride the ``device`` section of the explanation
+        (engine.explain.device_breakdown)."""
+        out: Dict = {
+            "mode": "device-brute",
+            "exhaustive": True,
+            "survivor_bound": self.scorer_cache._min_logit(),
+        }
+        row = self.id_to_row.get(candidate.record_id)
+        out["candidate_indexed"] = row is not None
+        if row is not None:
+            corpus = self.corpus
+            out["candidate_live"] = bool(
+                corpus.row_valid[row] and not corpus.row_deleted[row]
+            )
+        if group_filtering:
+            g1 = record.get_value(GROUP_NO_PROPERTY_NAME)
+            g2 = candidate.get_value(GROUP_NO_PROPERTY_NAME)
+            out["group_excluded"] = bool(g1 and g1 == g2)
+        out["self_pair"] = record.record_id == candidate.record_id
+        return out
+
     def set_indexing_disabled(self, disabled: bool) -> None:
         self.indexing_disabled = disabled
 
@@ -432,10 +512,9 @@ class DeviceIndex(CandidateIndex):
     def _extract(self, records: Sequence[Record], plan=None):
         return F.extract_batch(plan or self.plan, records)
 
-    def _append_rows_only(self, records: Sequence[Record]) -> None:
-        """Extract + corpus append + row mapping, without the record
-        mirror or the content fold (the lazy rebuild, where the record set
-        is unchanged)."""
+    def _append_chunk(self, records: Sequence[Record]) -> None:
+        """Extract + corpus append + row mapping for one contiguous
+        chunk."""
         feats = self._extract(records)
         deleted = np.array([r.is_deleted() for r in records], dtype=bool)
         group = np.array(
@@ -446,6 +525,43 @@ class DeviceIndex(CandidateIndex):
                                   [r.record_id for r in records])
         for r, row in zip(records, rows):
             self.id_to_row[r.record_id] = int(row)
+
+    def _append_rows_only(self, records: Sequence[Record]) -> None:
+        """Extract + corpus append + row mapping, without the record
+        mirror or the content fold (also the lazy rebuild, where the
+        record set is unchanged).
+
+        Batches past one update slice stream (``DUKE_STREAM_APPEND``, on
+        by default): the batch is appended in ``DEVICE_UPDATE_SLICE``
+        slices (grown to the parallel-extract minimum when the batch
+        qualifies for the process pool) and each slice's rows are copied
+        to the device before the next slice extracts.  Host mirrors, the
+        dirty range and the row mapping advance per slice, so the host
+        and device state end equal to the whole-batch path's
+        (tests/test_torch_stream_append.py).
+        """
+        n = len(records)
+        slice_n = _stream_append_slice(n)
+        if slice_n is None:
+            self._append_chunk(records)
+            return
+        corpus = self.corpus
+        # pre-grow once so no slice crosses a capacity doubling (growth
+        # forces a full re-upload, which must not run per slice)
+        corpus.reserve(corpus.size + n)
+        if corpus._device_feats is None or corpus._dirty_full:
+            # nothing to overlap: a full upload is pending (cold corpus,
+            # growth, restored snapshot), so every slice flush would be a
+            # no-op -- keep the whole-batch chunk (and its full-size
+            # parallel-extract fan-out); scoring pays the one full upload
+            self._append_chunk(records)
+            return
+        with tracing.span("encode.stream_append",
+                          {"records": n, "slice": slice_n}, annotate=True):
+            for start in range(0, n, slice_n):
+                self._append_chunk(records[start:start + slice_n])
+                if corpus.stream_flush():
+                    _STREAM_SLICES_CHILD.inc()
 
     def _append_records(self, records: Sequence[Record]) -> None:
         self._append_rows_only(records)
@@ -1202,6 +1318,17 @@ class DeviceProcessor:
         # workload at a time); /metrics and /stats read them lock-free
         self.phases = PhaseRecorder()
         self._host = Processor(schema)
+        # decision flight recorder + drift monitors: written only by the
+        # thread that emits listener events (single writer), scraped
+        # lock-free by /metrics and served by /debug/decisions
+        from ..telemetry.decisions import DecisionRecorder
+        from .explain import host_breakdown
+
+        self.decisions = DecisionRecorder(
+            schema.threshold, schema.maybe_threshold,
+            breakdown=lambda q, c: host_breakdown(schema, q, c),
+            resolver=database.find_record_by_id,
+        )
         self._scorers = database.scorer_cache
         self.finalizer = FinalizeExecutor(threads)
 
@@ -1229,22 +1356,32 @@ class DeviceProcessor:
         t0 = time.monotonic()
         for listener in self.listeners:
             listener.batch_ready(len(records))
-        for record in records:
-            self.database.index(record)
-        self.database.commit()
+        # annotate=True also opens a torch.profiler range while an
+        # on-demand capture is live (utils.profiling.start_capture), so
+        # the capture's timeline carries the trace tree's phase names
+        with tracing.span(PHASE_ENCODE, {"records": len(records)},
+                          annotate=True):
+            for record in records:
+                self.database.index(record)
+            self.database.commit()
         encode_dt = time.monotonic() - t0
         self.phases.observe(PHASE_ENCODE, encode_dt)
         retrieval0 = self.stats.retrieval_seconds
         compare0 = self.stats.compare_seconds
+        match_ns = time.monotonic_ns()
         self._score_blocks(records)
         self.stats.batches += 1
         retrieve_dt = self.stats.retrieval_seconds - retrieval0
         score_dt = self.stats.compare_seconds - compare0
         self.phases.observe(PHASE_RETRIEVE, retrieve_dt)
         self.phases.observe(PHASE_SCORE, score_dt)
+        # the block waits and the host finalization interleave across the
+        # double-buffered blocks: the shared aggregate-span layout
+        tracing.add_phase_spans(match_ns, retrieve_dt, score_dt)
         t_persist = time.monotonic()
-        for listener in self.listeners:
-            listener.batch_done()
+        with tracing.span(PHASE_PERSIST, annotate=True):
+            for listener in self.listeners:
+                listener.batch_done()
         persist_dt = time.monotonic() - t_persist
         self.phases.observe(PHASE_PERSIST, persist_dt)
         costs.note_busy(encode_dt + retrieve_dt + score_dt + persist_dt)
@@ -1292,6 +1429,12 @@ class DeviceProcessor:
                 if not out.events:
                     for listener in self.listeners:
                         listener.no_match_for(record)
+                if out.decisions:
+                    # drift monitors + sampled / latched ring records, on
+                    # the serial event-coordinator thread (single writer)
+                    self.decisions.observe(
+                        record, out.decisions, prune=out.prune,
+                        margin=out.margin, host_bound=out.host_bound)
                 self.stats.records_processed += 1
                 self.stats.candidates_retrieved += out.survivors
                 self.stats.pairs_rescored += out.rescored

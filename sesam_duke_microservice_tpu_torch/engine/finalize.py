@@ -45,6 +45,7 @@ from ..core.bayes import probability_logit
 from ..core.records import Record, record_digest
 from ..env import env_flag, env_str
 from ..ops import bounds as B
+from ..telemetry.decisions import PairDecision
 
 
 def fallback_pair_logit(props, r1: Record, r2: Record) -> float:
@@ -72,20 +73,34 @@ class QueryOutcome:
     """One query's finalization result: ``events`` holds
     ``(event_name, candidate, probability)`` in survivor (descending device
     logit) order; an empty list means ``no_match_for``.  The counters feed
-    ``ProfileStats``."""
+    ``ProfileStats``.  ``decisions`` carries the per-pair decision inputs
+    (``telemetry.decisions.PairDecision``, survivor order) for the
+    decision recorder -- empty when recording is off; ``prune`` /
+    ``margin`` / ``host_bound`` are the block's decisive bound, certified
+    f32 margin and optimistic host-property logit (None / 0 without a
+    decisive band)."""
 
     __slots__ = ("events", "survivors", "rescored", "skipped",
+                 "decisions", "prune", "margin", "host_bound",
                  "device_certified", "residue_margin", "residue_kind",
                  "residue_truncation")
 
     def __init__(self, events: List[Tuple[str, Record, float]],
                  survivors: int, rescored: int, skipped: int,
+                 decisions: Optional[list] = None,
+                 prune: Optional[float] = None,
+                 margin: Optional[float] = None,
+                 host_bound: float = 0.0,
                  device_certified: int = 0, residue_margin: int = 0,
                  residue_kind: int = 0, residue_truncation: int = 0):
         self.events = events
         self.survivors = survivors
         self.rescored = rescored
         self.skipped = skipped
+        self.decisions = decisions if decisions is not None else []
+        self.prune = prune
+        self.margin = margin
+        self.host_bound = host_bound
         self.device_certified = device_certified
         self.residue_margin = residue_margin
         self.residue_kind = residue_kind
@@ -160,6 +175,16 @@ class FinalizeExecutor:
         # the host side between batches, and the bounds must track it
         prune = (B.decisive_prune_logit(schema, plan)
                  if self.decisive else None)
+        # decision-recorder inputs: the certified margin classifies
+        # near-threshold band skips, the host bound turns a device logit
+        # into the f32 filter verdict.  Host arithmetic on the plan only
+        # (no device read), and only while the processor's recorder is on
+        recorder = getattr(proc, "decisions", None)
+        record_decisions = recorder is not None and recorder.enabled
+        margin = (B.certified_f32_margin(plan)
+                  if record_decisions and prune is not None else None)
+        host_bound = (B.host_bound_logit(plan.host_props)
+                      if record_decisions else 0.0)
         compare = proc.compare
         dd = getattr(result, "dd", None) if self.device else None
         plan_has_dd = self.device and bool(B.dd_plan_specs(plan))
@@ -192,6 +217,7 @@ class FinalizeExecutor:
             survivors = result.survivor_triples(qi)
             rescored = skipped = certified = 0
             res_margin = res_kind = res_trunc = 0
+            decisions: List[PairDecision] = []
             rec_id = record.record_id
             query_sig = None  # built lazily, once per query
 
@@ -217,6 +243,9 @@ class FinalizeExecutor:
                     continue
                 if prune is not None and device_logit <= prune:
                     skipped += 1
+                    if record_decisions:
+                        decisions.append(
+                            PairDecision(rid, device_logit, True, None))
                     continue
                 candidate = None
                 reason = None  # why this pair takes the host compare
@@ -234,6 +263,10 @@ class FinalizeExecutor:
                                 fallback, record, candidate)
                         if total <= dd_reject:
                             certified += 1
+                            if record_decisions:
+                                decisions.append(PairDecision(
+                                    rid, device_logit, True, None,
+                                    path="device_certified"))
                             continue
                         if total < dd_event:
                             reason = "margin"
@@ -254,11 +287,15 @@ class FinalizeExecutor:
                     res_kind += 1
                 elif reason == "truncation":
                     res_trunc += 1
+                if record_decisions:
+                    decisions.append(
+                        PairDecision(rid, device_logit, False, prob))
                 if prob > threshold:
                     events.append(("matches", candidate, prob))
                 elif maybe is not None and maybe != 0.0 and prob > maybe:
                     events.append(("matches_perhaps", candidate, prob))
             return QueryOutcome(events, len(survivors), rescored, skipped,
+                                decisions, prune, margin, host_bound,
                                 certified, res_margin, res_kind, res_trunc)
 
         if self.threads <= 1 or len(block) <= 1:

@@ -15,8 +15,14 @@ import logging
 import time
 from typing import Dict, List, Optional, Tuple
 
-from ..core.records import ORIGINAL_ENTITY_ID_PROPERTY_NAME, DATASET_ID_PROPERTY_NAME, Record
+from ..core.records import (
+    DATASET_ID_PROPERTY_NAME,
+    ORIGINAL_ENTITY_ID_PROPERTY_NAME,
+    Record,
+    record_digest,
+)
 from ..links.base import Link, LinkDatabase, LinkKind, LinkStatus
+from ..telemetry.decisions import audit_log, explanation_digest
 
 
 class MatchListener:
@@ -40,17 +46,32 @@ class LinkMatchListener(MatchListener):
     construction), so the deferred write is invisible to ``?since=``
     pollers.  ``batch=False`` preserves the legacy per-event write for
     embedders that read the database mid-batch.
+
+    When ``DUKE_AUDIT_LOG`` is set, every confirmed link decision that
+    reaches this listener (post one-to-one resolution — only links that
+    are actually asserted) also appends an audit entry carrying the two
+    records' content digests and the explanation digest that a later
+    ``POST /explain`` replay of the same pair reproduces
+    (telemetry.decisions).  The audit file flushes write-behind at
+    ``batch_done``; it can never block scoring.
     """
 
-    def __init__(self, linkdb: LinkDatabase, batch: bool = True):
+    def __init__(self, linkdb: LinkDatabase, batch: bool = True,
+                 audit_context: Optional[Tuple[str, str]] = None):
         self.linkdb = linkdb
         self.batch = batch
         self._pending: List[Link] = []
+        # (kind, workload-name) stamped into audit rows
+        self._audit_context = audit_context or ("", "")
+        self._audit = None
 
     def batch_ready(self, size: int) -> None:
         # a batch that aborted mid-scoring must not leak its buffered
         # links into the next batch's flush transaction
         self._pending = []
+        # re-resolved per batch so env changes (tests, ops toggles) take
+        # effect without a workload rebuild
+        self._audit = audit_log()
 
     def _assert(self, link: Link) -> None:
         if self.batch:
@@ -58,17 +79,37 @@ class LinkMatchListener(MatchListener):
         else:
             self.linkdb.assert_link(link)
 
+    def _audit_entry(self, r1: Record, r2: Record, confidence: float,
+                     kind: str) -> None:
+        if self._audit is None:
+            return
+        d1, d2 = record_digest(r1), record_digest(r2)
+        self._audit.append({
+            "time_unix": round(time.time(), 3),
+            "kind": self._audit_context[0],
+            "workload": self._audit_context[1],
+            "id1": r1.record_id,
+            "id2": r2.record_id,
+            "link_kind": kind,
+            "confidence": confidence,
+            "record_digest1": d1.hex(),
+            "record_digest2": d2.hex(),
+            "explanation_digest": explanation_digest(d1, d2, confidence),
+        })
+
     def matches(self, r1: Record, r2: Record, confidence: float) -> None:
         self._assert(
             Link(r1.record_id, r2.record_id, LinkStatus.INFERRED,
                  LinkKind.DUPLICATE, confidence)
         )
+        self._audit_entry(r1, r2, confidence, "duplicate")
 
     def matches_perhaps(self, r1: Record, r2: Record, confidence: float) -> None:
         self._assert(
             Link(r1.record_id, r2.record_id, LinkStatus.INFERRED,
                  LinkKind.MAYBE, confidence)
         )
+        self._audit_entry(r1, r2, confidence, "maybe")
 
     def flush_pending(self) -> None:
         """Hand the collected links to the database now (one batched
@@ -83,6 +124,10 @@ class LinkMatchListener(MatchListener):
     def batch_done(self) -> None:
         self.flush_pending()
         self.linkdb.commit()
+        if self._audit is not None:
+            # seal the batch's audit entries for the background flusher
+            # (write-behind: the persist phase never waits on the file)
+            self._audit.flush()
 
 
 class ServiceMatchListener(MatchListener):
@@ -93,7 +138,8 @@ class ServiceMatchListener(MatchListener):
     def __init__(self, workload_name: str, linkdb: LinkDatabase,
                  kind: str = "deduplication", one_to_one: bool = False,
                  record_resolver=None):
-        self._wrapped = LinkMatchListener(linkdb)
+        self._wrapped = LinkMatchListener(
+            linkdb, audit_context=(kind, workload_name))
         self.link_database_updates_disabled = False
         self._entity_matches: Dict[str, List[Tuple[Record, float]]] = {}
         # one-to-one enforcement (opt-in): the reference parses

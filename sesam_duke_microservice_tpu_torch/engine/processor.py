@@ -1,8 +1,7 @@
 """The matching engine: the host reference implementation.
 
-Counterpart of the JAX package's ``engine/processor.py`` with its phase
-recorder and cost-ledger writes (its trace spans and decision monitors
-wait for the port's tracer and decision recorder).
+Counterpart of the JAX package's ``engine/processor.py``, with its phase
+recorder, cost-ledger writes, trace spans and decision monitors.
 It reproduces the Duke 1.2 ``Processor.deduplicate(List<Record>)``
 contract the reference drives for both workloads (App.java:1005,
 App.java:1159):
@@ -39,7 +38,7 @@ from ..core.bayes import combine_probabilities
 from ..core.config import DukeSchema
 from ..core.records import Record
 from ..index.base import CandidateIndex
-from ..telemetry import PhaseRecorder, costs
+from ..telemetry import PhaseRecorder, costs, tracing
 from .listeners import MatchListener
 
 # Per-batch engine phases recorded into each processor's PhaseRecorder
@@ -113,6 +112,21 @@ class Processor:
         # /stats read it lock-free like the ProfileStats counters
         self.phases = PhaseRecorder()
         self._listener_lock = threading.Lock()
+        # decision monitors and ring: host pairs carry no device
+        # pre-score, so only outcome counters, the pair-logit histogram
+        # and sampled ring records apply; writes serialize on the
+        # listener lock (the threaded per-record loop's emission barrier)
+        from ..telemetry.decisions import DecisionRecorder
+        from .explain import host_breakdown
+
+        self.decisions = DecisionRecorder(
+            schema.threshold, schema.maybe_threshold,
+            breakdown=lambda q, c: host_breakdown(schema, q, c),
+            # a bare-compare embedder passes no database; sampled
+            # records then skip the breakdown
+            resolver=(database.find_record_by_id
+                      if database is not None else None),
+        )
 
     def add_match_listener(self, listener: MatchListener) -> None:
         self.listeners.append(listener)
@@ -142,22 +156,29 @@ class Processor:
         for listener in self.listeners:
             listener.batch_ready(len(records))
         t0 = time.monotonic()
-        for record in records:
-            self.database.index(record)
-        self.database.commit()
+        with tracing.span(PHASE_ENCODE, {"records": len(records)}):
+            for record in records:
+                self.database.index(record)
+            self.database.commit()
         t1 = time.monotonic()
         retrieval0 = self.stats.retrieval_seconds
         compare0 = self.stats.compare_seconds
+        match_ns = time.monotonic_ns()
         if self.threads == 1:
             for record in records:
                 self._match_record(record)
         else:
+            # worker threads adopt the request's trace context so any
+            # spans they open land in the same tree (tracing.attach)
+            ctx = tracing.current_context()
             with ThreadPoolExecutor(max_workers=self.threads) as pool:
-                list(pool.map(self._match_record, records))
+                list(pool.map(
+                    lambda r: self._match_record_in_ctx(ctx, r), records))
         self.stats.batches += 1
         t2 = time.monotonic()
-        for listener in self.listeners:
-            listener.batch_done()
+        with tracing.span(PHASE_PERSIST):
+            for listener in self.listeners:
+                listener.batch_done()
         # per-batch phase observations (per-record splits accumulated in
         # ProfileStats above; the histogram granule is the batch)
         retrieve_dt = self.stats.retrieval_seconds - retrieval0
@@ -170,6 +191,17 @@ class Processor:
         # the same four durations feed the process-wide busy ledger, so
         # per-workload phase counters reconcile against it by definition
         costs.note_busy((t1 - t0) + retrieve_dt + score_dt + persist_dt)
+        # retrieval and scoring interleave per record (and across the
+        # thread pool): the shared aggregate-span layout
+        tracing.add_phase_spans(match_ns, retrieve_dt, score_dt)
+
+    def _match_record_in_ctx(self, ctx, record: Record) -> None:
+        """Pool-thread entry: re-enter the submitting request's trace."""
+        if ctx is None:
+            self._match_record(record)
+            return
+        with tracing.attach(ctx):
+            self._match_record(record)
 
     def _match_record(self, record: Record) -> None:
         t0 = time.monotonic()
@@ -181,11 +213,14 @@ class Processor:
         threshold = self.schema.threshold
         maybe = self.schema.maybe_threshold
         pairs = 0
+        scored = [] if self.decisions.enabled else None
         for candidate in candidates:
             if candidate.record_id == record.record_id:
                 continue
             prob = self.compare(record, candidate)
             pairs += 1
+            if scored is not None:
+                scored.append((candidate.record_id, prob))
             if prob > threshold:
                 found = True
                 self._emit("matches", record, candidate, prob)
@@ -196,6 +231,11 @@ class Processor:
             with self._listener_lock:
                 for listener in self.listeners:
                     listener.no_match_for(record)
+        if scored:
+            # the recorder is single-writer; the listener lock is the
+            # serialization point the threaded loop already has
+            with self._listener_lock:
+                self.decisions.observe_pairs(record, scored)
 
         t2 = time.monotonic()
         self.stats.records_processed += 1

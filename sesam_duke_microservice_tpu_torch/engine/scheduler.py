@@ -59,17 +59,17 @@ is ever lost or completed twice.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import math
 import threading
 import time
 from collections import deque
-from bisect import bisect_left
-from typing import Callable, Deque, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Deque, Dict, List, Optional, Tuple
 
 from ..env import env_flag, env_float, env_int, env_str
-from ..telemetry import slo
-from ..telemetry.registry import histogram_snapshot
+from ..telemetry import slo, tracing
+from ..telemetry.decisions import _MonitorHist
 
 logger = logging.getLogger("ingest-scheduler")
 
@@ -175,31 +175,6 @@ class DatasetGone(Exception):
         self.dataset_id = dataset_id
 
 
-class _MonitorHist:
-    """Single-writer histogram state (a copy of the JAX package's
-    ``telemetry.decisions._MonitorHist``): plain attribute math on the
-    dispatcher thread, ``samples()`` renders the Prometheus shape at
-    scrape time."""
-
-    __slots__ = ("bounds", "counts", "total", "count")
-
-    def __init__(self, bounds: Sequence[float]):
-        self.bounds = tuple(float(b) for b in bounds)
-        self.counts = [0] * (len(self.bounds) + 1)
-        self.total = 0.0
-        self.count = 0
-
-    def observe(self, value: float) -> None:
-        self.counts[bisect_left(self.bounds, value)] += 1
-        self.total += value
-        self.count += 1
-
-    def samples(self, labels: Tuple[Tuple[str, str], ...]):
-        return histogram_snapshot(
-            self.bounds, list(self.counts), self.total, self.count, labels
-        )
-
-
 class _SchedRequest:
     """One queued ingest request.
 
@@ -207,11 +182,14 @@ class _SchedRequest:
     event, error) so ``Workload._run_merged`` completes it in place."""
 
     __slots__ = ("dataset_id", "entities", "event", "error", "records",
-                 "enqueued")
+                 "enqueued", "trace_ctx")
 
-    def __init__(self, dataset_id: str, entities):
+    def __init__(self, dataset_id: str, entities, trace_ctx=None):
         self.dataset_id = dataset_id
         self.entities = entities
+        # the submitting request's trace context: the dispatcher attaches
+        # the head request's, so the engine's spans land in its tree
+        self.trace_ctx = trace_ctx
         self.event = threading.Event()
         self.error: Optional[Exception] = None
         # one entity converts to one record; the count drives bucket fill
@@ -325,7 +303,7 @@ class IngestScheduler:
         per-request), :class:`SchedulerReject` when the queue is full,
         :class:`WorkloadGone` when a reload removed the workload, or
         :class:`SchedulerClosed` during shutdown."""
-        req = _SchedRequest(dataset_id, entities)
+        req = _SchedRequest(dataset_id, entities, tracing.current_context())
         with self._cv:
             if self._closed:
                 raise SchedulerClosed("scheduler is shutting down")
@@ -343,7 +321,10 @@ class IngestScheduler:
             q.pending.append(req)
             q.queued += req.records
             self._cv.notify_all()
-        req.event.wait()
+        with tracing.span("sched.queued", {
+            "workload": name, "kind": kind, "records": req.records,
+        }):
+            req.event.wait()
         if req.error is not None:
             raise req.error
 
@@ -598,7 +579,24 @@ class IngestScheduler:
                     t0 = time.monotonic()
                     for req in batch:
                         q.wait_hist.observe(t0 - req.enqueued)
-                    wl._run_merged(list(batch))
+                    # engine spans land in the HEAD request's trace; the
+                    # merged siblings' trace ids ride as an attribute so
+                    # a tail-latched slow microbatch still names every
+                    # constituent (their own traces show the queue wait)
+                    ctx = batch[0].trace_ctx
+                    attach = (tracing.attach(ctx) if ctx is not None
+                              else contextlib.nullcontext())
+                    merged_ids = [
+                        r.trace_ctx[0].trace_id for r in batch[:8]
+                        if r.trace_ctx is not None
+                    ]
+                    with attach, tracing.span("sched.microbatch", {
+                        "workload": q.name, "kind": q.kind,
+                        "requests": len(batch), "records": total,
+                        "bucket": self._bucket_for(total),
+                        "merged_trace_ids": ",".join(merged_ids),
+                    }):
+                        wl._run_merged(list(batch))
                     hold = time.monotonic() - t0
                     wl.note_lock_hold(hold)
                 finally:
@@ -611,7 +609,13 @@ class IngestScheduler:
                 # (plain attribute write).
                 done = time.monotonic()
                 slo.tracker("ingest", q.kind, q.name).record_batch(
-                    [done - req.enqueued for req in batch], done)
+                    [done - req.enqueued for req in batch], done,
+                    # exemplar trace ids for violation entries: only
+                    # sampled traces link anywhere, so unsampled -> None
+                    [(req.trace_ctx[0].trace_id
+                      if req.trace_ctx is not None
+                      and req.trace_ctx[0].sampled else None)
+                     for req in batch])
                 slo.feed_meter(q.kind, q.name).note_write()
                 q.microbatches += 1
                 q.merged_requests += len(batch)

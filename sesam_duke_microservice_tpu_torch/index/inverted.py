@@ -28,9 +28,8 @@ Uncommitted (pending) operations and committed state are kept separate so
 ``Processor.deduplicate`` ordering — index all, commit, then query — behaves
 exactly as with a real IndexWriter/IndexSearcher pair.
 
-A copy of the JAX package's ``index/inverted.py`` without
-``explain_retrieval``; candidate lists, their order included, equal the
-JAX package's.
+A copy of the JAX package's ``index/inverted.py``; candidate lists, their
+order included, equal the JAX package's.
 """
 
 from __future__ import annotations
@@ -434,6 +433,74 @@ class InvertedIndex(CandidateIndex):
         if hits:
             self._estimator.record_result(len(matches))
         return matches
+
+    def explain_retrieval(self, record: Record, candidate: Record,
+                          group_filtering: bool = False) -> Dict:
+        """Retrieval provenance for one (query, candidate) pair:
+        which analyzed terms of the query's lookup properties hit the
+        candidate's indexed fields, with the same tf·idf²·fieldNorm
+        contributions, coord and query norm the live query applies —
+        built on the exact clause/scoring helpers
+        ``find_candidate_matches`` uses.  Side-effect free: the adaptive
+        result estimator is never fed from here.
+        """
+        should, must, must_not_slots = self._query_clauses(
+            record, group_filtering
+        )
+        out: Dict = {
+            "mode": "inverted-index",
+            "min_relevance": self.tunables.min_relevance,
+        }
+        slot = self._id_to_slot.get(candidate.record_id)
+        if slot is None:
+            out["candidate_indexed"] = False
+            return out
+        out["candidate_indexed"] = True
+        out["excluded"] = slot in must_not_slots  # deleted / same group
+        prepared = self._prepare_groups(should, must)
+        if prepared is None:
+            out.update(score=0.0, terms=[], retrieved=False)
+            return out
+        groups, idf, query_norm = prepared
+        doc = self._docs[slot]
+        terms = []
+        matched = 0
+        raw_score = 0.0
+        for group in groups:
+            best, clause = self._group_contrib(doc, group, idf)
+            if best > 0.0 and clause is not None:
+                matched += 1
+                raw_score += best
+                field, token, freq = clause
+                terms.append({
+                    "field": field,
+                    "token": token,
+                    "frequency": freq,
+                    "idf": idf[(field, token)],
+                    "contribution": best,
+                    "fuzzy": token != group[0][1],
+                    "required": group in must,
+                })
+        must_ok = all(
+            any(slot in self._postings.get(alt, ()) for alt in group)
+            for group in must
+        )
+        coord = matched / len(groups)
+        score = raw_score * coord * query_norm
+        out.update(
+            terms=terms,
+            groups=len(groups),
+            matched_groups=matched,
+            coord=coord,
+            query_norm=query_norm,
+            score=score,
+            required_satisfied=must_ok,
+            # the adaptive result limit can additionally cut a low-ranked
+            # hit (EstimateResultTracker); this reports the score gate
+            retrieved=(not out["excluded"] and must_ok and matched > 0
+                       and score >= self.tunables.min_relevance),
+        )
+        return out
 
     def close(self) -> None:
         pass

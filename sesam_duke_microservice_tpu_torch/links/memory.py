@@ -10,6 +10,7 @@ from __future__ import annotations
 import bisect
 from typing import Dict, List, Optional, Tuple
 
+from ..telemetry import tracing
 from .base import Link, LinkDatabase, is_same_assertion
 
 
@@ -71,6 +72,15 @@ class InMemoryLinkDatabase(LinkDatabase):
             if self._sorted is not None:
                 self._append_sorted(link)
 
+    def assert_links(self, links: List[Link]) -> None:
+        # per-link assert is already O(1) in memory; the override only
+        # adds the per-batch trace span the sqlite backend gets, so the
+        # persist phase is attributable on either backend
+        with tracing.span("links:assert_batch",
+                          {"backend": "in-memory", "links": len(links)}):
+            for link in links:
+                self.assert_link(link)
+
     def get_all_links_for(self, record_id: str) -> List[Link]:
         # COPIES, not the stored objects (matching the sqlite backend's
         # fresh rows): callers retract-then-reassert these, and an
@@ -84,10 +94,13 @@ class InMemoryLinkDatabase(LinkDatabase):
 
     def get_links_for_ids(self, record_ids) -> List[Link]:
         ids = set(record_ids)
-        return [
-            l.copy() for l in self._links.values()
-            if l.id1 in ids or l.id2 in ids
-        ]
+        # per-batch query (the one-to-one flush): coarse enough to span
+        with tracing.span("links:links_for_ids",
+                          {"backend": "in-memory", "ids": len(ids)}):
+            return [
+                l.copy() for l in self._links.values()
+                if l.id1 in ids or l.id2 in ids
+            ]
 
     def get_all_links(self) -> List[Link]:
         return list(self._links.values())
@@ -113,12 +126,15 @@ class InMemoryLinkDatabase(LinkDatabase):
         return ordered[start:]
 
     def get_changes_page(self, since: int, limit: int) -> List[Link]:
-        ordered = self._ordered()
-        start = bisect.bisect_right(ordered, since, key=lambda l: l.timestamp)
-        if limit <= 0 or start + limit >= len(ordered):
-            return ordered[start:]
-        cut = start + limit
-        last_ts = ordered[cut - 1].timestamp
-        while cut < len(ordered) and ordered[cut].timestamp == last_ts:
-            cut += 1
-        return ordered[start:cut]
+        with tracing.span("links:changes_page",
+                          {"backend": "in-memory", "since": since}):
+            ordered = self._ordered()
+            start = bisect.bisect_right(
+                ordered, since, key=lambda l: l.timestamp)
+            if limit <= 0 or start + limit >= len(ordered):
+                return ordered[start:]
+            cut = start + limit
+            last_ts = ordered[cut - 1].timestamp
+            while cut < len(ordered) and ordered[cut].timestamp == last_ts:
+                cut += 1
+            return ordered[start:cut]

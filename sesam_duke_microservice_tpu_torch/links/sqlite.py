@@ -14,6 +14,7 @@ import sqlite3
 import threading
 from typing import Dict, List, Optional, Tuple
 
+from ..telemetry import tracing
 from ..utils.sqlite import SqliteConnectionPool
 from .base import Link, LinkDatabase, LinkKind, LinkStatus, is_same_assertion
 
@@ -96,35 +97,37 @@ class SqliteLinkDatabase(LinkDatabase):
         if not links:
             return
         conn = self._conn()
-        keys = sorted({link.key() for link in links})
-        existing: Dict[Tuple[str, str], Link] = {}
-        for start in range(0, len(keys), 225):  # 2 params per key
-            chunk = keys[start:start + 225]
-            clause = " OR ".join("(id1=? AND id2=?)" for _ in chunk)
-            cur = conn.execute(
-                "SELECT id1, id2, status, kind, confidence, timestamp "
-                f"FROM links WHERE {clause}",
-                [v for key in chunk for v in key],
+        with tracing.span("links:assert_batch",
+                          {"backend": "sqlite", "links": len(links)}):
+            keys = sorted({link.key() for link in links})
+            existing: Dict[Tuple[str, str], Link] = {}
+            for start in range(0, len(keys), 225):  # 2 params per key
+                chunk = keys[start:start + 225]
+                clause = " OR ".join("(id1=? AND id2=?)" for _ in chunk)
+                cur = conn.execute(
+                    "SELECT id1, id2, status, kind, confidence, timestamp "
+                    f"FROM links WHERE {clause}",
+                    [v for key in chunk for v in key],
+                )
+                for row in cur.fetchall():
+                    existing[(row[0], row[1])] = self._row_to_link(row)
+            effective = dict(existing)
+            to_write: Dict[Tuple[str, str], Link] = {}
+            for link in links:
+                current = effective.get(link.key())
+                if current is not None and is_same_assertion(current, link):
+                    continue
+                effective[link.key()] = link
+                to_write[link.key()] = link
+            if not to_write:
+                return
+            inserted = sum(1 for key in to_write if key not in existing)
+            conn.executemany(
+                _UPSERT,
+                [_upsert_params(link) for link in to_write.values()],
             )
-            for row in cur.fetchall():
-                existing[(row[0], row[1])] = self._row_to_link(row)
-        effective = dict(existing)
-        to_write: Dict[Tuple[str, str], Link] = {}
-        for link in links:
-            current = effective.get(link.key())
-            if current is not None and is_same_assertion(current, link):
-                continue
-            effective[link.key()] = link
-            to_write[link.key()] = link
-        if not to_write:
-            return
-        inserted = sum(1 for key in to_write if key not in existing)
-        conn.executemany(
-            _UPSERT,
-            [_upsert_params(link) for link in to_write.values()],
-        )
-        conn.commit()
-        self._count_add(inserted)
+            conn.commit()
+            self._count_add(inserted)
 
     def get_all_links_for(self, record_id: str) -> List[Link]:
         cur = self._conn().execute(
@@ -140,18 +143,22 @@ class SqliteLinkDatabase(LinkDatabase):
             return []
         out: List[Link] = []
         conn = self._conn()
-        # SQLite caps host parameters (999 on older builds); chunk the IN
-        for start in range(0, len(ids), 450):
-            chunk = ids[start:start + 450]
-            marks = ",".join("?" * len(chunk))
-            cur = conn.execute(
-                "SELECT id1, id2, status, kind, confidence, timestamp "
-                f"FROM links WHERE id1 IN ({marks}) OR id2 IN ({marks})",
-                chunk + chunk,
-            )
-            out.extend(self._row_to_link(r) for r in cur.fetchall())
-        if len(ids) > 450:  # chunks can double-report a joining link
-            out = list({l.key(): l for l in out}.values())
+        # per-batch query (the one-to-one flush) — coarse enough to span
+        # without crowding the trace scratch (per-link ops are not spanned)
+        with tracing.span("links:links_for_ids",
+                          {"backend": "sqlite", "ids": len(ids)}):
+            # SQLite caps host parameters (999 on older builds); chunk the IN
+            for start in range(0, len(ids), 450):
+                chunk = ids[start:start + 450]
+                marks = ",".join("?" * len(chunk))
+                cur = conn.execute(
+                    "SELECT id1, id2, status, kind, confidence, timestamp "
+                    f"FROM links WHERE id1 IN ({marks}) OR id2 IN ({marks})",
+                    chunk + chunk,
+                )
+                out.extend(self._row_to_link(r) for r in cur.fetchall())
+            if len(ids) > 450:  # chunks can double-report a joining link
+                out = list({l.key(): l for l in out}.values())
         return out
 
     def get_all_links(self) -> List[Link]:
@@ -196,7 +203,9 @@ class SqliteLinkDatabase(LinkDatabase):
         if limit <= 0:
             return self.get_changes_since(since)
         conn = self._conn()
-        return self._changes_page(conn, since, limit)
+        with tracing.span("links:changes_page",
+                          {"backend": "sqlite", "since": since}):
+            return self._changes_page(conn, since, limit)
 
     def _changes_page(self, conn, since: int, limit: int) -> List[Link]:
         cur = conn.execute(

@@ -90,12 +90,15 @@ class WriteBehindBuffer:
     the buffer (every later ``add``/``commit``/``drain`` raises).
 
     ``max_pending`` bounds the sealed-batch queue.  Past it, ``commit()``
-    blocks (backpressure: a slow disk must throttle ingest, not grow
-    memory).
+    either blocks (backpressure -- the link-database stance: a slow disk
+    must throttle ingest, not grow memory) or, with
+    ``drop_on_overflow=True``, discards the oldest pending batch and
+    counts it in ``dropped`` (the audit-log stance: observability output
+    must never block scoring).
     """
 
     def __init__(self, flush: Callable[[List], None], *,
-                 max_pending: int = 4,
+                 max_pending: int = 4, drop_on_overflow: bool = False,
                  name: str = "write-behind",
                  seal: Optional[Callable] = None,
                  retries: Optional[Callable[[], int]] = None):
@@ -112,6 +115,7 @@ class WriteBehindBuffer:
         # the env knob is read at failure time); None = never retry
         self._retries = retries
         self._max_pending = max(1, max_pending)
+        self._drop_on_overflow = drop_on_overflow
         self._name = name
         self._cv = threading.Condition()
         self._buf: List = []  # guarded by: self._cv
@@ -120,6 +124,8 @@ class WriteBehindBuffer:
         self._error: Optional[BaseException] = None  # guarded by: self._cv [writes]
         self._closed = False  # guarded by: self._cv
         self._thread: Optional[threading.Thread] = None  # guarded by: self._cv
+        # batches discarded by the overflow policy; read lock-free by stats
+        self.dropped = 0  # guarded by: self._cv [writes]
 
     # -- worker --------------------------------------------------------------
 
@@ -205,12 +211,17 @@ class WriteBehindBuffer:
     def commit(self) -> None:
         """Seal the buffered writes as one batch and enqueue the flush;
         returns immediately unless the flusher is ``max_pending`` batches
-        behind (then it blocks)."""
+        behind (then it blocks -- or drops the oldest pending batch under
+        ``drop_on_overflow``)."""
         with self._cv:
             self._raise_latched()
             if not self._buf:
                 return
             while len(self._queue) >= self._max_pending:
+                if self._drop_on_overflow:
+                    self._queue.popleft()
+                    self.dropped += 1
+                    continue
                 self._cv.wait()
                 self._raise_latched()
             batch, self._buf = self._buf, []

@@ -232,6 +232,16 @@ class RecordEncoder:
         # resolved once: an index never mixes storage layouts
         self.storage = storage_name()
 
+    def encode(self, record: Record) -> np.ndarray:
+        """One record's normalized f32 embedding (the numpy path; the
+        ``ann`` explain reads the pair's cosine from it)."""
+        pairs = []
+        for name in self.props:
+            for value in record.get_values(name):
+                if value:
+                    pairs.append((name, value))
+        return embed_values(pairs, self.dim)
+
     def encode_batch(self, records: Sequence[Record]) -> np.ndarray:
         native = _native_embed()
         if native is not None:

@@ -311,6 +311,36 @@ def build_pair_logits(plan: F.SchemaFeatures) -> Callable:
     return pair_logits
 
 
+def build_property_logits(plan: F.SchemaFeatures) -> Callable:
+    """The explain variant of ``build_pair_logits``: returns
+    fn(qfeats, cfeats) -> (Q, C, P) with the per-property clamped
+    log-odds kept un-reduced (axis P follows ``plan.device_props``
+    order).  Summed over P it is the pair logit of the fast path: the
+    same ``_property_logit`` per property, so on a CUDA tensor the same
+    hand kernels run (at the explain call's one-pair shapes), and on a
+    CPU tensor their plain versions.  A separate builder, so explain
+    traffic never touches the scan's scorers.
+
+    Used by ``engine.explain`` to reproduce a pair's device f32 verdict
+    with per-property provenance.
+    """
+    specs = list(plan.device_props)
+
+    def property_logits(qfeats: Dict[str, Dict],
+                        cfeats: Dict[str, Dict]) -> torch.Tensor:
+        first = next(iter(qfeats.values()))
+        q = first["valid"].shape[0]
+        firstc = next(iter(cfeats.values()))
+        c = firstc["valid"].shape[0]
+        per_prop = [
+            _property_logit(spec, qfeats[spec.name], cfeats[spec.name], q, c)
+            for spec in specs
+        ]
+        return torch.stack(per_prop, dim=-1)  # (Q, C, P)
+
+    return property_logits
+
+
 def candidate_mask(cvalid, cdeleted, cgroup, cidx, query_group, query_row,
                    group_filtering: bool):
     """(Q, chunk) candidate-eligibility mask: live non-tombstoned rows only;

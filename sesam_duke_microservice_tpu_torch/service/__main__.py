@@ -39,6 +39,12 @@ def main() -> None:
     args = parser.parse_args()
 
     logging.basicConfig(level=logging.INFO)
+    # every line carries the request and trace ids the HTTP handler
+    # stamps (telemetry.logctx); engine lines on the request thread
+    # inherit them through the context vars
+    from ..telemetry.logctx import install as install_request_ids
+
+    install_request_ids()
     if args.config:
         with open(args.config, "r", encoding="utf-8") as f:
             config = parse_config(f.read())

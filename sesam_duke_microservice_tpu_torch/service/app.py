@@ -50,10 +50,15 @@ to that workload answers 503 with ``Retry-After: 1``; feeds serve the
 replayed prefix.  ``install_shutdown_handlers`` turns SIGTERM/SIGINT into
 a graceful ``DukeApp.close()``: drain, flush, snapshot.
 
-Every request is counted by route template, method and status, timed, and
-answered with an ``X-Request-Id``; ``/metrics`` renders the app's registry
-with ``telemetry.GLOBAL``.  The JAX package's ``/debug/*``, ``/explain``,
-rematch, tracing and prober routes wait for their modules.
+Every request is counted by route template, method and status, timed,
+traced (a root span honoring an inbound W3C ``traceparent``, retained by
+the flight recorder when sampled, slow or failed) and answered with an
+``X-Request-Id`` and an ``X-Trace-Id``; ``/metrics`` renders the app's
+registry with ``telemetry.GLOBAL``.  ``/debug/traces``,
+``/debug/requests``, ``/debug/decisions``, ``/debug/profile``,
+``/debug/costs``, ``/debug/memory``, ``/debug/slo`` and ``POST
+/explain`` are the JAX package's (``service.debug``); its rematch route,
+``/debug/loadmap`` and ``/debug/probes`` wait for their modules.
 """
 
 from __future__ import annotations
@@ -87,9 +92,11 @@ from ..engine.scheduler import (
 from ..engine.workload import Workload, build_workload, resolve_device
 from ..env import env_flag, env_float, env_str
 from ..links import journal as link_journal
-from ..telemetry import slo
+from ..telemetry import slo, tracing
+from ..telemetry.decisions import audit_log
 from ..telemetry.logctx import new_request_id, request_id_var
 from ..utils.backoff import full_jitter_delay
+from . import debug as debug_api
 from .homepage import render_homepage
 from .metrics import (
     HttpMetrics,
@@ -430,11 +437,16 @@ _ENTITY_PATH = re.compile(
     r"^/(deduplication|recordlinkage)/([^/]*)/([^/]*?)(/httptransform)?$"
 )
 _FEED_PATH = re.compile(r"^/(deduplication|recordlinkage)/([^/]*)$")
+_DEBUG_TRACE_PATH = re.compile(r"^/debug/traces/([0-9a-f]{32})$")
+_DEBUG_DECISION_PATH = re.compile(r"^/debug/decisions/(d\d+)$")
 
 # the JAX package's route templates for the routes the port serves, so
 # both services label those requests alike
 _STATIC_ROUTES = frozenset((
     "/", "/config", "/health", "/healthz", "/readyz", "/metrics", "/stats",
+    "/debug/traces", "/debug/requests", "/debug/decisions", "/explain",
+    "/debug/profile", "/debug/profile/reset",
+    "/debug/costs", "/debug/memory", "/debug/slo",
 ))
 
 
@@ -450,6 +462,10 @@ def _route_template(path: str) -> str:
     label values."""
     if path in _STATIC_ROUTES:
         return path
+    if _DEBUG_TRACE_PATH.match(path):
+        return "/debug/traces/:id"
+    if _DEBUG_DECISION_PATH.match(path):
+        return "/debug/decisions/:id"
     if m := _ENTITY_PATH.match(path):
         suffix = "/httptransform" if m.group(4) else ""
         return f"/{m.group(1)}/:name/:datasetId{suffix}"
@@ -467,15 +483,19 @@ class DukeRequestHandler(BaseHTTPRequestHandler):
     _resp_status: Optional[int] = None
     _resp_bytes: int = 0
     request_id: str = "-"
+    trace_id: str = "-"
 
     def log_message(self, fmt, *args):
         logger.info("%s %s", self.address_string(), fmt % args)
 
     def _handle_request(self, method: str, route_fn) -> None:
-        """One instrumented request: request id, in-flight gauge,
+        """One instrumented request: request id, root trace span
+        (honoring an inbound W3C ``traceparent``), in-flight gauge,
         route/status counters, latency histogram, byte counters, busy-503
         counter.  The registry children lock for nanoseconds per request
-        on the handler threads, never on the scoring path."""
+        on the handler threads, never on the scoring path.  The root
+        span's exit applies the flight recorder's tail latch, so a slow
+        request is retained even when head sampling skipped it."""
         parsed = urlparse(self.path)
         route = _route_template(parsed.path)
         self.request_id = new_request_id()
@@ -486,34 +506,53 @@ class DukeRequestHandler(BaseHTTPRequestHandler):
         hm = self.app.http_metrics
         hm.in_flight.inc()
         t0 = time.monotonic()
-        try:
+        with tracing.start_trace(
+            f"{method} {route}",
+            traceparent=self.headers.get("traceparent"),
+            attributes={
+                "http.method": method,
+                "http.route": route,
+                "http.target": parsed.path,
+                "request_id": self.request_id,
+            },
+        ) as root:
+            self.trace_id = root.trace_id
             try:
-                route_fn(parsed)
-            except _HttpError as e:
-                busy = isinstance(e, _BusyError)
-                self._reply(e.status, e.message.encode("utf-8"),
-                            e.content_type, e.extra_headers or None)
-            except Exception:
-                logger.exception("Error serving %s %s", method, self.path)
-                self._reply(500, b"Internal server error", "text/plain")
-        finally:
-            hm.in_flight.dec()
-            elapsed = time.monotonic() - t0
-            status = str(self._resp_status or 0)
-            hm.requests.labels(route=route, method=method,
-                               status=status).inc()
-            hm.latency.labels(route=route, method=method).observe(elapsed)
-            try:
-                req_bytes = int(self.headers.get("Content-Length") or 0)
-            except ValueError:
-                req_bytes = 0
-            if req_bytes > 0:
-                hm.request_bytes.labels(route=route).inc(req_bytes)
-            if self._resp_bytes:
-                hm.response_bytes.labels(route=route).inc(self._resp_bytes)
-            if busy:
-                hm.busy.labels(route=route).inc()
-            request_id_var.set("-")
+                try:
+                    route_fn(parsed)
+                except _HttpError as e:
+                    busy = isinstance(e, _BusyError)
+                    self._reply(e.status, e.message.encode("utf-8"),
+                                e.content_type, e.extra_headers or None)
+                except Exception:
+                    logger.exception("Error serving %s %s", method,
+                                     self.path)
+                    self._reply(500, b"Internal server error",
+                                "text/plain")
+            finally:
+                status_code = self._resp_status or 0
+                root.set_attribute("http.status", status_code)
+                if status_code >= 500:
+                    root.status = "error"
+                hm.in_flight.dec()
+                elapsed = time.monotonic() - t0
+                status = str(status_code)
+                hm.requests.labels(route=route, method=method,
+                                   status=status).inc()
+                hm.latency.labels(route=route, method=method).observe(
+                    elapsed)
+                try:
+                    req_bytes = int(self.headers.get("Content-Length") or 0)
+                except ValueError:
+                    req_bytes = 0
+                if req_bytes > 0:
+                    hm.request_bytes.labels(route=route).inc(req_bytes)
+                if self._resp_bytes:
+                    hm.response_bytes.labels(route=route).inc(
+                        self._resp_bytes)
+                if busy:
+                    hm.busy.labels(route=route).inc()
+                request_id_var.set("-")
 
     def _reply(self, status: int, body: bytes,
                content_type: str = "application/json",
@@ -524,6 +563,7 @@ class DukeRequestHandler(BaseHTTPRequestHandler):
         self.send_header("Content-Type", content_type)
         self.send_header("Content-Length", str(len(body)))
         self.send_header("X-Request-Id", self.request_id)
+        self.send_header("X-Trace-Id", self.trace_id)
         # staleness contract during overlapped recovery: every response
         # carries the header while this app's journal replay runs
         if self.app is not None and self.app.recovering():
@@ -538,10 +578,12 @@ class DukeRequestHandler(BaseHTTPRequestHandler):
 
     def send_error(self, code, message=None, explain=None):
         """Stdlib error paths (malformed request line, unsupported method)
-        bypass ``_reply``; route them through it so they carry an
-        ``X-Request-Id`` too (a fresh one: on a keep-alive connection the
-        handler still holds the previous request's)."""
+        bypass ``_reply``; route them through it so they carry the
+        ``X-Request-Id`` / ``X-Trace-Id`` headers too (a fresh request id
+        and no trace id: on a keep-alive connection the handler still
+        holds the previous request's)."""
         self.request_id = new_request_id()
+        self.trace_id = "-"
         try:
             short = message or BaseHTTPRequestHandler.responses.get(
                 code, ("Error",))[0]
@@ -606,6 +648,26 @@ class DukeRequestHandler(BaseHTTPRequestHandler):
             self._reply(200, body.encode("utf-8"), telemetry.CONTENT_TYPE)
         elif path == "/stats":
             self._handle_stats()
+        elif path == "/debug/traces":
+            self._reply(*debug_api.handle_traces())
+        elif m := _DEBUG_TRACE_PATH.match(path):
+            fmt = (parse_qs(parsed.query).get("format") or ["json"])[0]
+            self._reply(*debug_api.handle_trace(m.group(1), fmt))
+        elif path == "/debug/requests":
+            self._reply(*debug_api.handle_requests())
+        elif path == "/debug/decisions":
+            self._reply(*debug_api.handle_decisions(self.app))
+        elif m := _DEBUG_DECISION_PATH.match(path):
+            self._reply(*debug_api.handle_decision(self.app, m.group(1)))
+        elif path == "/debug/profile":
+            self._reply(*debug_api.handle_profile_status())
+        elif path == "/debug/costs":
+            self._reply(*debug_api.handle_costs(
+                debug_api._app_workloads(self.app)))
+        elif path == "/debug/memory":
+            self._reply(*debug_api.handle_memory())
+        elif path == "/debug/slo":
+            self._reply(*debug_api.handle_slo())
         elif m := _ENTITY_PATH.match(path):
             self._validate_entity_path(m)
             raise _HttpError(405, "This endpoint only supports POST requests.")
@@ -618,9 +680,17 @@ class DukeRequestHandler(BaseHTTPRequestHandler):
         # read the body up front: replying with it unread would leave its
         # bytes to be parsed as the next keep-alive request
         body = self._read_body()
-        if parsed.path == "/config":
+        path = parsed.path
+        if path == "/config":
             self._handle_config_upload(body)
-        elif m := _ENTITY_PATH.match(parsed.path):
+        elif path == "/explain":
+            self._reply(*debug_api.handle_explain(self.app, body))
+        elif path == "/debug/profile":
+            self._reply(*debug_api.handle_profile_start(
+                parse_qs(parsed.query)))
+        elif path == "/debug/profile/reset":
+            self._reply(*debug_api.handle_profile_reset())
+        elif m := _ENTITY_PATH.match(path):
             self._handle_post_batch(m, body)
         else:
             raise _HttpError(404, "Not found")
@@ -651,9 +721,9 @@ class DukeRequestHandler(BaseHTTPRequestHandler):
 
     def _handle_stats(self) -> None:
         """Per-workload counters and corpus sizes, plus the scheduler and
-        feed-abort blocks: lock-free reads of the same single-writer state
-        the /metrics collector scrapes (the JAX package's ``decisions``
-        and ``audit_log`` blocks wait for the decision recorder)."""
+        feed-abort blocks, the audit log's and each workload's decision
+        block: lock-free reads of the same single-writer state the
+        /metrics collector scrapes."""
         platform, device_count = backend_info(self.app.device)
         out = {
             "backend": self.app.backend,
@@ -678,6 +748,16 @@ class DukeRequestHandler(BaseHTTPRequestHandler):
             out["scheduler"] = self.app.scheduler.stats_snapshot()
         with self.app._feed_abort_lock:
             out["feed_aborts"] = dict(self.app.feed_aborts)
+        # audit-loss visibility: drop-on-overflow is by design, but an
+        # operator treating the JSONL as evidence needs to see the loss
+        audit = audit_log()
+        if audit is not None:
+            out["audit_log"] = {
+                "path": audit.path,
+                "entries": audit.entries,
+                "dropped_batches": audit.dropped,
+                "disabled": audit.disabled,
+            }
         for kind, registry in (
             ("deduplication", self.app.deduplications),
             ("recordlinkage", self.app.record_linkages),
@@ -715,6 +795,14 @@ class DukeRequestHandler(BaseHTTPRequestHandler):
                         "skip_rate": (
                             round(stats.pairs_skipped / finalized, 4)
                             if finalized else None),
+                    }
+                recorder = getattr(wl.processor, "decisions", None)
+                if recorder is not None and recorder.enabled:
+                    row["decisions"] = {
+                        "outcomes": dict(recorder.outcomes),
+                        "disagreements": recorder.disagreements,
+                        "ring": len(recorder.ring),
+                        "latched": recorder.latched,
                     }
                 row["phase_seconds"] = {
                     k: round(v, 3)
@@ -942,6 +1030,7 @@ class DukeRequestHandler(BaseHTTPRequestHandler):
                     self.send_header("Content-Type", "application/json")
                     self.send_header("Transfer-Encoding", "chunked")
                     self.send_header("X-Request-Id", self.request_id)
+                    self.send_header("X-Trace-Id", self.trace_id)
                     # staleness signal: the stream is a monotonic PREFIX
                     # of the recovered feed while replay runs
                     if self.app.recovering():

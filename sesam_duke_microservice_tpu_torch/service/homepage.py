@@ -1,9 +1,10 @@
 """Homepage HTML (GET /) — endpoint directory + config upload form.
 
 A copy of the JAX package's ``service/homepage.py``, byte for byte in what
-it renders, so both services answer ``GET /`` alike; the operations it
-lists under ``/debug`` and ``rematch`` are served by the JAX package only
-until the port's debug and rematch modules land.
+it renders, so both services answer ``GET /`` alike; of the operations
+it lists, ``rematch`` is served by the JAX package only until the port's
+rematch module lands (its capture is ``torch.profiler``'s, though the
+text names ``jax.profiler``).
 
 Serves the role of the reference's Jinjava template
 (src/main/resources/templates/index.html, rendered at App.java:653-660):

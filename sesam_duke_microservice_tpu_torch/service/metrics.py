@@ -14,8 +14,7 @@ All collector reads are lock-free snapshots of single-writer state, the
 same guarantee the /stats endpoint gives (engine/device_matcher.py
 live_records): a scrape takes no workload lock and never syncs the card.
 Every family has the JAX package's name, type and label keys; those whose
-sources the port does not have yet (IVF, mesh, prewarm, the decision
-monitors) are not emitted.
+sources the port does not have yet (IVF, mesh, prewarm) are not emitted.
 """
 
 from __future__ import annotations
@@ -189,6 +188,11 @@ def make_app_collector(app):
         finalize_samples = []
         finalize_threads = []
         dd_residue_samples = []
+        decision_samples = []
+        disagreement_samples = []
+        pair_logit_samples = []
+        margin_slack_samples = []
+        similarity_samples = []
         cost_samples = []
         hbm_samples = []
         for kind, name, wl in _workload_iter(app):
@@ -219,6 +223,23 @@ def make_app_collector(app):
                     ("", labels, stats.candidates_retrieved))
                 counter_samples["pairs"].append(
                     ("", labels, stats.pairs_compared))
+            recorder = getattr(proc, "decisions", None)
+            if recorder is not None and recorder.enabled:
+                # quality-drift monitors: single-writer engine-side
+                # state, snapshotted here at scrape time -- the decision
+                # path never writes a registry child
+                for outcome, value in recorder.outcomes.items():
+                    decision_samples.append(
+                        ("", labels + (("outcome", outcome),), value))
+                disagreement_samples.append(
+                    ("", labels, recorder.disagreements))
+                pair_logit_samples.extend(
+                    recorder.pair_logit_hist.samples(labels))
+                margin_slack_samples.extend(
+                    recorder.margin_slack_hist.samples(labels))
+                for prop, hist in list(recorder.similarity_hists.items()):
+                    similarity_samples.extend(
+                        hist.samples(labels + (("property", prop),)))
             finalizer = getattr(proc, "finalizer", None)
             if finalizer is not None and stats is not None:
                 # finalization split: survivors rescored host-exact vs
@@ -450,6 +471,31 @@ def make_app_collector(app):
                 "uncertifiable property kind, or an unsafe pair "
                 "(tensor truncation / JW branch-boundary guard)",
                 dd_residue_samples))
+        if decision_samples:
+            out.append(FamilySnapshot(
+                "duke_decisions_total", "counter",
+                "Match decisions by outcome (match, maybe, reject, "
+                "pruned by the decisive band, or device_certified by "
+                "the dd rescore)", decision_samples))
+            out.append(FamilySnapshot(
+                "duke_decision_disagreements_total", "counter",
+                "Decisions where the float32 device verdict crossed a "
+                "threshold the exact f64 rescore did not (or vice versa)",
+                disagreement_samples))
+            out.append(FamilySnapshot(
+                "duke_pair_logit", "histogram",
+                "Distribution of finalized pair logits (log-odds of the "
+                "emitted f64 probability)", pair_logit_samples))
+            out.append(FamilySnapshot(
+                "duke_decisive_margin_slack", "histogram",
+                "Slack below the decisive-band prune bound for skipped "
+                "survivors (logit units; small slack = near-threshold "
+                "skip)", margin_slack_samples))
+            if similarity_samples:
+                out.append(FamilySnapshot(
+                    "duke_property_similarity", "histogram",
+                    "Per-property comparator similarity of sampled "
+                    "decisions (best value pair)", similarity_samples))
         return out
 
     return collect

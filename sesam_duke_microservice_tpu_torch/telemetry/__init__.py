@@ -17,8 +17,8 @@ registries exist at runtime:
 Every family here has the JAX package's name, type and label keys, and
 only families whose writer exists in the port are declared: the JIT /
 AOT / prewarm families (XLA compile caches), the dispatch, follower,
-epoch and replica families, the stream-append counter and the mesh
-families wait for the modules that write them.
+epoch and replica families and the mesh families wait for the modules
+that write them.
 
 Naming scheme: every family is ``duke_<subsystem>_<metric>[_total]`` with
 base units (seconds, bytes, rows); latency histograms share the fixed
@@ -85,6 +85,16 @@ RETRIEVAL_ESCALATIONS = GLOBAL.counter(
     "Retrieval-width escalation re-runs by saturated stage "
     "(top_k = brute force, top_c = flat ANN, ivf = cell probe)",
     ("stage",),
+)
+
+# -- streamed append (engine/device_matcher.py) ------------------------------
+# Unlocked: incremented by the one thread that runs a workload's batch
+# (the QUERY_BLOCKS discipline).
+STREAM_APPEND_SLICES = GLOBAL.counter(
+    "duke_stream_append_slices_total",
+    "Device-corpus append slices flushed under the extract/upload overlap "
+    "(DUKE_STREAM_APPEND)",
+    locked=False,
 )
 
 FAULTS_INJECTED = GLOBAL.counter(

@@ -18,7 +18,8 @@ from the same PhaseRecorders — sum to ``busy_seconds_total()`` within
 float tolerance, because ``note_busy`` receives exactly the four phase
 durations each batch observed.  The ledger survives config reloads (it
 is process-global) while PhaseRecorders die with their workloads, so
-after a reload the busy total may exceed the per-workload sum.
+``/debug/costs`` reports the residual as ``unattributed_seconds``
+instead of pretending the books always balance.
 
 Utilization: ``duke_device_utilization`` = busy seconds inside a
 sliding window / window wall time — the busy fraction the autoscaler
@@ -35,7 +36,7 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 from .registry import FamilySnapshot
 
@@ -123,6 +124,21 @@ def _reset_for_tests() -> None:
         for cell in _slots:
             cell[0], cell[1] = -1, 0.0
         _started = time.monotonic()
+
+
+def snapshot(now: Optional[float] = None) -> Dict[str, object]:
+    """Process-wide ledger state for ``/debug/costs``."""
+    now = time.monotonic() if now is None else now
+    with _lock:
+        busy, comp = _busy_total, _compile_total
+        on = _enabled
+    return {
+        "enabled": on,
+        "busy_seconds_total": round(busy, 6),
+        "compile_seconds_total": round(comp, 6),
+        "utilization": round(utilization(now), 6),
+        "window_seconds": WINDOW_S,
+    }
 
 
 def collect() -> List[FamilySnapshot]:

@@ -263,6 +263,34 @@ def live_arrays_bytes() -> Optional[int]:
         return None
 
 
+def debug_snapshot() -> Dict[str, object]:
+    """``GET /debug/memory`` payload (the JAX package's keys; the port has
+    no arena, so no row carries its ``logical`` marker and there is no
+    ``arena`` block).  ``live_arrays_bytes`` is the caching allocator's
+    ``memory_allocated`` on the card, the cross-check of ``total_bytes``
+    (None in a CPU-only process)."""
+    budget, source = budget_bytes()
+    total, corpus, rows = _totals()
+    headroom = budget - total
+    return {
+        "budget_bytes": int(budget),
+        "budget_source": source,
+        "total_bytes": int(total),
+        "corpus_bytes": int(corpus),
+        "headroom_bytes": int(headroom),
+        "growth_bytes_per_day": round(growth_bytes_per_day(), 3),
+        "overflow_days": round(overflow_days(headroom), 3),
+        "workloads": [
+            {"kind": kind, "workload": name, "component": comp,
+             "bytes": int(nbytes)}
+            for kind, name, comp, nbytes in rows if kind != "process"
+        ],
+        "process": {comp: int(nbytes)
+                    for kind, _n, comp, nbytes in rows if kind == "process"},
+        "live_arrays_bytes": live_arrays_bytes(),
+    }
+
+
 def _reset_for_tests() -> None:
     with _REG_LOCK:
         _ENTRIES.clear()

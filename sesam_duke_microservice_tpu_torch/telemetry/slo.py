@@ -11,10 +11,12 @@ push-delivery consumer-lag contract can consume at runtime:
     shared ``DEFAULT_LATENCY_BUCKETS`` ladder, a monotone violation
     counter, a coarse 10 s slot ring of request counts covering the
     longest window, and the **burn-rate ring**: a bounded deque of
-    violation timestamps from which the 5 m / 1 h windowed violation
-    counts are recomputed exactly at scrape time.  (The JAX package's
-    ring also keeps each violation's trace id for ``/debug/slo``; the
-    port has neither a tracer nor that route yet.)
+    ``(timestamp, exemplar trace id)`` violation entries from which the
+    5 m / 1 h windowed violation counts are recomputed exactly at scrape
+    time.  The exemplar is the sampled trace id active when the
+    violating request was recorded (None when unsampled), so
+    ``GET /debug/slo`` can link a burn-rate alert straight to a causal
+    tree in ``/debug/traces``.
   * burn rate (Google SRE Workbook multi-window discipline): the
     fraction of the error budget consumed per unit time —
     ``(violations/requests in window) / (1 - target)``.  A burn rate of
@@ -85,8 +87,8 @@ class SloTracker:
         # [slot_index, requests] per 10s slot, lazily recycled
         self._slots: List[List[float]] = [
             [-1, 0] for _ in range(_N_SLOTS)]  # guarded by: self._lock
-        # the burn-rate ring: monotonic violation timestamps
-        self._violation_ts: Deque[float] = deque(
+        # the burn-rate ring: (monotonic ts, exemplar trace id or None)
+        self._violation_ts: Deque[Tuple[float, Optional[str]]] = deque(
             maxlen=_VIOLATION_RING)  # guarded by: self._lock
         self.violations_total = 0  # guarded by: self._lock
         # latency histogram on the shared ladder (+Inf slot last)
@@ -95,8 +97,14 @@ class SloTracker:
         self._count = 0  # guarded by: self._lock
 
     def record_batch(self, latencies: Sequence[float],
-                     now: Optional[float] = None) -> None:
-        """One lock acquisition for a whole dispatched microbatch."""
+                     now: Optional[float] = None,
+                     trace_ids: Optional[Sequence[Optional[str]]] = None
+                     ) -> None:
+        """One lock acquisition for a whole dispatched microbatch.
+
+        ``trace_ids`` (parallel to ``latencies`` when given) supplies
+        the sampled exemplar trace id per request; None entries mean
+        the request's trace was unsampled."""
         if not latencies:
             return
         now = time.monotonic() if now is None else now
@@ -106,16 +114,18 @@ class SloTracker:
             if cell[0] != slot_idx:
                 cell[0], cell[1] = slot_idx, 0
             cell[1] += len(latencies)
-            for lat in latencies:
+            for i, lat in enumerate(latencies):
                 self._counts[bisect_left(DEFAULT_LATENCY_BUCKETS, lat)] += 1
                 self._sum += lat
                 self._count += 1
                 if lat > self.objective_s:
                     self.violations_total += 1
-                    self._violation_ts.append(now)
+                    exemplar = trace_ids[i] if trace_ids else None
+                    self._violation_ts.append((now, exemplar))
 
-    def record(self, latency_s: float, now: Optional[float] = None) -> None:
-        self.record_batch((latency_s,), now)
+    def record(self, latency_s: float, now: Optional[float] = None,
+               trace_id: Optional[str] = None) -> None:
+        self.record_batch((latency_s,), now, (trace_id,))
 
     def scrape(self, now: Optional[float] = None):
         """(hist_samples_state, violations_total, {window: (requests,
@@ -132,11 +142,19 @@ class SloTracker:
                 requests = sum(int(c[1]) for c in self._slots
                                if c[0] >= min_slot)
                 cutoff = now - wsec
-                violations = sum(1 for t in self._violation_ts
+                violations = sum(1 for t, _tid in self._violation_ts
                                  if t >= cutoff)
                 rate = ((violations / requests) / budget) if requests else 0.0
                 windows[wname] = (requests, violations, rate)
         return (counts, total, count), violations_total, windows
+
+    def recent_violations(self, limit: int = 20
+                          ) -> List[Tuple[float, Optional[str]]]:
+        """Newest-first (monotonic ts, exemplar trace id) entries."""
+        with self._lock:
+            tail = list(self._violation_ts)[-limit:]
+        tail.reverse()
+        return tail
 
 
 _TRACKERS: Dict[Tuple[str, str, str], SloTracker] = {}  # guarded by: _REG_LOCK [writes]
@@ -260,3 +278,40 @@ def collect() -> List[FamilySnapshot]:
             "Age of the oldest link-feed row written since a ?since= "
             "consumer last drained the feed (0 when caught up)", lag),
     ]
+
+
+def debug_snapshot(limit: int = 20) -> Dict[str, object]:
+    """``GET /debug/slo`` payload: per-tracker objective, totals and
+    burn-rate windows plus the newest violations with exemplar trace
+    links (``/debug/traces/<id>``) where the violating request's trace
+    was sampled."""
+    with _REG_LOCK:
+        trackers = sorted(_TRACKERS.items())
+    now_mono = time.monotonic()
+    now_unix = time.time()
+    out = []
+    for (signal, kind, name), t in trackers:
+        _hist, v_total, windows = t.scrape(now_mono)
+        violations = []
+        for ts, trace_id in t.recent_violations(limit):
+            violations.append({
+                "unix_ts": round(now_unix - (now_mono - ts), 3),
+                "age_seconds": round(now_mono - ts, 3),
+                "trace_id": trace_id,
+                "trace": f"/debug/traces/{trace_id}" if trace_id else None,
+            })
+        out.append({
+            "signal": signal,
+            "kind": kind,
+            "workload": name,
+            "objective_seconds": t.objective_s,
+            "target": t.target,
+            "violations_total": v_total,
+            "windows": {
+                wname: {"requests": req, "violations": viol,
+                        "burn_rate": round(rate, 6)}
+                for wname, (req, viol, rate) in windows.items()
+            },
+            "recent_violations": violations,
+        })
+    return {"trackers": out}

@@ -1,7 +1,7 @@
-"""Per-block device traces (the ``trace_batch`` level of the JAX package's
-``utils/profiling.py``, on ``torch.profiler``).
+"""Device-timeline captures (the JAX package's ``utils/profiling.py`` on
+``torch.profiler``), at two levels.
 
-``PROFILE_TRACE_DIR=/path`` wraps the first ``PROFILE_TRACE_BATCHES``
+**Per-block traces.**  ``PROFILE_TRACE_DIR=/path`` wraps the first ``PROFILE_TRACE_BATCHES``
 (default 3) scored blocks in ``torch.profiler.profile`` (CPU and, where
 there is a card, CUDA activity) with a ``record_function`` span named
 after the block, and writes one Chrome trace per block into the
@@ -13,17 +13,38 @@ The window holds a block's dispatch and the wait for its results
 the profiler records only kernels launched while it is open, so while a
 trace is armed (``trace_armed``) the scorer holds back its one-block
 lookahead and dispatches each traced block inside its own window.
+
+**On-demand capture.**  ``start_capture(seconds)`` (``POST
+/debug/profile?seconds=N``) opens a ``torch.profiler`` capture now, for N
+seconds, with no restart and no env preconfiguration; a timer thread
+stops it and writes one Chrome trace (``capture-<pid>-<n>.json``) into
+``PROFILE_TRACE_DIR`` or a fresh temporary directory.  While it is live,
+tracing spans created with ``annotate=True`` (the engine's encode and
+persist phases, the streamed append) also open
+``torch.profiler.record_function`` ranges.  The capture is process-wide:
+CUPTI records every kernel the process launches, whichever thread
+launched it, and the CPU-side operators and ranges of the threads that
+run while it is live (the scheduler's dispatcher, the HTTP handlers).
+Only one capture runs at a time; a second ``start_capture`` raises
+``CaptureActiveError``.  A per-block trace armed at the same moment
+would collide with it (the profiler is one per process), so leave
+``PROFILE_TRACE_DIR``'s budget spent while capturing on demand.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import logging
 import os
 import re
+import tempfile
 import threading
+import time
+from typing import Any, Dict, Optional
 
 from ..env import env_int, env_str
+from ..telemetry import tracing as _tracing
 
 logger = logging.getLogger("profiling")
 
@@ -110,3 +131,199 @@ def trace_batch(label: str):
                             n, _trace_budget(), label, path)
         except Exception:
             logger.exception("device trace teardown failed (block continues)")
+
+
+# -- on-demand capture (POST /debug/profile) ---------------------------------
+
+_CAPTURE_SEQ = itertools.count(1)
+
+
+class _Session:
+    """One ``torch.profiler`` session on a thread of its own.
+
+    The profiler must stop on the thread that started it (stopping it
+    from another thread finds no session there and crashes the process),
+    so the session's thread starts it, waits for the deadline or an
+    early stop, then stops it and writes the Chrome trace."""
+
+    def __init__(self, logdir: str, seconds: float):
+        self.logdir = logdir
+        self.seconds = seconds
+        self.path: Optional[str] = None
+        self.error: Optional[BaseException] = None
+        self._started = threading.Event()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="profile-capture")
+
+    def start(self) -> None:
+        self._thread.start()
+        self._started.wait()
+        if self.error is not None:
+            self._thread.join()
+            raise self.error
+
+    def _run(self) -> None:
+        try:
+            import torch
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                activities.append(ProfilerActivity.CUDA)
+            prof = profile(activities=activities)
+            prof.start()
+        except BaseException as e:  # reported by start()
+            self.error = e
+            self._started.set()
+            return
+        self._started.set()
+        self._stop.wait(self.seconds)
+        try:
+            prof.stop()
+            os.makedirs(self.logdir, exist_ok=True)
+            path = os.path.join(
+                self.logdir,
+                f"capture-{os.getpid()}-{next(_CAPTURE_SEQ):04d}.json")
+            prof.export_chrome_trace(path)
+            self.path = path
+        except BaseException as e:  # reported by stop()
+            self.error = e
+
+    def stop(self) -> str:
+        self._stop.set()
+        self._thread.join()
+        if self.error is not None:
+            raise self.error
+        return self.path
+
+
+# the live session of the on-demand capture (None when idle)
+_SESSION: Optional[_Session] = None
+
+
+# seam for tests: the two torch.profiler touch points, monkeypatchable so
+# endpoint tests never spin a real profiler session
+def profiler_start(logdir: str, seconds: float) -> None:
+    """Open a process-wide ``torch.profiler`` session (CPU activity, and
+    CUDA activity where there is a card) that ends by itself after
+    ``seconds``."""
+    global _SESSION
+    session = _Session(logdir, seconds)
+    session.start()
+    _SESSION = session
+
+
+def profiler_stop() -> str:
+    """End the session and return the Chrome trace file it wrote."""
+    global _SESSION
+    session, _SESSION = _SESSION, None
+    return session.stop()
+
+
+MAX_CAPTURE_SECONDS = 600.0
+
+_capture_lock = threading.Lock()
+_capture: Optional[Dict[str, Any]] = None
+
+
+def capture_status() -> Optional[Dict[str, Any]]:
+    """The live capture's public info, or None."""
+    with _capture_lock:
+        if _capture is None:
+            return None
+        info = {k: _capture[k] for k in
+                ("dir", "seconds", "started_unix", "owner",
+                 "deadline_unix")}
+        info["remaining_seconds"] = round(
+            max(0.0, _capture["until"] - time.monotonic()), 3)
+        return info
+
+
+def start_capture(seconds: float, logdir: Optional[str] = None,
+                  owner: str = "app") -> Dict[str, Any]:
+    """Open a ``torch.profiler`` capture now for ``seconds`` seconds.
+
+    A timer thread ends the capture (``stop_capture``), and while it is
+    live the tracing layer bridges its ``annotate=True`` spans into
+    ``record_function`` ranges.  A second ``start_capture`` raises
+    ``CaptureActiveError`` carrying the live capture's owner and deadline
+    (the endpoint's 409 body); a failure to start propagates to the
+    caller (the endpoint answers 500) with no state latched.
+    """
+    seconds = float(seconds)
+    if not (0 < seconds <= MAX_CAPTURE_SECONDS):
+        raise ValueError(
+            f"capture seconds must be in (0, {MAX_CAPTURE_SECONDS:g}]"
+        )
+    global _capture
+    with _capture_lock:
+        if _capture is not None:
+            raise CaptureActiveError(
+                f"a device capture (owner={_capture['owner']}) is "
+                f"already running into {_capture['dir']}",
+                owner=_capture["owner"],
+                deadline_unix=_capture["deadline_unix"],
+                remaining_seconds=round(
+                    max(0.0, _capture["until"] - time.monotonic()), 3),
+            )
+        directory = (logdir or trace_dir()
+                     or tempfile.mkdtemp(prefix="duke-profile-"))
+        profiler_start(directory, seconds)
+        _tracing.set_device_annotations(True)
+        timer = threading.Timer(seconds, stop_capture)
+        timer.daemon = True
+        _capture = {
+            "dir": directory,
+            "seconds": seconds,
+            "started_unix": round(time.time(), 3),
+            "deadline_unix": round(time.time() + seconds, 3),
+            "until": time.monotonic() + seconds,
+            "owner": owner,
+            "timer": timer,
+        }
+        timer.start()
+        logger.info("on-demand device capture started: %.3gs into %s "
+                    "(owner=%s)", seconds, directory, owner)
+        return {k: _capture[k] for k in
+                ("dir", "seconds", "started_unix", "deadline_unix",
+                 "owner")}
+
+
+def stop_capture() -> Optional[Dict[str, Any]]:
+    """End the live capture (timer callback; also callable early).
+    Returns the finished capture's info (with ``trace_file``, the Chrome
+    trace written), or None if none was live."""
+    global _capture
+    with _capture_lock:
+        if _capture is None:
+            return None
+        done, _capture = _capture, None
+        done.pop("until", None)
+        timer = done.pop("timer", None)
+        if timer is not None:
+            timer.cancel()
+        _tracing.set_device_annotations(False)
+        try:
+            done["trace_file"] = profiler_stop()
+            logger.info("on-demand device capture finished: %s",
+                        done["trace_file"])
+        except Exception:
+            logger.exception("on-demand capture teardown failed")
+            done["error"] = "profiler stop failed (see logs)"
+        return done
+
+
+class CaptureActiveError(RuntimeError):
+    """A second ``start_capture`` while one is live (endpoint: 409).
+
+    Carries the live capture's owner and deadline so the 409 body can say
+    who holds the profiler and until when."""
+
+    def __init__(self, message: str, owner: Optional[str] = None,
+                 deadline_unix: Optional[float] = None,
+                 remaining_seconds: Optional[float] = None):
+        super().__init__(message)
+        self.owner = owner
+        self.deadline_unix = deadline_unix
+        self.remaining_seconds = remaining_seconds

@@ -7,9 +7,12 @@ for the intersection kernel also every id-set kind there; for the
 segment-max kernel one to three tiles of 1024 and 2048 rows, 8 to 1024
 bins a tile, partly filled and full query tiles, group filtering on and
 off, masked bins and a duplicate cluster), the dd
-rescorer on ``cuda`` against the same program on ``cpu``, and the
+rescorer on ``cuda`` against the same program on ``cpu``, the
 ``device`` and ``ann`` services on ``cuda`` against the same services on
-``cpu``.
+``cpu``, and the one-pair shapes an explain call launches (the tile
+kernels at Q = C = 1, the gathered Myers kernel at Q = 1 and K = 1 or the
+live top width) with the mixed schema's ``device_breakdown`` on ``cuda``
+against ``cpu``.
 
 Every test here needs an NVIDIA GPU and skips without one.  The module
 imports no JAX, so on a machine without it run::
@@ -225,6 +228,152 @@ def test_intersection_kernel_equals_plain_version(g, garbage, kind,
                                                                 cg, cn))
     assert int(got[1, 4]) == g
     assert ck.LAUNCHES["intersect_tile"] == 1
+
+
+# -- one-pair shapes: the explain replay's launches ----------------------------
+# ``POST /explain`` runs the per-property logits and the dd replay for ONE
+# pair, so on the card the tile kernels launch at Q = C = 1 and the
+# gathered Myers kernel at Q = 1, K = 1 (the dd replay) or K = the live
+# top width (the ``ann`` explain's one-query rescore).  Each must equal its
+# plain version there, bit for bit, with exactly one launch.
+
+@pytest.mark.parametrize("l", [1, 24, 32, 64, 256])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_myers_tile_kernel_at_one_pair(l, seed, cuda_device):
+    qc, ql, cc, cl = (t[i:i + 1].contiguous() for t, i in zip(
+        _inputs(4, 4, l, 900 + seed, cuda_device), (seed, seed, 0, 0)))
+    ck.reset_launch_counts()
+    got = ck.myers_distance_tiles(qc, ql, cc, cl)
+    torch.cuda.synchronize()
+    assert got.shape == (1, 1)
+    assert torch.equal(got, ck.myers_distance_tiles_reference(qc, ql, cc,
+                                                              cl))
+    assert sum(ck.LAUNCHES.values()) == 1
+
+
+@pytest.mark.parametrize("l", [1, 16, 32])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_jw_kernel_at_one_pair(l, seed, cuda_device):
+    qc, ql, cc, cl = (t[i:i + 1].contiguous() for t, i in zip(
+        _inputs(4, 4, l, 910 + seed, cuda_device), (seed, seed, 1, 1)))
+    cc[0, :1] = qc[0, :1]
+    equal = torch.zeros((1, 1), dtype=torch.bool, device=cuda_device)
+    kw = dict(prefix_scale=0.1, boost_threshold=0.7, max_prefix=4)
+    ck.reset_launch_counts()
+    got = ck.jaro_winkler_sim_tiles(qc, ql, cc, cl, equal, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ck.jaro_winkler_sim_tiles_reference(
+        qc, ql, cc, cl, equal, **kw))
+    assert ck.LAUNCHES["jw_tile"] == 1
+
+
+@pytest.mark.parametrize("l,k", [(1, 1), (24, 1), (32, 1), (24, 64),
+                                 (32, 64), (32, 128)])
+def test_gathered_myers_kernel_at_one_query(l, k, cuda_device):
+    # _inputs needs three rows a side for its fixed lengths: cut one query
+    qc, ql, pool, pool_len = _inputs(4, 9, l, 920 + l + k, cuda_device)
+    qc, ql = qc[1:2].contiguous(), ql[1:2].contiguous()
+    g = torch.Generator().manual_seed(k)
+    rows = torch.randint(0, 9, (1, k), generator=g).to(cuda_device)
+    cc = pool[rows].contiguous()
+    cl = pool_len[rows].contiguous()
+    ck.reset_launch_counts()
+    got = ck.myers_distance_gathered(qc, ql, cc, cl)
+    torch.cuda.synchronize()
+    assert got.shape == (1, k)
+    assert torch.equal(got, ck.myers_distance_gathered_reference(
+        qc, ql, cc, cl))
+    assert ck.LAUNCHES["myers_gathered"] == 1
+
+
+@pytest.mark.parametrize("g", [1, 16, 24, 64, 256])
+@pytest.mark.parametrize("same", [False, True])
+def test_intersection_kernel_at_one_pair(g, same, cuda_device):
+    # _sets pins its first two rows' counts (0 and g): cut row 1, a full set
+    qg, qn = (t[1:2].contiguous()
+              for t in _sets(3, g, 930 + g, cuda_device, False))
+    cg, cn = (t[2:3].contiguous()
+              for t in _sets(3, g, 931 + g, cuda_device, True))
+    if same:
+        cg, cn = qg.clone(), qn.clone()
+    ck.reset_launch_counts()
+    got = ck.set_intersection_tiles(qg, qn, cg, cn)
+    torch.cuda.synchronize()
+    assert got.shape == (1, 1)
+    assert torch.equal(got, ck.set_intersection_tiles_reference(qg, qn,
+                                                                cg, cn))
+    if same:
+        assert int(got[0, 0]) == int(qn[0])
+    assert ck.LAUNCHES["intersect_tile"] == 1
+
+
+def test_explain_on_cuda_matches_cpu(cuda_device, monkeypatch):
+    """The mixed schema's ``device_breakdown`` on the card (the hand
+    kernels at one-pair shapes, the gathered Myers kernel at K = 1 in the
+    dd replay) against the same call on a CPU index (the plain versions):
+    per-property f32 logits within ``certified_f32_margin``, the same
+    band verdict and ``decided_path``, and the kernels launched."""
+    from sesam_duke_microservice_tpu_torch.engine import explain as X
+    from sesam_duke_microservice_tpu_torch.engine.workload import (
+        build_workload,
+    )
+    from sesam_duke_microservice_tpu_torch.ops import bounds as B
+
+    props = [("name", "levenshtein", 0.3, 0.9),
+             ("given", "jaro-winkler", 0.35, 0.88),
+             ("address", "qgram", 0.3, 0.85),
+             ("employer", "jaccard", 0.4, 0.7),
+             ("ssn", "exact", 0.3, 0.95),
+             ("person", "person-name", 0.4, 0.8)]
+    body = "".join(
+        f"<property><name>{p.upper()}</name><comparator>{c}</comparator>"
+        f"<low>{lo}</low><high>{hi}</high></property>"
+        for p, c, lo, hi in props)
+    cols = "".join(f'<column name="{p}" property="{p.upper()}"/>'
+                   for p, _, _, _ in props)
+    xml = ('<DukeMicroService><Deduplication name="m" '
+           'link-database-type="in-memory"><duke><schema>'
+           "<threshold>0.8</threshold><maybe-threshold>0.6</maybe-threshold>"
+           f"{body}</schema><data-source class=\"io.sesam.dukemicroservice."
+           'IncrementalDeduplicationDataSource"><param name="dataset-id" '
+           f'value="crm"/>{cols}</data-source></duke></Deduplication>'
+           "</DukeMicroService>")
+    ents = [{"_id": str(i), "name": n, "given": gv, "address": a,
+             "employer": e, "ssn": str(i % 3), "person": pn}
+            for i, (n, gv, a, e, pn) in enumerate([
+                ("acme corp", "ole", "kirkeveien 5", "acme oslo",
+                 "ole olsen"),
+                ("acme corporation", "ola", "kirkeveien 50", "acme oslo",
+                 "ola olsen"),
+                ("globex", "kari", "tollbugata 1", "globex oslo",
+                 "kari nordmann"),
+                ("globex inc", "karin", "tollbugata 11", "globex oslo",
+                 "k nordmann")])]
+    sc = parse_config(xml)
+    out = []
+    for device in ("cpu", cuda_device):
+        wl = build_workload(sc.deduplications["m"], sc, device=device,
+                            persistent=False)
+        try:
+            with wl.lock:
+                wl.process_batch("crm", ents)
+            r1, r2 = (wl.index.find_record_by_id(f"crm__{i}")
+                      for i in (0, 1))
+            ck.reset_launch_counts()
+            out.append(X.device_breakdown(wl.index, r1, r2))
+            launches = dict(ck.LAUNCHES)
+            margin = B.certified_f32_margin(wl.index.plan)
+        finally:
+            wl.close()
+    cpu, gpu = out
+    for a, b in zip(cpu["per_property"], gpu["per_property"]):
+        assert abs(a["logit"] - b["logit"]) <= margin, a["name"]
+    for key in ("band_verdict", "decided_path", "dd_unsafe"):
+        assert gpu.get(key) == cpu.get(key), key
+    for name in ("myers_tile", "jw_tile", "intersect_tile"):
+        assert launches[name] >= 1, (name, launches)
+    if "dd_logit" in gpu:
+        assert launches["myers_gathered"] >= 1, launches
 
 
 def test_kernel_rejects_what_it_cannot_take(cuda_device):

@@ -51,6 +51,12 @@ def test_importing_the_port_loads_no_jax():
         "import sesam_duke_microservice_tpu_torch.service.metrics\n"
         "import sesam_duke_microservice_tpu_torch.service.homepage\n"
         "import sesam_duke_microservice_tpu_torch.telemetry.logctx\n"
+        "import sesam_duke_microservice_tpu_torch.telemetry.tracing\n"
+        "import sesam_duke_microservice_tpu_torch.telemetry.decisions\n"
+        "import sesam_duke_microservice_tpu_torch.telemetry.rings\n"
+        "import sesam_duke_microservice_tpu_torch.telemetry.env\n"
+        "import sesam_duke_microservice_tpu_torch.engine.explain\n"
+        "import sesam_duke_microservice_tpu_torch.service.debug\n"
         "print(json.dumps(sorted(set(sys.modules) - before)))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -70,6 +76,10 @@ def test_importing_the_port_loads_no_jax():
     for mod in ("telemetry", "telemetry.registry", "telemetry.costs",
                 "telemetry.slo", "telemetry.memory", "telemetry.logctx",
                 "links.replica", "service.metrics", "service.homepage"):
+        assert f"sesam_duke_microservice_tpu_torch.{mod}" in loaded
+    # tracing, decisions, explain and the /debug surface load with the app
+    for mod in ("telemetry.tracing", "telemetry.decisions",
+                "telemetry.rings", "engine.explain", "service.debug"):
         assert f"sesam_duke_microservice_tpu_torch.{mod}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -138,9 +148,10 @@ def _imports(path: Path):
 
 def test_no_source_file_imports_jax_or_the_jax_package():
     # chip_smoke.py imports tests/wide_units.py and runs
-    # tests/torch_crash_recovery_child.py; myers_ab.py imports chip_smoke.py
+    # tests/torch_crash_recovery_child.py; myers_ab.py and telemetry_ab.py
+    # import chip_smoke.py
     files = sorted(PORT.rglob("*.py")) + [
-        REPO / "chip_smoke.py", REPO / "myers_ab.py",
+        REPO / "chip_smoke.py", REPO / "myers_ab.py", REPO / "telemetry_ab.py",
         REPO / "tests" / "wide_units.py",
         REPO / "tests" / "torch_crash_recovery_child.py"]
     assert len(files) > 15

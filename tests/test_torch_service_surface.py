@@ -13,12 +13,15 @@ traffic; then:
   * ``/stats`` is equal except ``platform``, ``device_count``,
     ``uptime_seconds`` and the clocks (the ``*_seconds`` fields and the
     scheduler's two timing estimates, ``sec_per_record_ewma`` and
-    ``avg_wait_ms``); the JAX app runs with ``DUKE_DECISION_RECORD=0``,
-    so its ``decisions`` block (not ported) is absent;
+    ``avg_wait_ms``); both apps record decisions at the JAX default, and
+    each workload's ``decisions`` block compares on its stable fields
+    (``outcomes``, ``disagreements``, ``latched``), not ``ring``, which
+    holds the randomly sampled records too;
   * the port's ``/metrics`` families are a subset of the JAX app's with
-    equal types and label keys (``duke_build_info`` carries ``torch``
-    where the JAX package carries ``jax``), and the deterministic
-    counters are equal;
+    equal types and label names -- the names each registry declares, or
+    for a collector's family the label keys of its samples
+    (``duke_build_info`` carries ``torch`` where the JAX package carries
+    ``jax``) -- and the deterministic counters are equal;
   * the chunked ``?since=`` feed is byte-identical at ``FEED_PAGE_SIZE``
     1, 7 and 5000, chunk framing included, and so is the HTTP/1.0
     buffered feed;
@@ -54,6 +57,7 @@ import urllib.request
 import numpy as np
 import pytest
 
+from sesam_duke_microservice_tpu import telemetry as jtelemetry
 from sesam_duke_microservice_tpu.core.config import parse_config as jparse
 from sesam_duke_microservice_tpu.links import base as jlinkbase
 from sesam_duke_microservice_tpu.service.app import DukeApp as JApp
@@ -194,9 +198,6 @@ def _fixed_clocks(monkeypatch):
     for knob in ("FEED_PAGE_SIZE", "MAX_REQUEST_BYTES", "DUKE_SCHEDULER",
                  "DUKE_FAULTS"):
         monkeypatch.delenv(knob, raising=False)
-    # the JAX decision monitors have no port counterpart yet: off, so
-    # /stats carries no ``decisions`` block on either side
-    monkeypatch.setenv("DUKE_DECISION_RECORD", "0")
     # the feature cache is off by default in the port (on in the JAX
     # package): off on both sides, so /stats compares its block
     monkeypatch.setenv("DUKE_FEATURE_CACHE_MB", "0")
@@ -418,6 +419,11 @@ def comparable_stats(payload):
             value = row.pop(key)
             if isinstance(value, dict):  # phase_seconds: the phases seen
                 row[key + "_phases"] = sorted(value)
+    for row in out["workloads"]:
+        decisions = row.get("decisions")
+        if decisions is not None:  # ring: the sampled records too
+            row["decisions"] = {k: decisions[k] for k in
+                                ("outcomes", "disagreements", "latched")}
     sched = out.get("scheduler")
     if sched is not None:
         for key in _SCHEDULER_CLOCKS:
@@ -458,6 +464,7 @@ def test_stats_equal_jax(pair):
     assert set(people["phase_seconds"]) == {
         "encode", "retrieve", "score", "persist"}
     assert port["scheduler"]["workloads"][0]["microbatches"] >= 1
+    assert sum(people["decisions"]["outcomes"].values()) > 0
     assert comparable_stats(port) == comparable_stats(jax_side)
 
 
@@ -490,11 +497,25 @@ def parse_metrics(text):
 
 
 # families whose values are the same function of the same traffic in
-# both packages (the app's own registry, or a process-wide counter read
-# as a before/after delta)
+# both packages, from each app's own registry or collector (so only this
+# test's traffic wrote them)
 _DETERMINISTIC = ("duke_http_requests_total", "duke_engine_batches_total",
                   "duke_engine_records_processed_total", "duke_corpus_rows",
-                  "duke_links_rows")
+                  "duke_links_rows", "duke_decisions_total",
+                  "duke_decision_disagreements_total", "duke_pair_logit")
+# process-wide counters, compared as before/after deltas of the traffic
+_DELTAS = ("duke_snapshot_fallbacks_total",
+           "duke_corpus_capacity_growths_total",
+           "duke_stream_append_slices_total")
+
+
+def declared_labels(*registries):
+    """{family: declared label names} of the registries' families: what
+    a family's samples may carry, known without any sample -- so the
+    check cannot depend on which earlier tests in the process wrote
+    process-wide (``GLOBAL``) families on one side only."""
+    return {name: fam.labelnames for reg in registries
+            for name, fam in reg._families.items()}
 
 
 def test_metrics_families_subset_of_jax_with_equal_values(pair):
@@ -506,17 +527,31 @@ def test_metrics_families_subset_of_jax_with_equal_values(pair):
                for u in urls]
     (jtypes, jkeys, jvalues), (ttypes, tkeys, tvalues) = scraped
     assert set(ttypes) <= set(jtypes), sorted(set(ttypes) - set(jtypes))
+    jdecl = declared_labels(apps[0].metrics, jtelemetry.GLOBAL)
+    tdecl = declared_labels(apps[1].metrics, ttelemetry.GLOBAL)
     for fam, mtype in ttypes.items():
         assert jtypes[fam] == mtype, fam
         if fam == "duke_build_info":
             assert tkeys[fam] == {("version", "torch", "platform")}
             assert jkeys[fam] == {("version", "jax", "platform")}
             continue
-        assert tkeys[fam] <= jkeys[fam] | {()}, (fam, tkeys[fam], jkeys[fam])
+        if fam in tdecl:
+            assert tdecl[fam] == jdecl.get(fam), (fam, tdecl[fam],
+                                                  jdecl.get(fam))
+            assert tkeys[fam] <= {tdecl[fam]}, (fam, tkeys[fam])
+        else:
+            # a collector's family: its samples come from this test's
+            # apps, or from process-wide ledgers this traffic fed on both
+            # sides
+            assert fam not in jdecl, fam
+            assert tkeys[fam] <= jkeys[fam] | {()}, (fam, tkeys[fam],
+                                                     jkeys[fam])
     for fam in _DETERMINISTIC:
-        port = {k: v for k, v in tvalues.items() if k[0] == fam}
+        names = (fam, fam + "_bucket", fam + "_sum", fam + "_count")
+        port = {k: v for k, v in tvalues.items() if k[0] in names}
         assert port, fam
-        assert port == {k: v for k, v in jvalues.items() if k[0] == fam}, fam
+        assert port == {k: v for k, v in jvalues.items()
+                        if k[0] in names}, fam
     assert tvalues[("duke_http_requests_total", (
         ("route", "/deduplication/:name/:datasetId"), ("method", "POST"),
         ("status", "200")))] == 4
@@ -525,8 +560,7 @@ def test_metrics_families_subset_of_jax_with_equal_values(pair):
         return {k: v - prior.get(k, 0.0) for k, v in values.items()
                 if k[0] == fam and v != prior.get(k, 0.0)}
 
-    for fam in ("duke_snapshot_fallbacks_total",
-                "duke_corpus_capacity_growths_total"):
+    for fam in _DELTAS:
         assert delta(tvalues, before[1], fam) == delta(jvalues, before[0],
                                                        fam), fam
     # the engine ran and was attributed: phases, costs, device bytes
