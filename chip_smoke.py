@@ -142,8 +142,37 @@ Phases, each fatal on failure:
    verdict and ``decided_path`` printed with the one-pair launches;
    ``/debug/decisions`` and ``/stats`` ``decisions`` not empty; the same
    for one ``ann`` pair (capacity 524,288), its retrieval route printed;
+8b. the selfcheck phase, at production knobs: (a) the device arena:
+   three stresstest tenants of 65,536 records in one app, the budget
+   (``DUKE_HBM_BUDGET_MB``) set to 2.5 tenants' leased bytes after the
+   first, so the third's admission spills the coldest; the spills and
+   fault-ins, ``memory_allocated`` around each spill (it must fall by at
+   least the spilled bytes), the query POST that faults the spilled
+   tenant back in beside the same POST resident; that tenant's feed
+   byte-identical to a ``DUKE_ARENA=0`` app's on the same traffic (link
+   clocks are counters per traffic); an app whose budget is below one
+   2,048-record corpus must answer 503 with ``Retry-After``; (b) the
+   canary prober: ``run_cycle`` on a stresstest app holding the spilled
+   tenant's corpus, after its ingest and after each query POST, and on
+   the first mixed app of (c): every canary verdict equal to its oracle
+   verdict, no nvcc or g++ build, each cycle's wall and launches printed;
+   the stresstest user feed byte-identical to the ``DUKE_PROBE=0``
+   control's; (c) ``DUKE_NUMCHECK``: 32,768 mixed records in four fresh
+   apps, on / 0 / 0 / on: checked events (certified events and sampled
+   certified rejects), 0 violations, feeds byte-identical, records/s on
+   against off; (d) IVF: the ``ann`` phase's corpus (capacity 524,288)
+   and traffic with ``DUKE_IVF=1``: the training seconds, the cells and
+   ``nprobe`` of the auto policy, the escalations and flat-fallback
+   scans, the query POST's wall and device time (``torch.profiler``)
+   beside the flat ``ann`` app's, recall against the flat scan and the
+   brute-force feed (every IVF link in it with an equal confidence), and
+   two k-means trainings on the card equal bit for bit;
 9. print the per-kernel JSON line, the card's name and power limit, and
    the result line ``{"ok": true, "device": {...}}`` last.
+
+Every app runs with the canary prober on (the default) and its
+background cycle held off (``DUKE_PROBE_INTERVAL_S=3600``), so no
+phase's launch counts or feeds depend on when a cycle fires.
 
 Between 5 and 6 run two phases of the ingest path (the scheduler and the
 ``host`` backend):
@@ -167,7 +196,7 @@ Between 5 and 6 run two phases of the ingest path (the scheduler and the
 5b. the ``host`` backend: ``DukeApp(backend="host")`` (which must never
    resolve a device) serves the 512-record oracle traffic of step 4 (its
    feed within the oracle's, confidences equal; the links it misses, its
-   blocking recall, are printed) and slice 1's first 16,384 records in
+   blocking recall, are printed) and slice 1's first 8,192 records in
    2,048-record POSTs, beside a fresh device app on the same records: its
    records/s beside the device's, and every host link in the device feed
    with an equal confidence.
@@ -1488,6 +1517,34 @@ def rescore_ann_plain(workload, records):
           f"logits within {logit_err:.3g} (margin {margin:.3g})", flush=True)
 
 
+# the flat ann app's feed after its query POST, that POST's wall and its
+# device trace (phase_ann), for the IVF app of the selfcheck phase
+ANN_FLAT = {}
+
+
+def profiled_post(port, path, body):
+    """POST under ``torch.profiler``: (wall, the trace's device summary);
+    the kernels of every thread (CUPTI) land in it, so the dispatcher's
+    work is counted."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall = post(port, path, body)
+            torch.cuda.synchronize()
+        trace = Path(tmp) / "post.json"
+        prof.export_chrome_trace(str(trace))
+        summary = trace_summary(trace)
+    if summary is None or not summary["device_events"]:
+        raise AssertionError(f"POST {path}: the trace holds no device work")
+    return wall, summary
+
+
 def copy_pairs(rows, entities):
     """The feed rows linking two entities with identical values."""
     values = {e["_id"]: (e["name"], e["area"], e["ssn"]) for e in entities}
@@ -1550,6 +1607,12 @@ def phase_ann(line, device_rows):
         capacity = people.index.corpus.capacity
         rescore_ann_plain(people, people.datasources["crm"]
                           .records_for_batch(entities[-INGEST_BATCH:]))
+        # the device time: a second, identical query POST under the
+        # profiler, after the feed and the counts were read
+        _, query_trace = profiled_post(port, "/deduplication/people/crm",
+                                       queries)
+        # the selfcheck phase's IVF app is held against this flat scan
+        ANN_FLAT.update(rows=rows, query_s=query_s, query_trace=query_trace)
     finally:
         server.shutdown()
         server.server_close()
@@ -1593,7 +1656,8 @@ def phase_ann(line, device_rows):
           f"{INGEST_BATCH}-record POSTs): {INGEST_RECORDS / ingest_s:.1f} "
           f"[{line}]")
     print(f"ann query POST ({QUERY_BATCH} records): {query_s:.3f} s, "
-          f"{query_pairs} pairs rescored [{line}]")
+          f"{query_pairs} pairs rescored; torch.profiler around a second, "
+          f"identical POST: {summary_text(query_trace)} [{line}]")
     print(f"p50 POST latency (ann ingest POSTs): "
           f"{statistics.median(latencies) * 1e3:.1f} ms [{line}]")
     print(f"ann ingest {split}; pairs rescored {pairs0}", flush=True)
@@ -2850,6 +2914,444 @@ def phase_debug(line):
 # -- the kernel phase -------------------------------------------------------------
 
 
+# -- the selfcheck phase: the arena, the canary prober, numcheck, IVF -----------
+
+# (a) three stresstest tenants of this many records each, under a budget
+# of 2.5 tenants; the query POSTs that fault the spilled one back in
+ARENA_TENANT_RECORDS = 65536
+ARENA_TENANTS = 3
+ARENA_BUDGET_TENANTS = 2.5
+# the 503 app's budget (MiB): below one 2,048-record stresstest corpus
+TINY_BUDGET_MB = 1
+# (c) mixed traffic under DUKE_NUMCHECK=1, on / 0 / 0 / on
+NUMCHECK_RECORDS = 32768
+
+
+class LinkClocks:
+    """Link clocks keyed by the traffic being sent (``key``: the app and
+    the traffic): each key is a counter of its own from one start, so the
+    same traffic writes the same timestamps, and so the same feed bytes,
+    in any app -- whatever other tenants or probe cycles wrote in
+    between."""
+
+    def __init__(self):
+        self.key = None
+        self._counters = {}
+
+    def __call__(self):
+        counter = self._counters.setdefault(
+            self.key, iter(range(1_700_000_000_000, 1_800_000_000_000)))
+        return next(counter)
+
+
+def tenant_traffic(i):
+    """Tenant ``i``'s 65,536 stresstest records and its query POST (every
+    16th query a copy of one of its records)."""
+    entities = stresstest_entities(ARENA_TENANT_RECORDS, 1234 + i, f"t{i}")
+    queries = with_copies(stresstest_entities(INGEST_BATCH, 4321 + i,
+                                              f"u{i}"), entities, 16, 1)
+    return entities, queries
+
+
+def launched_since(before):
+    from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
+
+    return {k: v - before.get(k, 0) for k, v in ck.LAUNCHES.items()
+            if v - before.get(k, 0)}
+
+
+@contextlib.contextmanager
+def spill_meter(log):
+    """Record ``torch.cuda.memory_allocated`` around every arena spill
+    (the spill runs inside the admitting tenant's admission, on the
+    dispatcher thread): (label, freed bytes, before, after)."""
+    import torch
+
+    from sesam_duke_microservice_tpu_torch.engine import device_matcher as DM
+
+    real = DM.DeviceCorpus.spill_device
+
+    def metered(corpus):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        freed = real(corpus)
+        torch.cuda.synchronize()
+        log.append((corpus.arena_label, freed, before,
+                    torch.cuda.memory_allocated()))
+        return freed
+
+    with mock.patch.object(DM.DeviceCorpus, "spill_device", metered):
+        yield
+
+
+def arena_check(clocks, line):
+    """(a): three tenants under a 2.5-tenant budget; the spilled tenant's
+    query POST faults it back in; its feed against a DUKE_ARENA=0 app's;
+    the 503 of an app whose budget is smaller than one small corpus.
+    Returns the spilled tenant's traffic and feed bytes."""
+    import torch
+
+    from sesam_duke_microservice_tpu_torch.core.config import parse_config
+    from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
+    from sesam_duke_microservice_tpu_torch.ops.arena import ARENA
+    from sesam_duke_microservice_tpu_torch.service.app import DukeApp
+
+    names = [f"t{i}" for i in range(ARENA_TENANTS)]
+    traffic = {name: tenant_traffic(i) for i, name in enumerate(names)}
+    spills = []
+    ARENA._reset_for_tests()
+    app = DukeApp(parse_config(config_xml({n: STRESS_SCHEMA
+                                           for n in names})),
+                  device=DEVICE, persistent=False)
+    env = {}
+    with serving(app) as port, mock.patch.dict(os.environ, env), \
+            spill_meter(spills):
+        ck.reset_launch_counts()
+        rates = []
+        for i, name in enumerate(names):
+            clocks.key = ("arena", name)
+            _, wall = ingest(port, f"/deduplication/{name}/crm",
+                             traffic[name][0])
+            rates.append(ARENA_TENANT_RECORDS / wall)
+            if i == 0:
+                # the budget: 2.5 tenants, from the ledger's lease
+                one = app.deduplications[name].index.corpus._device_nbytes()
+                leased = ARENA.debug_snapshot()["tiers"]["device"]
+                if leased != one:
+                    raise AssertionError(f"arena: the ledger leases {leased} "
+                                         f"bytes for one tenant of {one}")
+                budget_mb = int(ARENA_BUDGET_TENANTS * one / 2**20)
+                os.environ["DUKE_HBM_BUDGET_MB"] = str(budget_mb)
+        snap = ARENA.debug_snapshot()
+        spilled = [r["label"].split("/")[1] for r in snap["leases"]
+                   if not r["resident"]]
+        if snap["spills"] < 1 or len(spilled) != 1:
+            raise AssertionError(f"arena: the third tenant spilled "
+                                 f"{spilled} ({snap['spills']} spills)")
+        victim = spilled[0]
+        faults0 = ARENA.faults
+        clocks.key = ("arena", victim)
+        path = f"/deduplication/{victim}/crm"
+        fault_in_s = post(port, path, traffic[victim][1])
+        resident_s = post(port, path, traffic[victim][1])
+        torch.cuda.synchronize()
+        faults = ARENA.faults - faults0
+        launches = dict(ck.LAUNCHES)
+        victim_feed = raw_since(port, f"/deduplication/{victim}")
+        snap = ARENA.debug_snapshot()
+    if faults != 1:
+        raise AssertionError(f"arena: {faults} fault-ins for one query POST "
+                             "to the spilled tenant")
+    for label, freed, before, after in spills:
+        if freed <= 0 or before - after < freed:
+            raise AssertionError(f"arena: spilling {label} freed {freed} "
+                                 f"bytes but memory_allocated fell by "
+                                 f"{before - after}")
+    if launches.get("myers_tile", 0) <= 0:
+        raise AssertionError("arena: Myers W=1 never launched")
+    print(f"selfcheck arena: {ARENA_TENANTS} tenants of "
+          f"{ARENA_TENANT_RECORDS} records (records/s {rates}), one tenant "
+          f"{one} bytes, DUKE_HBM_BUDGET_MB={budget_mb}; spills "
+          f"{snap['spills']}, fault-ins {snap['faults']} (the query POST to "
+          f"{victim}: 1), admissions {snap['admissions']}; memory_allocated "
+          f"around each spill "
+          f"{[(l, f, b, a, b - a) for l, f, b, a in spills]} (label, freed, "
+          f"before, after, fall); fault-in POST {fault_in_s:.3f} s against "
+          f"the same POST resident {resident_s:.3f} s; launches {launches} "
+          f"[{line}]", flush=True)
+
+    # the same traffic into an app with the arena off: the feed bytes
+    with mock.patch.dict(os.environ, {"DUKE_ARENA": "0", "DUKE_PROBE": "0"}):
+        control = stress_app(device=DEVICE)
+        with serving(control) as port:
+            clocks.key = ("control", victim)
+            ingest(port, "/deduplication/people/crm", traffic[victim][0])
+            for _ in range(2):
+                post(port, "/deduplication/people/crm", traffic[victim][1])
+            control_feed = raw_since(port, "/deduplication/people")
+    if control_feed != victim_feed:
+        got, want = json.loads(victim_feed), json.loads(control_feed)
+        raise AssertionError(f"arena: {victim}'s feed differs from the "
+                             f"DUKE_ARENA=0 app's on the same traffic "
+                             f"({len(got)} rows against {len(want)}; first "
+                             f"difference "
+                             f"{next(((a, b) for a, b in zip(got, want) if a != b), None)})")
+
+    # a budget below one 2,048-record corpus: a 503 with Retry-After
+    with mock.patch.dict(os.environ,
+                         {"DUKE_HBM_BUDGET_MB": str(TINY_BUDGET_MB)}):
+        tiny = stress_app(device=DEVICE)
+        with serving(tiny) as port:
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/deduplication/people/crm",
+                data=json.dumps(traffic[victim][1]).encode(), method="POST",
+                headers={"Content-Type": "application/json"})
+            try:
+                with urllib.request.urlopen(req, timeout=300) as resp:
+                    raise AssertionError(f"arena: a {TINY_BUDGET_MB} MiB "
+                                         f"budget answered {resp.status}")
+            except urllib.error.HTTPError as e:
+                status, retry, body = (e.code, e.headers.get("Retry-After"),
+                                       e.read().decode())
+    if status != 503 or not retry or "HBM budget exhausted" not in body:
+        raise AssertionError(f"arena: tiny budget answered {status} "
+                             f"Retry-After {retry}: {body}")
+    print(f"selfcheck arena: {victim}'s feed byte-identical to a "
+          f"DUKE_ARENA=0 app's ({len(victim_feed)} bytes); a "
+          f"{TINY_BUDGET_MB} MiB budget answers {status} with Retry-After "
+          f"{retry}: {body[:160]}", flush=True)
+    ARENA._reset_for_tests()
+    return victim, traffic[victim], victim_feed
+
+
+def cycle_once(app, clocks, what, line):
+    """One ``run_cycle`` with its own link clock: every canary verdict must
+    equal its oracle verdict, and the shadows may build nothing."""
+    import torch
+
+    from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
+    from sesam_duke_microservice_tpu_torch.telemetry import costs
+
+    clocks.key = "probe"
+    builds = costs.compile_count()
+    before = dict(ck.LAUNCHES)
+    t0 = time.perf_counter()
+    results = app.prober.run_cycle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launched_since(before)
+    builds = costs.compile_count() - builds
+    bad = {k: r.get("error") or {c: v for c, v in r.get("verdicts", {})
+                                 .items() if v["expected"] != v["observed"]}
+           for k, r in results.items() if not r["ok"]}
+    if not results or bad:
+        raise AssertionError(f"prober [{what}]: failed cycles {bad}")
+    if builds:
+        raise AssertionError(f"prober [{what}]: the shadows ran {builds} "
+                             "nvcc / g++ builds")
+    canaries = sum(len(r["verdicts"]) for r in results.values())
+    print(f"selfcheck prober [{what}]: cycle wall {wall:.3f} s "
+          f"({ {'/'.join(k): r['seconds'] for k, r in results.items()} } "
+          f"s per workload), {canaries} canary verdicts equal to the oracle's, "
+          f"0 builds, launches {launches} [{line}]", flush=True)
+    return launches
+
+
+def prober_check(victim, traffic, want_feed, clocks, line):
+    """(b), stresstest: the spilled tenant's traffic again, with probe
+    cycles after the ingest and after each query POST (arena off, as in
+    the control app): the feed must equal the DUKE_PROBE=0 control's."""
+    with mock.patch.dict(os.environ, {"DUKE_ARENA": "0"}):
+        app = stress_app(device=DEVICE)
+        with serving(app) as port:
+            clocks.key = ("probed", victim)
+            ingest(port, "/deduplication/people/crm", traffic[0])
+            cycle_once(app, clocks, "stresstest, 65,536 records", line)
+            for _ in range(2):
+                clocks.key = ("probed", victim)
+                post(port, "/deduplication/people/crm", traffic[1])
+                cycle_once(app, clocks, "stresstest, after a query POST",
+                           line)
+            got = raw_since(port, "/deduplication/people")
+    if got != want_feed:
+        raise AssertionError("prober: the user feed with probe cycles "
+                             "differs from the DUKE_PROBE=0 app's")
+    print(f"selfcheck prober: stresstest user feed byte-identical with "
+          f"DUKE_PROBE on (cycles around the user POSTs) and 0 "
+          f"({len(got)} bytes)", flush=True)
+
+
+def numcheck_check(clocks, line):
+    """(c): mixed traffic in four fresh apps, DUKE_NUMCHECK on / 0 / 0 /
+    on; the on runs must record observations and no violation; every
+    feed equal.  (b), mixed: a probe cycle on each on run's full corpus,
+    after its feed is read (the 0 runs have DUKE_PROBE=0)."""
+    from sesam_duke_microservice_tpu_torch.core.config import parse_config
+    from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
+    from sesam_duke_microservice_tpu_torch.service.app import DukeApp
+    from sesam_duke_microservice_tpu_torch.utils import numcheck
+
+    entities = mixed_entities(NUMCHECK_RECORDS, 2024, "m")
+    kinds = {}
+    real = numcheck.observe
+
+    def counted(kind, *args):
+        kinds[kind] = kinds.get(kind, 0) + 1
+        return real(kind, *args)
+
+    runs = []
+    for label in ("on", "0", "0", "on"):
+        env = ({"DUKE_NUMCHECK": "1"} if label == "on"
+               else {"DUKE_NUMCHECK": "0", "DUKE_PROBE": "0"})
+        numcheck.reset()
+        kinds.clear()
+        with mock.patch.dict(os.environ, env), \
+                mock.patch.object(numcheck, "observe", counted):
+            app = DukeApp(parse_config(config_xml({"mixed": MIXED_SCHEMA})),
+                          device=DEVICE, persistent=False)
+            with serving(app) as port:
+                clocks.key = ("mixed", len(runs))
+                ck.reset_launch_counts()
+                _, wall = ingest(port, "/deduplication/mixed/crm", entities)
+                launches = dict(ck.LAUNCHES)
+                rep = numcheck.report()
+                stats = app.deduplications["mixed"].processor.stats
+                run = dict(label=label, rps=NUMCHECK_RECORDS / wall,
+                           checked=rep["checked"],
+                           violations=rep["violations"], kinds=dict(kinds),
+                           certified=stats.pairs_device_certified,
+                           feed=raw_since(port, "/deduplication/mixed"),
+                           launches=launches)
+                if label == "on" and len(runs) == 0:
+                    cycle_once(app, clocks, "mixed, 32,768 records", line)
+        runs.append(run)
+    numcheck.reset()
+    for run in runs:
+        if run["label"] == "on" and (run["violations"]
+                                     or run["checked"] <= 0):
+            raise AssertionError(f"numcheck: {run['checked']} checked, "
+                                 f"violations {run['violations'][:3]}")
+        if run["label"] == "0" and run["checked"]:
+            raise AssertionError("numcheck: observations with the knob at 0")
+        if run["feed"] != runs[0]["feed"]:
+            raise AssertionError("numcheck: the feeds of DUKE_NUMCHECK on "
+                                 "and 0 differ")
+    on = [r for r in runs if r["label"] == "on"]
+    print(f"selfcheck numcheck: mixed {NUMCHECK_RECORDS} records, "
+          f"DUKE_NUMCHECK on / 0 / 0 / on: records/s "
+          f"{[r['rps'] for r in runs]}; checked events "
+          f"{[r['checked'] for r in on]} (by kind {[r['kinds'] for r in on]}"
+          f": 'reject' = the sampled certified rejects, 'event' = the "
+          f"certified events), certified rejects "
+          f"{[r['certified'] for r in runs]}, 0 violations; feeds "
+          f"byte-identical ({len(runs[0]['feed'])} bytes); launches "
+          f"{runs[0]['launches']} [{line}]", flush=True)
+
+
+def ivf_check(clocks, line, device_rows):
+    """(d): the ann phase's corpus and traffic with DUKE_IVF=1 against
+    the flat ann app (phase_ann) and the brute-force feed (slice 1)."""
+    import numpy as np
+    import torch
+
+    from sesam_duke_microservice_tpu_torch.core.config import parse_config
+    from sesam_duke_microservice_tpu_torch.engine import ann_matcher as AM
+    from sesam_duke_microservice_tpu_torch.engine import device_matcher as DM
+    from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
+    from sesam_duke_microservice_tpu_torch.ops import ivf as IVF
+    from sesam_duke_microservice_tpu_torch.service.app import DukeApp
+
+    entities = stresstest_entities(INGEST_RECORDS, 1234, "p")
+    queries = with_copies(stresstest_entities(QUERY_BATCH, 4321, "q"),
+                          entities, 16, 1)
+    trains = []
+    real_train = IVF.IvfState._train
+
+    def timed_train(state, corpus):
+        t0 = time.perf_counter()
+        real_train(state, corpus)
+        trains.append((corpus.size, time.perf_counter() - t0))
+
+    fallbacks = [0]
+    real_flat = AM._AnnScorerCache._scorer
+
+    def counted_flat(cache, *args):
+        if cache.index.ivf is not None and cache.index.ivf.ready:
+            fallbacks[0] += 1
+        return real_flat(cache, *args)
+
+    with mock.patch.dict(os.environ, {"DEVICE_INITIAL_CAPACITY":
+                                      str(ANN_CAPACITY), "DUKE_IVF": "1"}):
+        app = DukeApp(parse_config(config_xml({"people": STRESS_SCHEMA})),
+                      backend="ann", device=DEVICE, persistent=False)
+    with serving(app) as port, \
+            mock.patch.object(IVF.IvfState, "_train", timed_train), \
+            mock.patch.object(AM._AnnScorerCache, "_scorer", counted_flat):
+        people = app.deduplications["people"]
+        clocks.key = "ivf"
+        ck.reset_launch_counts()
+        esc = dict(DM.ESCALATIONS)
+        _, ingest_s = ingest(port, "/deduplication/people/crm", entities)
+        ingest_fallbacks = fallbacks[0]
+        query_s = post(port, "/deduplication/people/crm", queries)
+        launches = dict(ck.LAUNCHES)
+        escalations = {k: DM.ESCALATIONS[k] - esc[k] for k in esc}
+        query_fallbacks = fallbacks[0]
+        rows = feed(port, "/deduplication/people")
+        ivf = people.index.ivf
+        corpus = people.index.corpus
+        # train twice on the card on the last training's rows
+        n = ivf.trained_rows
+        live = np.flatnonzero(corpus.row_valid[:n] & ~corpus.row_deleted[:n])
+        x = ivf._embeddings_f32(corpus, live)
+        twice = [IVF.train_kmeans(x, ivf.ncells, seed=ivf.seed,
+                                  iters=ivf.iters, device=DEVICE)
+                 for _ in range(2)]
+        torch.cuda.synchronize()
+        cells, nprobe0, bucket = ivf.ncells, ivf.nprobe0, ivf.bucket
+        same_as_state = np.array_equal(twice[0], ivf.centroids)
+        # the device time, as for the flat app: a second, identical query
+        # POST under the profiler, after the feed and the counts were read
+        _, query_trace = profiled_post(port, "/deduplication/people/crm",
+                                       queries)
+    if not np.array_equal(twice[0], twice[1]):
+        raise AssertionError("ivf: two k-means trainings on the card gave "
+                             "different centroids")
+    if not same_as_state:
+        raise AssertionError("ivf: a training on the live rows differs from "
+                             "the index's own")
+    if launches.get("myers_gathered", 0) <= 0:
+        raise AssertionError("ivf: the gathered Myers kernel never launched")
+    oracle = {r["_id"]: r["confidence"] for r in device_rows
+              if not r["_deleted"]}
+    got = {r["_id"]: r["confidence"] for r in rows}
+    stray = [k for k, v in got.items() if oracle.get(k) != v]
+    if stray:
+        raise AssertionError(f"ivf: {len(stray)} links not in the "
+                             f"brute-force feed with equal confidence, e.g. "
+                             f"{[(k, got[k], oracle.get(k)) for k in stray[:3]]}")
+    flat = {r["_id"]: r["confidence"] for r in ANN_FLAT["rows"]}
+    flat_trace = ANN_FLAT["query_trace"]
+    print(f"selfcheck ivf: {INGEST_RECORDS} records (capacity "
+          f"{corpus.capacity}) in {ingest_s:.3f} s "
+          f"({INGEST_RECORDS / ingest_s:.1f} records/s); trainings "
+          f"{[(size, round(s, 3)) for size, s in trains]} (rows, s), "
+          f"{sum(s for _, s in trains):.3f} s in all; auto policy: {cells} "
+          f"cells, nprobe {nprobe0}, membership width {bucket}; escalations "
+          f"{escalations}, flat-fallback scans {query_fallbacks} "
+          f"({ingest_fallbacks} during the ingest); query POST "
+          f"({QUERY_BATCH} records) {query_s:.3f} s, device busy "
+          f"{query_trace['busy_ms']:.3f} ms (a second, identical POST "
+          f"under the profiler), against the flat ann app's "
+          f"{ANN_FLAT['query_s']:.3f} s, {flat_trace['busy_ms']:.3f} ms; "
+          f"launches {launches} [{line}]", flush=True)
+    print(f"selfcheck ivf: {len(got)} links, all in the brute-force feed "
+          f"with equal confidences; recall {len(set(got) & set(flat)) / max(1, len(flat)):.4f} "
+          f"of the flat scan's {len(flat)} links, "
+          f"{len(got) / max(1, len(oracle)):.4f} of the brute-force "
+          f"oracle's {len(oracle)}; two k-means trainings on the card "
+          f"({len(live)} rows, {cells} cells) equal bit for bit and to the "
+          f"index's centroids [{line}]", flush=True)
+    return launches
+
+
+def phase_selfcheck(line, device_rows):
+    """The arena, the canary prober, the certified-numerics sanitizer and
+    IVF retrieval on the card, at production knobs.  Returns the launch
+    counts of each part."""
+    from sesam_duke_microservice_tpu_torch.links import base as linkbase
+
+    t0 = time.perf_counter()
+    clocks = LinkClocks()
+    with mock.patch.object(linkbase, "now_millis", clocks):
+        victim, traffic, victim_feed = arena_check(clocks, line)
+        prober_check(victim, traffic, victim_feed, clocks, line)
+        numcheck_check(clocks, line)
+        launches = ivf_check(clocks, line, device_rows)
+    print(f"selfcheck: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def char_inputs(q, c, l, seed):
     """Small-alphabet chars so matches are real; random lengths with the
     edge cases (empty and full-width patterns and texts) forced in."""
@@ -3297,6 +3799,10 @@ def main() -> int:
         return 2
     # the package, and tests/wide_units.py for the kernel phase's inputs
     sys.path[:0] = [str(REPO), str(REPO / "tests")]
+    # the canary prober is on (the default) in every app, its background
+    # cycle held off so that no phase's launch counts or feeds depend on
+    # when it fires; the selfcheck phase runs its cycles by hand
+    os.environ.setdefault("DUKE_PROBE_INTERVAL_S", "3600")
     from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
 
     t_start = time.perf_counter()
@@ -3347,6 +3853,7 @@ def main() -> int:
     phase_restart(line, device_rows, ann_rows)
     phase_control(line)
     phase_debug(line)
+    phase_selfcheck(line, device_rows)
 
     def one_word(s):
         return ck.kernel_words(s[2]) == 1

@@ -15,6 +15,12 @@ doubled C, so a saturated retrieval never truncates silently.  The
 embedding rides the ``DeviceCorpus`` feature tree under
 ``ops.encoder.ANN_PROP``, so growth, tombstones and uploads apply to it
 unchanged.
+
+IVF clustered retrieval (``DUKE_IVF``, off by default; ``ops.ivf``):
+k-means cells over the corpus embeddings with a two-stage cell-probe
+scan, trained lazily on the scoring path.  A saturated probe escalates
+``nprobe`` in lockstep with the C ladder and finally falls back to the
+flat scan, so truncation never passes silently.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from ..core.records import Record
 from ..env import env_int
 from ..ops import encoder as E
 from ..ops import features as F
+from ..ops import ivf as IVF
 from ..ops import scoring as S
 from .device_matcher import (
     _CHUNK,
@@ -55,6 +62,11 @@ class AnnIndex(DeviceIndex):
         # both ride in the snapshot fingerprint: a snapshot written under
         # another width or storage layout (a DUKE_EMB_INT8 flip) replays
         self.emb_storage = self.encoder.storage
+        # IVF (DUKE_IVF): resolved at construction; trains lazily on the
+        # scoring path once the corpus crosses DUKE_IVF_MIN_ROWS, under the
+        # workload lock every mutation site already holds
+        self.ivf = (IVF.IvfState(device=self.device) if IVF.enabled()
+                    else None)
         self.scorer_cache = _AnnScorerCache(self)
 
     def _extract(self, records: Sequence[Record], plan=None):
@@ -65,10 +77,12 @@ class AnnIndex(DeviceIndex):
                           group_filtering: bool = False) -> dict:
         """ANN retrieval provenance: the embedding cosine between the
         pair plus the candidate's actual rank in the query's top-C
-        retrieval and the effective C after recall escalation (the width
-        the search finished at).  The rank re-runs the two-stage scorer
-        for this one query (on the card: the segment-max kernel or the
-        scan, then the gathered Myers rescore, at Q = 1)."""
+        retrieval, the effective C after recall escalation (the width
+        the search finished at), and under IVF the probed cells at that
+        width and whether the candidate's cell was among them.  The rank
+        re-runs the two-stage scorer for this one query (on the card: the
+        segment-max kernel, the scan or the IVF probe, then the gathered
+        Myers rescore, at Q = 1)."""
         out = super().explain_retrieval(record, candidate, group_filtering)
         out["mode"] = "ann"
         out["exhaustive"] = False
@@ -78,10 +92,12 @@ class AnnIndex(DeviceIndex):
         e2 = self.encoder.encode(candidate)
         out["cosine"] = float(np.dot(e1, e2))  # encode() normalizes
         row = self.id_to_row.get(candidate.record_id)
+        effective_c = None
         if row is not None:
             result = resolve_block(self.scorer_cache.dispatch_block(
                 [record], group_filtering=group_filtering))
-            out["effective_top_c"] = int(result.top_index.shape[1])
+            effective_c = int(result.top_index.shape[1])
+            out["effective_top_c"] = effective_c
             positions = np.nonzero(result.top_index[0] == row)[0]
             if positions.size:
                 out["rank"] = int(positions[0])
@@ -89,12 +105,38 @@ class AnnIndex(DeviceIndex):
             else:
                 out["rank"] = None
                 out["retrieved"] = False
+        ivf = self.ivf
+        if ivf is not None and ivf.ready:
+            # host replay of the probe's first stage (Q = 1 x K) at the
+            # EFFECTIVE escalated width: the initial nprobe could claim
+            # "cell not probed" for a pair the escalated (or flat
+            # fallback) search did scan
+            scores = e1 @ ivf.centroids.T
+            nprobe = ivf.nprobe_for(
+                effective_c if effective_c is not None
+                else self.initial_top_c, self.initial_top_c)
+            probed = np.argsort(-scores, kind="stable")[:nprobe]
+            out["ivf"] = {
+                "cells": ivf.ncells,
+                "nprobe": nprobe,
+                # nprobe == ncells: the ladder ended in the flat scan
+                "flat_fallback": bool(nprobe >= ivf.ncells),
+                "probed_cells": [int(c) for c in probed],
+            }
+            if row is not None and row < ivf.assigned_upto:
+                cell = int(ivf.cell_of[row])
+                out["ivf"]["candidate_cell"] = cell
+                out["ivf"]["cell_probed"] = bool(
+                    cell in set(int(c) for c in probed))
         return out
 
 
 class _AnnScorerCache(_ScorerCache):
-    """ANN scorers per (top_c, group_filtering, from_rows), and block
-    dispatch with the recall-escalation ladder."""
+    """ANN scorers per (top_c, group_filtering, from_rows) (IVF scorers
+    per (top_c, nprobe, group_filtering, from_rows)), and block dispatch
+    with the recall-escalation ladder -- through the IVF cell probe when
+    DUKE_IVF trained one, widening ``nprobe`` along the C ladder and
+    falling back to the flat scan once every cell is probed."""
 
     def _scorer(self, top_c: int, group_filtering: bool, from_rows: bool):
         key = (top_c, group_filtering, from_rows)
@@ -103,6 +145,15 @@ class _AnnScorerCache(_ScorerCache):
                 self.index.plan, chunk=_CHUNK, top_c=top_c,
                 group_filtering=group_filtering, queries_from_rows=from_rows,
             )
+        return self._scorers[key]
+
+    def _ivf_scorer(self, top_c: int, nprobe: int, group_filtering: bool,
+                    from_rows: bool):
+        key = ("ivf", top_c, nprobe, group_filtering, from_rows)
+        if key not in self._scorers:
+            self._scorers[key] = IVF.build_ivf_scorer(
+                self.index.plan, top_c=top_c, nprobe=nprobe,
+                group_filtering=group_filtering, queries_from_rows=from_rows)
         return self._scorers[key]
 
     def dispatch_block(self, records: Sequence[Record], *,
@@ -124,20 +175,40 @@ class _AnnScorerCache(_ScorerCache):
         emb_tree = cfeats_all[E.ANN_PROP]
         cfeats = {prop: t for prop, t in cfeats_all.items()
                   if prop != E.ANN_PROP}
+        # lazy IVF maintenance (train on the first crossing, assign
+        # appended slices, refresh on doubling) under the workload lock
+        # the dispatch path holds
+        ivf = index.ivf
+        if ivf is not None and not ivf.sync(corpus):
+            ivf = None
+        c0 = min(index.initial_top_c, corpus.capacity)
 
         def call(c):
+            if ivf is not None:
+                nprobe = ivf.nprobe_for(c, c0)
+                if nprobe < ivf.ncells:
+                    cents, cells = ivf.device_tensors()
+                    return _Fetch(*self._ivf_scorer(
+                        c, nprobe, group_filtering, from_rows)(
+                        q_emb, qfeats, emb_tree, cents, cells, cfeats,
+                        cvalid, cdeleted, cgroup, query_group, query_row,
+                        min_logit))
+                # every cell probed: the probe degenerated to a worse
+                # flat scan -- fall back to the real one, so escalation
+                # ends in exhaustive retrieval
             return _Fetch(*self._scorer(c, group_filtering, from_rows)(
                 q_emb, qfeats, emb_tree, cfeats, cvalid, cdeleted, cgroup,
                 query_group, query_row, min_logit))
 
         # recall escalation: every retrieved row cleared the bound (or,
-        # under int8, sat in the ambiguity band at the cutoff) -> double C;
-        # the dd context holds the property features only
+        # under int8, sat in the ambiguity band at the cutoff) -> double C
+        # (and, under IVF, nprobe); the dd context holds the property
+        # features only
         return _PendingBlock(
-            corpus.capacity, n, min_logit,
-            min(index.initial_top_c, corpus.capacity), call,
+            corpus.capacity, n, min_logit, c0, call,
             (qfeats, from_rows, query_row),
-            needs_escalation=lambda cmax, c: cmax >= c, stage="top_c")
+            needs_escalation=lambda cmax, c: cmax >= c,
+            stage="ivf" if ivf is not None else "top_c")
 
 
 class AnnProcessor(DeviceProcessor):

@@ -199,6 +199,11 @@ class DeviceCorpus:
         # the warm upload's failure, raised by the next device_arrays: a
         # device error during a restore is never a quiet fallback
         self.warm_error: Optional[BaseException] = None
+        # arena identity: the owning workload stamps its label and heat;
+        # device_arrays admits through ops.arena under these before every
+        # upload (no-ops under DUKE_ARENA=0)
+        self.arena_label = ""
+        self.arena_heat: Optional[object] = None
 
     @classmethod
     def from_numpy(cls, plan, feats: Dict[str, Dict[str, np.ndarray]],
@@ -310,22 +315,83 @@ class DeviceCorpus:
         scoring time.
 
         No-op (returns False) while a full upload is pending (cold
-        corpus, capacity growth, restored snapshot, released device
-        copy): re-running the whole-corpus upload per slice would
+        corpus, capacity growth, restored snapshot, released or spilled
+        device copy): re-running the whole-corpus upload per slice would
         multiply the transfer, and the scoring-time ``device_arrays``
-        pays it exactly once instead.
+        pays it exactly once instead.  A corpus the arena spilled keeps
+        the slice's rows on the host (the spill left it dirty), so the
+        next query faults the whole corpus back in.
         """
+        if self._device_feats is None or self._dirty_full:
+            return False  # racy pre-check: spares a pointless admission
+        self._admit()
         with self._upload_lock:
             if self._device_feats is None or self._dirty_full:
-                return False
+                return False  # spilled between the check and the lock
             self._device_arrays_locked()
             return True
+
+    # -- arena residency -----------------------------------------------------
+
+    def _device_nbytes(self) -> int:
+        """Device footprint of the corpus tensors, from the host mirrors'
+        shapes: uint16 char units widen to int32 on the device (the
+        embeddings' uint16 bf16 bit patterns do not), every other tensor
+        keeps its width -- so this equals ``device_bytes()``'s total once
+        uploaded.  Lock-free torn reads tolerated: the arena re-admits at
+        the settled size on the next call."""
+        total = 0
+        for prop, tensors in list(self.feats.items()):
+            for arr in list(tensors.values()):
+                widen = arr.dtype == np.uint16 and prop != E.ANN_PROP
+                total += int(arr.nbytes) * (2 if widen else 1)
+        for arr in (self.row_valid, self.row_deleted, self.row_group):
+            total += int(arr.nbytes)
+        return total
+
+    def _admit(self) -> None:
+        """Lease this corpus' device residency from the shared arena
+        (``ops.arena``): may spill colder tenants, and raises
+        ``ArenaAdmissionError`` when the budget cannot fit this corpus.
+        Call OUTSIDE the upload lock (the arena's lock is outer)."""
+        from ..ops.arena import ARENA
+
+        ARENA.admit(self, self._device_nbytes(), spill=self.spill_device,
+                    label=self.arena_label, heat=self.arena_heat)
+
+    def spill_device(self) -> int:
+        """Drop the device tensors to the host tier: an arena eviction,
+        or a closed workload's corpus (``DeviceIndex.close``: a reload
+        builds the replacement's tensors before the old one closes).
+
+        Takes the upload lock -- the arena's lock is OUTER to it (lock
+        order in ops.arena), so a spill waits out any in-flight upload or
+        slice flush.  The numpy host mirrors stay authoritative; the
+        owner's next query re-admits and faults the corpus back in
+        through the full upload.  Every reference the corpus holds goes,
+        so the caching allocator gets the blocks back once the in-flight
+        scoring that still holds them (if any) finishes.  Returns the
+        freed byte estimate."""
+        with self._upload_lock:
+            freed = (self._device_nbytes()
+                     if self._device_feats is not None else 0)
+            self._device_feats = None
+            self._device_masks = None
+            self._dirty_full = True
+            self._pending_rows = None
+            self._mask_rows = []
+            return freed
 
     # -- device mirror -------------------------------------------------------
 
     def device_arrays(self):
         """(feats, valid, deleted, group) as tensors on ``self.device``;
-        waits for an in-flight warm upload."""
+        waits for an in-flight warm upload.  Residency is leased from the
+        shared arena FIRST, outside the upload lock: admission may spill
+        colder tenants and raises ``ops.arena.ArenaAdmissionError`` (a
+        503, never an allocator OOM) when the budget cannot fit this
+        corpus."""
+        self._admit()
         with self._upload_lock:
             if self.warm_error is not None:
                 raise RuntimeError(
@@ -388,15 +454,6 @@ class DeviceCorpus:
         for t in masks or ():
             out["corpus_tensors"] += t.nbytes
         return out
-
-    def release_device(self) -> None:
-        """Drop the device copy (a closed workload's corpus: a reload
-        builds the replacement's before the old one closes, so the old
-        tensors must go with it).  Waits for an in-flight warm upload."""
-        with self._upload_lock:
-            self._device_feats = None
-            self._device_masks = None
-            self._dirty_full = True
 
 
 class DeviceIndex(CandidateIndex):
@@ -505,9 +562,13 @@ class DeviceIndex(CandidateIndex):
         self.indexing_disabled = disabled
 
     def close(self) -> None:
-        """Free the corpus' device tensors and the built scorers."""
+        """Free the corpus' device tensors and the built scorers, and drop
+        the arena lease now rather than when the corpus is collected."""
+        from ..ops.arena import ARENA
+
         self.scorer_cache.clear()
-        self.corpus.release_device()
+        self.corpus.spill_device()
+        ARENA.forget(self.corpus)
 
     def _extract(self, records: Sequence[Record], plan=None):
         return F.extract_batch(plan or self.plan, records)
@@ -705,9 +766,17 @@ class DeviceIndex(CandidateIndex):
     def _rebuild_corpus(self) -> None:
         """Re-extract every record under the current feature plan.  The
         record set is unchanged, so the content digest is too."""
+        from ..ops.arena import ARENA
+
         with self._lock:
             old_records = self.records
+            old = self.corpus
             self.corpus = DeviceCorpus(self.plan, self.device)
+            # the replacement leases under the same identity; the old
+            # corpus' lease goes with it
+            self.corpus.arena_label = old.arena_label
+            self.corpus.arena_heat = old.arena_heat
+            ARENA.forget(old)
             self.id_to_row = {}
             if old_records:
                 logger.info(
@@ -1027,12 +1096,20 @@ class DeviceIndex(CandidateIndex):
             return
 
         def _upload():
+            from ..ops.arena import ArenaAdmissionError
+
             try:
                 corpus.device_arrays()
                 if corpus.device.type == "cuda":
                     torch.cuda.current_stream(corpus.device).synchronize()
                 logger.info("warm corpus upload complete (%d rows)",
                             corpus.size)
+            except ArenaAdmissionError:
+                # refused, not failed: nothing was uploaded, and the
+                # first query re-admits (and answers 503 if it still
+                # does not fit)
+                logger.warning("warm corpus upload refused by the arena",
+                               exc_info=True)
             except BaseException as e:
                 corpus.warm_error = e
                 logger.exception("warm corpus upload failed")
@@ -1131,8 +1208,9 @@ class _PendingBlock:
 
 
 # Width escalations since the last reset, by stage ("top_k": brute force,
-# "top_c": ann retrieval); workloads resolve blocks on their own threads.
-ESCALATIONS = {"top_k": 0, "top_c": 0}
+# "top_c": flat ann retrieval, "ivf": the IVF cell probe); workloads
+# resolve blocks on their own threads.
+ESCALATIONS = {"top_k": 0, "top_c": 0, "ivf": 0}
 _ESCALATIONS_LOCK = threading.Lock()
 
 

@@ -33,6 +33,10 @@ Counterpart of the JAX package's ``engine/finalize.py``:
     the only difference is the compares that provably emit nothing.  The
     memos take no lock: dict get / set are atomic under the GIL and the
     over-capacity reset rebinds a fresh dict.
+  * **Shadow-checked** (``DUKE_NUMCHECK=1``, ``utils.numcheck``): every
+    certified event's compare doubles as an oracle check of its class
+    and margin, and a sampled share of the certified rejects pays one
+    shadow compare each.
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ from ..core.records import Record, record_digest
 from ..env import env_flag, env_str
 from ..ops import bounds as B
 from ..telemetry.decisions import PairDecision
+from ..utils import numcheck
 
 
 def fallback_pair_logit(props, r1: Record, r2: Record) -> float:
@@ -190,10 +195,19 @@ class FinalizeExecutor:
         plan_has_dd = self.device and bool(B.dd_plan_specs(plan))
         dd_reject = dd_event = None
         fallback: List = []
+        nc_margin = None  # DUKE_NUMCHECK: the bound certified verdicts charge
         if dd is not None and plan_has_dd:
             dd_reject = B.dd_reject_bound(schema, plan)
             dd_event = B.dd_event_bound(schema, plan)
             fallback = B.dd_fallback_props(schema, plan)
+            if numcheck.enabled():
+                # the dd margin plus the probability-space comparison
+                # slack
+                t_min = threshold
+                if maybe is not None and maybe != 0.0:
+                    t_min = min(t_min, maybe)
+                nc_margin = (B.certified_dd_margin(plan)
+                             + B._dd_threshold_slack(t_min))
         if self.device and not self._kind_fallback_logged:
             self._log_fallback(schema, plan, plan_has_dd)
         comparison_props = list(schema.comparison_properties())
@@ -223,7 +237,10 @@ class FinalizeExecutor:
 
             def memo_compare(cand: Record) -> float:
                 # ordered key: PersonName-style greedy token matching is
-                # not provably symmetric
+                # not provably symmetric.  Shared by the certified-event
+                # confidence fetch and the numcheck shadow oracle, so the
+                # sanitizer's certified-reject checks stay O(distinct
+                # content pairs)
                 nonlocal query_sig
                 if query_sig is None:
                     query_sig = sig(record)
@@ -249,6 +266,8 @@ class FinalizeExecutor:
                     continue
                 candidate = None
                 reason = None  # why this pair takes the host compare
+                dd_total = None  # certified total (numcheck shadow leg)
+                certified_event = False
                 if dd_reject is not None:
                     if dd[2][qi, pos]:
                         reason = "truncation"
@@ -267,9 +286,28 @@ class FinalizeExecutor:
                                 decisions.append(PairDecision(
                                     rid, device_logit, True, None,
                                     path="device_certified"))
+                            if nc_margin is not None \
+                                    and numcheck.take_sample():
+                                # DUKE_NUMCHECK shadow oracle: the one
+                                # verdict class that skips the host
+                                # compare pays one back, sampled (and
+                                # memoized)
+                                shadow = (candidate if candidate
+                                          is not None else resolver(rid))
+                                if shadow is not None:
+                                    numcheck.observe(
+                                        "reject", rec_id, rid, total,
+                                        memo_compare(shadow),
+                                        threshold, maybe, nc_margin)
                             continue
                         if total < dd_event:
                             reason = "margin"
+                        else:
+                            # certified event: the class is certain, the
+                            # emitted confidence is still the exact f64
+                            # compare's
+                            dd_total = total
+                            certified_event = True
                 elif self.device and not plan_has_dd:
                     reason = "kind"
                 if candidate is None:
@@ -280,6 +318,12 @@ class FinalizeExecutor:
                     prob = memo_compare(candidate)
                 else:
                     prob = compare(record, candidate)
+                if certified_event and nc_margin is not None:
+                    # free shadow check: the compare already ran for the
+                    # bit-exact confidence -- the oracle must agree an
+                    # event emits, and the margin bound must hold
+                    numcheck.observe("event", rec_id, rid, dd_total,
+                                     prob, threshold, maybe, nc_margin)
                 rescored += 1
                 if reason == "margin":
                     res_margin += 1

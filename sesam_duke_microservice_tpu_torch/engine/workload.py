@@ -46,6 +46,7 @@ from ..index.inverted import InvertedIndex
 from ..links import create_link_database
 from ..links.base import LinkDatabase
 from ..links.replica import links_feed_page
+from ..ops.arena import arena_enabled
 from ..service.datasource import IncrementalDataSource
 from ..store.records import LazyRecordMap, RecordStore, SqliteRecordStore
 from ..telemetry import memory
@@ -87,7 +88,28 @@ def _hbm_components(wl_ref) -> Dict[str, int]:
     corpus = getattr(wl.index, "corpus", None)
     if corpus is None:
         return {}
-    return corpus.device_bytes()
+    out = corpus.device_bytes()
+    ivf = getattr(wl.index, "ivf", None)
+    if ivf is not None:
+        out["ivf_membership"] = ivf.device_nbytes()
+    return {k: v for k, v in out.items() if v}
+
+
+def _arena_heat(wl_ref) -> float:
+    """Accumulated per-workload device-seconds from the cost ledger's
+    phase recorder -- the arena's eviction heat: among cold candidates,
+    the tenant that has burned the least device time spills first.
+    Lock-free torn reads tolerated (ordering hint only)."""
+    wl = wl_ref()
+    if wl is None:
+        return 0.0
+    phases = getattr(wl.processor, "phases", None)
+    if phases is None:
+        return 0.0
+    try:
+        return float(sum(phases.phase_seconds().values()))
+    except Exception:
+        return 0.0
 
 
 class _BatchRequest:
@@ -144,11 +166,20 @@ class Workload:
         # device-byte ledger enrollment (telemetry/memory.py): the
         # components callable holds this workload weakly, so a replaced
         # workload drops out of the books with its last reference and the
-        # closed flag hides it meanwhile
+        # closed flag hides it meanwhile.  Arena-enabled device corpora
+        # register as LOGICAL views: the arena owns the physical corpus
+        # bytes and attributes them once
         wl_ref = weakref.ref(self)
+        corpus = getattr(index, "corpus", None)
         memory.register(self, self.kind, self.name,
-                        lambda: _hbm_components(wl_ref))
+                        lambda: _hbm_components(wl_ref),
+                        logical=corpus is not None and arena_enabled())
         memory.note_device(getattr(index, "device", None))
+        if corpus is not None:
+            # arena identity + eviction heat: device_arrays admits under
+            # these (engine.device_matcher.DeviceCorpus)
+            corpus.arena_label = f"{self.kind}/{self.name}"
+            corpus.arena_heat = lambda: _arena_heat(wl_ref)
 
     # -- lock-hold observations ---------------------------------------------
 

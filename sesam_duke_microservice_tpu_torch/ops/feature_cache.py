@@ -191,8 +191,10 @@ def plan_fingerprint(plan, encoder=None) -> tuple:
     a tensor (name, kind, value slots, char width, comparator class and
     QGram's ``q``; PHONETIC's class picks Soundex / Metaphone / Norphone
     codes), the global gram / token widths and char dtype, and the
-    encoder's dim, properties, storage layout and route (C++ or numpy:
-    their embeddings differ in the last f32 bit).  Deliberately EXCLUDES
+    encoder's dim, properties, storage layout, route (C++ or numpy:
+    their embeddings differ in the last f32 bit) and the DUKE_IVF
+    retrieval mode (the JAX package's key carries it: an IVF flip between
+    restarts self-invalidates cached rows).  Deliberately EXCLUDES
     the low / high probabilities: they shape scoring, not the extracted
     tensors, so a reload that only retunes them reuses every cached row.
     """
@@ -206,10 +208,12 @@ def plan_fingerprint(plan, encoder=None) -> tuple:
     enc = None
     if encoder is not None:
         from . import embedding as E
+        from . import ivf
 
         enc = (int(encoder.dim), tuple(encoder.props),
                getattr(encoder, "storage", None) or E.storage_name(),
-               "numpy" if E._native_embed() is None else "c++")
+               "numpy" if E._native_embed() is None else "c++",
+               bool(ivf.enabled()))
     return (specs, F.MAX_GRAMS, F.MAX_TOKENS,
             str(np.dtype(F.CHAR_DTYPE)), enc)
 

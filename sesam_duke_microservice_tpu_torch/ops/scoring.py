@@ -351,6 +351,18 @@ def candidate_mask(cvalid, cdeleted, cgroup, cidx, query_group, query_row,
     return mask & (cidx[None, :] != query_row[:, None])
 
 
+def candidate_mask_gathered(gvalid, gdeleted, ggroup, grows, query_group,
+                            query_row, group_filtering: bool):
+    """``candidate_mask`` for ALIGNED gathered candidates: every operand is
+    a (Q, S) per-query gather (the IVF probe, ``ops.ivf``) beside the
+    corpus row ids ``grows`` (-1 for padding slots).  The same policy,
+    plus the padding-slot exclusion the gathered layout brings."""
+    mask = (grows >= 0) & gvalid & ~gdeleted
+    if group_filtering:
+        mask = mask & (ggroup != query_group[:, None])
+    return mask & (grows != query_row[:, None])
+
+
 # -- the blockwise corpus scorer --------------------------------------------
 
 

@@ -57,8 +57,16 @@ the flight recorder when sampled, slow or failed) and answered with an
 registry with ``telemetry.GLOBAL``.  ``/debug/traces``,
 ``/debug/requests``, ``/debug/decisions``, ``/debug/profile``,
 ``/debug/costs``, ``/debug/memory``, ``/debug/slo`` and ``POST
-/explain`` are the JAX package's (``service.debug``); its rematch route,
-``/debug/loadmap`` and ``/debug/probes`` wait for their modules.
+/explain`` are the JAX package's (``service.debug``), as is
+``/debug/probes``, the canary prober's read surface; its rematch route
+and ``/debug/loadmap`` wait for their modules.
+
+The canary prober (``service.prober``, on unless ``DUKE_PROBE=0``) keeps
+one shadow workload per user workload under the reserved ``__probe__``
+namespace, which no route resolves: an entity path naming it answers
+404 and a feed 400.  A scoring POST whose corpus does not fit the device
+budget even after the arena spilled every other tenant answers 503 with
+``Retry-After`` (``ops.arena.ArenaAdmissionError``).
 """
 
 from __future__ import annotations
@@ -92,9 +100,11 @@ from ..engine.scheduler import (
 from ..engine.workload import Workload, build_workload, resolve_device
 from ..env import env_flag, env_float, env_str
 from ..links import journal as link_journal
+from ..ops.arena import ArenaAdmissionError
 from ..telemetry import slo, tracing
 from ..telemetry.decisions import audit_log
 from ..telemetry.logctx import new_request_id, request_id_var
+from ..telemetry.probes import is_probe_name, probes_enabled
 from ..utils.backoff import full_jitter_delay
 from . import debug as debug_api
 from .homepage import render_homepage
@@ -223,6 +233,7 @@ class DukeApp:
         # would set a near-identical value twice, harmlessly)
         self._first_batch_served = False
         self.scheduler: Optional[IngestScheduler] = None
+        self.prober = None
         self.apply_config(config)
         # queues are keyed by (kind, name) and dispatch re-resolves from
         # the live registries, so a reload retargets queued requests at
@@ -230,8 +241,24 @@ class DukeApp:
         # Workload.submit_batch
         if scheduler_enabled():
             self.scheduler = IngestScheduler(self._resolve_workload)
+        # the black-box canary prober: one shadow workload per user
+        # workload under the reserved __probe__ namespace, cycling the
+        # derived canary corpus through the real path (scheduler,
+        # scoring, finalize, links, feed) on a background interval.
+        # Shadows live only in the prober -- never in the HTTP registries
+        # -- and DUKE_PROBE=0 builds no prober, thread or collector
+        if probes_enabled():
+            from .prober import CanaryProber
+
+            self.prober = CanaryProber(self)
+            self.prober.start()
 
     def _resolve_workload(self, kind: str, name: str) -> Optional[Workload]:
+        if is_probe_name(name):
+            # the scheduler's dispatch of canary batches: probe names
+            # resolve through the prober's shadows, invisible to HTTP
+            prober = self.prober
+            return prober.resolve(kind, name) if prober is not None else None
         registry = (self.deduplications if kind == "deduplication"
                     else self.record_linkages)
         return registry.get(name)
@@ -389,6 +416,10 @@ class DukeApp:
             self._close_done.wait()
             return
         try:
+            # stop the canary prober before the scheduler drain: its
+            # cycles submit through the scheduler this shuts down
+            if self.prober is not None:
+                self.prober.stop()
             # drain FIRST: queued requests complete against still-open
             # workloads (none is lost), and the dispatcher must be able to
             # take the workload locks this method is about to hold
@@ -446,8 +477,13 @@ _STATIC_ROUTES = frozenset((
     "/", "/config", "/health", "/healthz", "/readyz", "/metrics", "/stats",
     "/debug/traces", "/debug/requests", "/debug/decisions", "/explain",
     "/debug/profile", "/debug/profile/reset",
-    "/debug/costs", "/debug/memory", "/debug/slo",
+    "/debug/costs", "/debug/memory", "/debug/slo", "/debug/probes",
 ))
+
+
+def _arena_refusal(e: ArenaAdmissionError) -> _HttpError:
+    return _HttpError(503, f"HBM budget exhausted: {e}",
+                      extra_headers={"Retry-After": "30"})
 
 
 def _kind_label(kind: str) -> str:
@@ -640,6 +676,15 @@ class DukeRequestHandler(BaseHTTPRequestHandler):
             flush_errors = self.app.link_flush_errors()
             if flush_errors:
                 health["link_flush_errors"] = flush_errors
+            # canary verdict mismatches are a correctness incident: the
+            # status turns degraded (still 200 -- the process is alive)
+            # and names the offending workloads
+            prober = self.app.prober
+            probe_detail = (prober.health_detail()
+                            if prober is not None else None)
+            if probe_detail is not None:
+                health["status"] = "degraded"
+                health["probe_verdict_mismatches"] = probe_detail
             self._reply(200, json.dumps(health).encode("utf-8"))
         elif path == "/readyz":
             self._handle_readyz()
@@ -668,6 +713,8 @@ class DukeRequestHandler(BaseHTTPRequestHandler):
             self._reply(*debug_api.handle_memory())
         elif path == "/debug/slo":
             self._reply(*debug_api.handle_slo())
+        elif path == "/debug/probes":
+            self._reply(*debug_api.handle_probes(self.app.prober))
         elif m := _ENTITY_PATH.match(path):
             self._validate_entity_path(m)
             raise _HttpError(405, "This endpoint only supports POST requests.")
@@ -831,6 +878,12 @@ class DukeRequestHandler(BaseHTTPRequestHandler):
             raise _HttpError(404, f"The {label}Name cannot be an empty string!")
         if not dataset_id:
             raise _HttpError(404, "The datasetId cannot be an empty string!")
+        if is_probe_name(name) or is_probe_name(dataset_id):
+            # the namespace exclusion: probe shadows are never
+            # HTTP-addressable, even by their real names
+            raise _HttpError(
+                404, "The '__probe__' namespace is reserved for the "
+                     "synthetic canary prober.")
         workload = self._workloads(kind).get(name)
         if workload is None:
             raise self._unknown(404, kind, name)
@@ -882,6 +935,11 @@ class DukeRequestHandler(BaseHTTPRequestHandler):
                 )
             except SchedulerClosed:
                 raise _HttpError(503, "The service is shutting down.")
+            except ArenaAdmissionError as e:
+                # the corpus does not fit the device budget even after
+                # spilling every other tenant: a loud, actionable 503 --
+                # never an allocator OOM
+                raise _arena_refusal(e)
             except Exception as e:
                 logger.exception("Batch processing failed")
                 raise _HttpError(500, f"Batch processing failed: {e}")
@@ -894,6 +952,8 @@ class DukeRequestHandler(BaseHTTPRequestHandler):
                 try:
                     rows = workload.submit_batch(dataset_id, batch,
                                                  http_transform=transform)
+                except ArenaAdmissionError as e:
+                    raise _arena_refusal(e)
                 except Exception as e:
                     logger.exception("Batch processing failed")
                     raise _HttpError(500, f"Batch processing failed: {e}")
@@ -936,6 +996,12 @@ class DukeRequestHandler(BaseHTTPRequestHandler):
         label = _kind_label(kind)
         if not name:
             raise _HttpError(400, f"The {label}Name cannot be an empty string!")
+        if is_probe_name(name):
+            # the feed half of the namespace exclusion: no probe shadow's
+            # links are ever served to a ?since= poller
+            raise _HttpError(
+                400, "The '__probe__' namespace is reserved for the "
+                     "synthetic canary prober.")
         since = 0
         since_params = query.get("since")
         if since_params and since_params[0]:

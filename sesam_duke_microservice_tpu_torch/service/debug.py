@@ -1,6 +1,6 @@
-"""``/debug`` surface: flight recorders, decisions, explain, profiling (the
-JAX package's ``service/debug.py`` on torch, without ``/debug/loadmap``
-and ``/debug/probes``, whose heat map and prober are not ported yet).
+"""``/debug`` surface: flight recorders, decisions, explain, profiling,
+probes (the JAX package's ``service/debug.py`` on torch, without
+``/debug/loadmap``, whose heat map is not ported yet).
 
 Rendering helpers for the debug/explainability endpoints:
 
@@ -15,6 +15,7 @@ Rendering helpers for the debug/explainability endpoints:
     GET  /debug/costs               device-time ledger + reconciliation
     GET  /debug/memory              device-memory ledger + headroom
     GET  /debug/slo                 SLO violations w/ exemplar traces
+    GET  /debug/probes              canary prober history + mismatches
 
 Each helper returns ``(status, body_bytes, content_type)`` so the HTTP
 layer stays a thin switch (service/app.py) and the logic is unit-testable
@@ -263,3 +264,12 @@ def handle_slo() -> Reply:
 
     return _reply_json(200, slo.debug_snapshot())
 
+
+def handle_probes(prober) -> Reply:
+    """``GET /debug/probes``: per-workload canary probe history with
+    links into /debug/traces and /debug/decisions (``prober`` is None
+    when DUKE_PROBE=0 -- report disabled instead of 404 so dashboards
+    can tell "off" from "missing")."""
+    if prober is None:
+        return _reply_json(200, {"enabled": False})
+    return _reply_json(200, prober.debug_snapshot())

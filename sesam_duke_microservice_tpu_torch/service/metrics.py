@@ -14,7 +14,7 @@ All collector reads are lock-free snapshots of single-writer state, the
 same guarantee the /stats endpoint gives (engine/device_matcher.py
 live_records): a scrape takes no workload lock and never syncs the card.
 Every family has the JAX package's name, type and label keys; those whose
-sources the port does not have yet (IVF, mesh, prewarm) are not emitted.
+sources the port does not have yet (mesh, prewarm) are not emitted.
 """
 
 from __future__ import annotations
@@ -180,6 +180,8 @@ def make_app_collector(app):
         rows_samples = []
         capacity_samples = []
         emb_samples = []
+        ivf_cell_samples = []
+        ivf_probe_samples = []
         link_samples = []
         journal_batch_samples = []
         journal_byte_samples = []
@@ -285,6 +287,12 @@ def make_app_collector(app):
                     indexed = len(wl.index)
                 except TypeError:
                     pass
+            ivf = getattr(wl.index, "ivf", None)
+            if ivf is not None:
+                # DUKE_IVF state (0 cells = enabled but still untrained
+                # below DUKE_IVF_MIN_ROWS)
+                ivf_cell_samples.append(("", labels, float(ivf.ncells)))
+                ivf_probe_samples.append(("", labels, float(ivf.nprobe0)))
             if indexed is not None:
                 rows_samples.append(
                     ("", labels + (("state", "indexed"),), indexed))
@@ -453,6 +461,16 @@ def make_app_collector(app):
                 "Bytes of the ANN embedding tree (codes + int8 scale "
                 "vector when DUKE_EMB_INT8) resident per corpus row set",
                 emb_samples))
+        if ivf_cell_samples:
+            out.append(FamilySnapshot(
+                "duke_ivf_cells", "gauge",
+                "Trained IVF k-means cells (0 = DUKE_IVF on but below "
+                "DUKE_IVF_MIN_ROWS, flat scan serving)", ivf_cell_samples))
+            out.append(FamilySnapshot(
+                "duke_ivf_probe_cells", "gauge",
+                "Cells probed per query at the initial candidate width "
+                "(escalation widens this in lockstep with top-C)",
+                ivf_probe_samples))
         if finalize_samples:
             out.append(FamilySnapshot(
                 "duke_finalize_pairs_total", "counter",

@@ -78,8 +78,8 @@ SCORER_ESCALATIONS = GLOBAL.counter(
     "duke_scorer_escalations_total",
     "K/C-escalation re-runs of the device scoring program",
 )
-# which retrieval stage saturated: brute-force top-K or flat-ANN top-C
-# (the JAX package's third stage, the IVF cell probe, waits for IVF)
+# which retrieval stage saturated: brute-force top-K, flat-ANN top-C, or
+# the IVF cell probe (ops/ivf.py, engine/ann_matcher.py)
 RETRIEVAL_ESCALATIONS = GLOBAL.counter(
     "duke_retrieval_escalations_total",
     "Retrieval-width escalation re-runs by saturated stage "

@@ -50,6 +50,7 @@ _lock = threading.Lock()
 _enabled = True  # guarded by: _lock [writes]
 _busy_total = 0.0  # guarded by: _lock
 _compile_total = 0.0  # guarded by: _lock
+_compile_count = 0  # guarded by: _lock
 # [slot_index, busy_seconds] per 5 s slot, lazily recycled
 _slots: List[List[float]] = [[-1, 0.0] for _ in range(_N_SLOTS)]  # guarded by: _lock
 _started = time.monotonic()
@@ -85,12 +86,21 @@ def note_busy(seconds: float, now: Optional[float] = None) -> None:
 
 
 def note_compile(seconds: float) -> None:
-    """Credit one first-use build of a native library."""
-    if not _enabled or seconds <= 0.0:
-        return
-    global _compile_total
+    """Credit one first-use build of a native library (an nvcc or g++
+    run): counted always (the canary prober reads the count), its
+    seconds while the ledger is on."""
+    global _compile_total, _compile_count
     with _lock:
-        _compile_total += seconds
+        _compile_count += 1
+        if _enabled and seconds > 0.0:
+            _compile_total += seconds
+
+
+def compile_count() -> int:
+    """nvcc and g++ builds this process ran -- the port's counterpart of
+    the JAX package's XLA compile counter."""
+    with _lock:
+        return _compile_count
 
 
 def busy_seconds_total() -> float:

@@ -5,10 +5,11 @@ Owners of device-resident state register a components callable
 (``register(owner, kind, name, fn)`` — ``fn() -> {component: bytes}``)
 held through a weakref, so a reloaded-away workload drops out of the
 books automatically.  ``engine.workload.Workload`` registers its corpus
-tensors and (``ann``) embeddings / int8 scales at construction, reading
-the ``nbytes`` of the ``DeviceCorpus`` tensors; the one process-wide
-component (the digest-keyed feature cache) is computed here.  The port
-has no arena and no AOT executable store.
+tensors, (``ann``) embeddings / int8 scales and (IVF) cell membership at
+construction, reading the ``nbytes`` of the ``DeviceCorpus`` tensors; the
+shared device arena (``ops.arena``) registers its resident corpus bytes
+once, and the one process-wide component (the digest-keyed feature
+cache) is computed here.  The port has no AOT executable store.
 
 Scrape surfaces:
 
@@ -47,37 +48,42 @@ from .registry import FamilySnapshot, add_render_hook
 DEFAULT_BUDGET_BYTES = 16 << 30  # 16 GiB: one modern accelerator's HBM
 
 _REG_LOCK = threading.Lock()
-# id(owner) -> (weakref(owner), kind, name, components_fn)
+# id(owner) -> (weakref(owner), kind, name, components_fn, logical)
 _ENTRIES: Dict[int, tuple] = {}  # guarded by: _REG_LOCK [writes]
 # (unix_ts, corpus_bytes) scrape-time samples driving the growth forecast
 _growth: deque = deque(maxlen=256)  # guarded by: _REG_LOCK
 
 
 def register(owner: object, kind: str, name: str,
-             fn: Callable[[], Dict[str, int]]) -> None:
+             fn: Callable[[], Dict[str, int]], *,
+             logical: bool = False) -> None:
     """Enroll ``owner``'s device buffers; ``fn`` must be lock-free and
-    must not strongly reference ``owner`` (close over a weakref).  (The
-    JAX package's ``logical`` registrations belong to its arena, which
-    the port does not have.)"""
+    must not strongly reference ``owner`` (close over a weakref).
+
+    ``logical`` marks a per-tenant VIEW of bytes whose physical owner is
+    registered elsewhere (arena-enabled workloads view corpus tensors
+    the arena attributes once): logical arena-tier components are
+    reported per owner for attribution but excluded from the budget
+    totals, so no byte counts twice against the headroom."""
     key = id(owner)
     with _REG_LOCK:
-        _ENTRIES[key] = (weakref.ref(owner), kind, name, fn)
+        _ENTRIES[key] = (weakref.ref(owner), kind, name, fn, logical)
 
 
-def _iter_live() -> List[Tuple[str, str, object, Callable]]:
+def _iter_live() -> List[Tuple[str, str, object, Callable, bool]]:
     """Live registrations, pruning dead/closed owners in passing."""
     out = []
     with _REG_LOCK:
         items = list(_ENTRIES.items())
     dead = []
-    for key, (ref, kind, name, fn) in items:
+    for key, (ref, kind, name, fn, logical) in items:
         owner = ref()
         if owner is None:
             dead.append(key)
             continue
         if getattr(owner, "closed", False):
             continue  # replaced by reload; the weakref reaps it later
-        out.append((kind, name, owner, fn))
+        out.append((kind, name, owner, fn, logical))
     if dead:
         with _REG_LOCK:
             for key in dead:
@@ -120,7 +126,7 @@ def _eval_components(fn: Callable) -> Dict[str, float]:
 
 
 def _ledger_pass() -> Dict[int, tuple]:
-    """id(owner) -> (kind, name, components) — ONE evaluation
+    """id(owner) -> (kind, name, components, logical) — ONE evaluation
     of every live registration, cached for the duration of the active
     render (none active: computed fresh, never cached)."""
     snapshot = (getattr(_PASS, "snapshot", None)
@@ -128,8 +134,8 @@ def _ledger_pass() -> Dict[int, tuple]:
     if snapshot is not None:
         return snapshot
     snapshot = {
-        id(owner): (kind, name, _eval_components(fn))
-        for kind, name, owner, fn in _iter_live()
+        id(owner): (kind, name, _eval_components(fn), logical)
+        for kind, name, owner, fn, logical in _iter_live()
     }
     if getattr(_PASS, "active", False):
         _PASS.snapshot = snapshot
@@ -200,19 +206,31 @@ def budget_bytes() -> Tuple[float, str]:
     return float(DEFAULT_BUDGET_BYTES), "default"
 
 
-_CORPUS_COMPONENTS = ("corpus_tensors", "corpus_embeddings", "int8_scales")
+_CORPUS_COMPONENTS = ("corpus_tensors", "corpus_embeddings", "int8_scales",
+                      "ivf_membership")
+# components an arena-enabled workload only VIEWS (the arena owns the
+# physical device bytes and attributes them once): excluded from the
+# budget totals when the registration is logical.  ivf_membership stays
+# physical either way -- the arena does not manage IVF uploads.
+_ARENA_VIEW_COMPONENTS = ("corpus_tensors", "corpus_embeddings",
+                          "int8_scales")
 
 
 def _totals(now_unix: Optional[float] = None
             ) -> Tuple[float, float, List[Tuple[str, str, str, float]]]:
     """(total_bytes, corpus_bytes, [(kind, name, component, bytes)]) and
-    feed the growth ring with the corpus share."""
+    feed the growth ring with the corpus share.  Logical registrations'
+    arena-tier components appear in the rows (per-tenant attribution)
+    but never in the totals -- the arena's own registration carries the
+    physical bytes exactly once."""
     rows: List[Tuple[str, str, str, float]] = []
     total = 0.0
     corpus = 0.0
-    for kind, name, comps in _ledger_pass().values():
+    for kind, name, comps, logical in _ledger_pass().values():
         for comp, nbytes in sorted(comps.items()):
             rows.append((kind, name, comp, nbytes))
+            if logical and comp in _ARENA_VIEW_COMPONENTS:
+                continue  # a view: the arena row already counted it
             total += nbytes
             if comp in _CORPUS_COMPONENTS:
                 corpus += nbytes
@@ -264,15 +282,22 @@ def live_arrays_bytes() -> Optional[int]:
 
 
 def debug_snapshot() -> Dict[str, object]:
-    """``GET /debug/memory`` payload (the JAX package's keys; the port has
-    no arena, so no row carries its ``logical`` marker and there is no
-    ``arena`` block).  ``live_arrays_bytes`` is the caching allocator's
-    ``memory_allocated`` on the card, the cross-check of ``total_bytes``
-    (None in a CPU-only process)."""
+    """``GET /debug/memory`` payload (the JAX package's keys).
+    ``live_arrays_bytes`` is the caching allocator's ``memory_allocated``
+    on the card, the cross-check of the PHYSICAL ``total_bytes``:
+    arena-enabled workloads' corpus rows are logical views (their
+    ``logical`` flag marks them here), and the allocator's bytes
+    correspond to the arena's resident tier plus the non-logical
+    registrations -- spilled tenants' mirrors are host numpy, invisible
+    to both sides of the check (None in a CPU-only process)."""
     budget, source = budget_bytes()
     total, corpus, rows = _totals()
     headroom = budget - total
-    return {
+    logical_owners = {
+        (kind, name) for kind, name, _comps, logical
+        in _ledger_pass().values() if logical
+    }
+    out = {
         "budget_bytes": int(budget),
         "budget_source": source,
         "total_bytes": int(total),
@@ -282,16 +307,27 @@ def debug_snapshot() -> Dict[str, object]:
         "overflow_days": round(overflow_days(headroom), 3),
         "workloads": [
             {"kind": kind, "workload": name, "component": comp,
-             "bytes": int(nbytes)}
+             "bytes": int(nbytes),
+             # the marker appears ONLY on arena-view rows so the other
+             # rows keep their exact shape
+             **({"logical": True}
+                if (kind, name) in logical_owners
+                and comp in _ARENA_VIEW_COMPONENTS else {})}
             for kind, name, comp, nbytes in rows if kind != "process"
         ],
         "process": {comp: int(nbytes)
                     for kind, _n, comp, nbytes in rows if kind == "process"},
         "live_arrays_bytes": live_arrays_bytes(),
     }
+    from ..ops import arena
+
+    out["arena"] = arena.ARENA.debug_snapshot()
+    return out
 
 
 def _reset_for_tests() -> None:
+    # NOTE: this also drops the arena's import-time enrollment; it
+    # re-enrolls at its next admission (ops.arena.DeviceArena.admit)
     with _REG_LOCK:
         _ENTRIES.clear()
         _growth.clear()

@@ -1,9 +1,11 @@
-"""Deterministic ingest crash sites for the kill-differential tests.
+"""Deterministic ingest crash sites for the kill-differential tests, and
+the canary prober's verdict-flip drill.
 
-The port's share of the JAX package's ``utils/faults.py``: only the
-ingest crash sites (the port has no replicas, leaders or prober).
-Activation is the ``DUKE_FAULTS`` env var (or ``configure()`` from
-tests), a ``;``/``,``-separated spec; the one token kind read here is
+The port's share of the JAX package's ``utils/faults.py``: the ingest
+crash sites and ``probe_flip`` (the port has no replicas, leaders or
+federation groups).  Activation is the ``DUKE_FAULTS`` env var (or
+``configure()`` from tests), a ``;``/``,``-separated spec; the token
+kinds read here are
 
   ``crash_at=<site>:<n>``   SIGKILL this process the ``n``-th time the
                             named crash site is reached -- no cleanup, no
@@ -16,6 +18,12 @@ applied), ``post_journal_append`` (batch journaled, not yet flushed),
 ``post_flush_pre_truncate`` (committed, watermark not yet written),
 ``mid_journal_write`` (HALF the journal frame written first: a torn
 tail) and ``mid_snapshot_save`` (snapshot tmp written, rename pending).
+
+  ``probe_flip=<n>``        corrupt the ``n``-th canary verdict the
+                            prober checks (service/prober.py readback
+                            seam) -- drives the mismatch latch and the
+                            ``/healthz`` degraded detection drill.
+
 Other token kinds of the JAX package's spec are accepted and ignored, so
 one spec drives both packages.  With no spec every hook is one env read.
 """
@@ -39,16 +47,36 @@ class FaultPlan:
         self._crash_at: Dict[str, int] = {}
         self._lock = threading.Lock()
         self._crash_counts: Dict[str, int] = {}  # guarded by: self._lock
+        self._probe_flip_at: Optional[int] = None
+        self._probe_count = 0  # guarded by: self._lock
         for raw in spec.replace(",", ";").split(";"):
             kind, _, args = raw.strip().partition("=")
-            if kind.strip() != "crash_at":
+            kind = kind.strip()
+            if kind not in ("crash_at", "probe_flip"):
                 continue
             parts = [p for p in args.partition("@")[0].split(":") if p]
             try:
-                self._crash_at[parts[0]] = int(parts[1])
+                if kind == "probe_flip":
+                    self._probe_flip_at = int(parts[0])
+                else:
+                    self._crash_at[parts[0]] = int(parts[1])
             except (IndexError, ValueError) as e:
                 raise ValueError(
                     f"bad DUKE_FAULTS token {raw.strip()!r}: {e}") from e
+
+    def probe_flip(self) -> bool:
+        """Count one canary-verdict check; True iff this is the
+        configured occurrence (spec ``probe_flip=<n>``) -- the prober
+        then corrupts that one verdict at its readback seam, exactly as
+        a finalize corruption would surface."""
+        if self._probe_flip_at is None:
+            return False
+        with self._lock:
+            self._probe_count += 1
+            hit = self._probe_count == self._probe_flip_at
+        if hit:
+            telemetry.FAULTS_INJECTED.labels(kind="probe_flip").inc()
+        return hit
 
     def crash_hit(self, site: str) -> bool:
         """Count one arrival at ``site``; True iff this is the configured

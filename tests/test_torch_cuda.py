@@ -643,3 +643,129 @@ def test_ann_service_on_cuda_matches_cpu(cuda_device, monkeypatch):
         app.close()
     assert feeds[0] == feeds[1]
     assert len(json.loads(feeds[0])) > 10
+
+
+# -- IVF and the arena on the card ---------------------------------------------
+
+
+def _unit_rows(n, d, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((n, d), generator=g)
+    return (x / x.norm(dim=1, keepdim=True)).numpy()
+
+
+def test_kmeans_on_cuda_is_deterministic(cuda_device):
+    """Two trainings on the card give equal centroids bit for bit (the
+    per-cell sums are a one-hot product, not float atomics), within 1e-6
+    of the CPU's."""
+    import numpy as np
+
+    from sesam_duke_microservice_tpu_torch.ops import ivf as IVF
+
+    x = _unit_rows(70000, 256, 3)  # two row steps of the trainer
+    first = IVF.train_kmeans(x, 256, seed=1234, iters=4, device=cuda_device)
+    second = IVF.train_kmeans(x, 256, seed=1234, iters=4,
+                              device=cuda_device)
+    assert np.array_equal(first, second)
+    cpu = IVF.train_kmeans(x, 256, seed=1234, iters=4)
+    assert np.abs(first - cpu).max() <= 1e-6
+
+
+def _ivf_problem(device, int8):
+    import numpy as np
+
+    from sesam_duke_microservice_tpu_torch.ops import encoder as E
+    from sesam_duke_microservice_tpu_torch.ops import ivf as IVF
+
+    n, d = 6000, 256
+    x = _unit_rows(n, d, 5)
+    x[4000:4100] = x[4000]                     # a duplicate cluster
+    if int8:
+        codes, scale = E.quantize_rows(x)
+        tree = {E.ANN_TENSOR: torch.from_numpy(codes),
+                E.ANN_SCALE: torch.from_numpy(scale)}
+    else:
+        bits = E.bf16_bits(x).view(np.int16)
+        tree = {E.ANN_TENSOR: torch.from_numpy(bits).view(torch.bfloat16)}
+    cents = IVF.train_kmeans(x, 64, seed=7, iters=3)
+    assign = np.argmax(x @ cents.T, axis=1)
+    bucket = int(np.bincount(assign, minlength=64).max())
+    cells = np.full((64, bucket), -1, dtype=np.int64)
+    for k in range(64):
+        rows = np.flatnonzero(assign == k)
+        cells[k, :rows.size] = rows
+    g = torch.Generator().manual_seed(9)
+    valid = torch.rand(n, generator=g) > 0.05
+    deleted = torch.rand(n, generator=g) < 0.05
+    group = torch.randint(1, 3, (n,), generator=g, dtype=torch.int32)
+    qrow = torch.arange(0, n, 7, dtype=torch.int32)
+    qgroup = torch.randint(1, 3, qrow.shape, generator=g, dtype=torch.int32)
+    args = [{k: v.to(device) for k, v in tree.items()},
+            torch.from_numpy(cents).to(device),
+            torch.from_numpy(cells).to(device)]
+    args += [t.to(device) for t in (valid, deleted, group, qgroup, qrow)]
+    return args
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("gf", [False, True])
+def test_ivf_probe_on_cuda_matches_cpu(int8, gf, cuda_device):
+    """The probe on the card against its CPU run on the same state: equal
+    index sets (bit for bit under int8; under bf16 scores within
+    ``4 D 2^-24`` and rows equal wherever neighbouring kept scores differ
+    by more)."""
+    from sesam_duke_microservice_tpu_torch.ops import ivf as IVF
+
+    outs = []
+    for device in (cuda_device, torch.device("cpu")):
+        tree, cents, cells, valid, deleted, group, qgroup, qrow = \
+            _ivf_problem(device, int8)
+        q_tree = {k: v.index_select(0, qrow.long()) for k, v in tree.items()}
+        sims, idx = IVF.ivf_probe_topc(
+            q_tree, tree, cents, cells, valid, deleted, group, qgroup, qrow,
+            top_c=32, nprobe=6, slot_chunk=256, group_filtering=gf)
+        outs.append((sims.cpu(), idx.cpu()))
+    (gs, gi), (ws, wi) = outs
+    if int8:
+        assert torch.equal(gs, ws) and torch.equal(gi, wi)
+        return
+    tol = ck.segmax_tolerance(256)
+    assert float((gs - ws).abs().max()) <= tol
+    gap = (ws[:, 1:] - ws[:, :-1]).abs()
+    ok = (gap == 0) | (gap > tol)
+    decided = torch.ones_like(wi, dtype=torch.bool)
+    decided[:, 1:] &= ok
+    decided[:, :-1] &= ok
+    assert torch.equal(gi[decided], wi[decided])
+    assert float(decided.float().mean()) > 0.9
+
+
+def test_spill_lowers_memory_allocated(cuda_device, monkeypatch):
+    """An arena spill drops every reference to the corpus tensors: the
+    caching allocator's ``memory_allocated`` falls by at least the
+    spilled bytes, and the next query faults the corpus back in."""
+    from sesam_duke_microservice_tpu_torch.ops.arena import ARENA
+
+    monkeypatch.setenv("DEVICE_INITIAL_CAPACITY", "65536")
+    app = DukeApp(parse_config(CONFIG), device=cuda_device,
+                  persistent=False)
+    try:
+        wl = app.deduplications["people"]
+        batch = [{"_id": f"a{i}", "name": f"ole hansen {i}",
+                  "ssn": str(i % 50)} for i in range(300)]
+        with wl.lock:
+            wl.process_batch("crm", batch)
+        corpus = wl.index.corpus
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(cuda_device)
+        freed = corpus.spill_device()
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated(cuda_device)
+        assert freed == corpus._device_nbytes() > 0
+        assert before - after >= freed
+        ARENA.forget(corpus)
+        with wl.lock:
+            wl.process_batch("crm", batch[:10])
+        assert torch.cuda.memory_allocated(cuda_device) - after >= freed
+    finally:
+        app.close()

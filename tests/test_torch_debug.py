@@ -11,11 +11,12 @@ unknown id, an unknown format), ``/debug/requests``,
 a 409, a 400, the reset), ``/debug/costs``, ``/debug/memory`` and
 ``/debug/slo`` answer the same statuses with the same keys, and
 ``/metrics`` labels every one of these requests with the JAX package's
-route template.  Deliberate differences, each asserted: ``/debug/memory``
-has no ``arena`` block and no ``aot_executables`` component in the port
-(neither the arena nor the XLA executable store is ported), and
-``/debug/loadmap`` and ``/debug/probes`` answer 404 (their heat map and
-prober are not ported).  Keys compare exactly; values are not compared
+route template; ``/debug/memory`` carries the ``arena`` block and
+``/debug/probes`` the canary prober's history, as in the JAX package.
+Deliberate differences, each asserted: ``/debug/memory`` has no
+``aot_executables`` component in the port (the XLA executable store is
+not ported), and ``/debug/loadmap`` answers 404 (its federation heat map
+is not ported).  Keys compare exactly; values are not compared
 here (the tracing, explain and service-surface tests hold them).
 """
 
@@ -151,15 +152,27 @@ def test_debug_slo_keys_equal_jax(pair):
 
 
 def test_debug_memory_keys_equal_jax_but_the_arena(pair):
+    """The keys equal the JAX package's, the ``arena`` block and the
+    rows' ``logical`` marks of arena views included (the name predates
+    the port's arena); only the AOT store's process row is the JAX
+    package's alone."""
     _, urls = pair
     (jstatus, jbody), (tstatus, tbody) = both(urls, "/debug/memory")
     assert tstatus == jstatus == 200
-    assert "arena" not in tbody
-    jbody.pop("arena", None)
-    # the JAX rows mark arena views ``logical``; the port has no arena
-    for row in jbody["workloads"]:
-        row.pop("logical", None)
-    # nor an AOT executable store (XLA executables: not ported by design)
+    assert tbody["arena"]["enabled"] is jbody["arena"]["enabled"] is True
+    # arena views carry the ``logical`` mark, and only they; which row
+    # comes first in the process-wide ledger depends on the tests that
+    # ran before in this process, so the mark is held here and dropped
+    # from the shape comparison below
+    from sesam_duke_microservice_tpu_torch.telemetry import memory
+
+    marked = [row for row in tbody["workloads"] if row.get("logical")]
+    assert marked and all(row["component"] in memory._ARENA_VIEW_COMPONENTS
+                          for row in marked)
+    for body in (tbody, jbody):
+        for row in body["workloads"]:
+            row.pop("logical", None)
+    # no AOT executable store (XLA executables: not ported by design)
     assert "aot_executables" not in tbody["process"]
     jbody["process"].pop("aot_executables", None)
     assert loose(shape(tbody)) == loose(shape(jbody))
@@ -211,10 +224,15 @@ def test_debug_profile_cycle_and_reset_keys_equal_jax(pair, monkeypatch):
 
 
 def test_unported_debug_routes_answer_404(pair):
+    """``/debug/loadmap`` (the federation heat map) is not ported; the
+    canary prober's ``/debug/probes`` is served with the JAX keys."""
     _, urls = pair
-    for path in ("/debug/loadmap", "/debug/probes"):
-        assert request(urls[0] + path)[0] == 200
-        assert request(urls[1] + path)[0] == 404
+    assert request(urls[0] + "/debug/loadmap")[0] == 200
+    assert request(urls[1] + "/debug/loadmap")[0] == 404
+    (jstatus, jbody), (tstatus, tbody) = both(urls, "/debug/probes")
+    assert tstatus == jstatus == 200
+    assert loose(shape(tbody)) == loose(shape(jbody))
+    assert tbody["enabled"] is jbody["enabled"] is True
 
 
 def test_debug_route_templates_equal_jax(pair):

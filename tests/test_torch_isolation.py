@@ -57,6 +57,11 @@ def test_importing_the_port_loads_no_jax():
         "import sesam_duke_microservice_tpu_torch.telemetry.env\n"
         "import sesam_duke_microservice_tpu_torch.engine.explain\n"
         "import sesam_duke_microservice_tpu_torch.service.debug\n"
+        "import sesam_duke_microservice_tpu_torch.service.prober\n"
+        "import sesam_duke_microservice_tpu_torch.ops.arena\n"
+        "import sesam_duke_microservice_tpu_torch.ops.ivf\n"
+        "import sesam_duke_microservice_tpu_torch.telemetry.probes\n"
+        "import sesam_duke_microservice_tpu_torch.utils.numcheck\n"
         "print(json.dumps(sorted(set(sys.modules) - before)))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -80,6 +85,11 @@ def test_importing_the_port_loads_no_jax():
     # tracing, decisions, explain and the /debug surface load with the app
     for mod in ("telemetry.tracing", "telemetry.decisions",
                 "telemetry.rings", "engine.explain", "service.debug"):
+        assert f"sesam_duke_microservice_tpu_torch.{mod}" in loaded
+    # the arena, the canary probe plane, numcheck and IVF load with the
+    # app and the ann backend
+    for mod in ("ops.arena", "telemetry.probes", "service.prober",
+                "utils.numcheck", "ops.ivf"):
         assert f"sesam_duke_microservice_tpu_torch.{mod}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 

@@ -502,7 +502,8 @@ def parse_metrics(text):
 _DETERMINISTIC = ("duke_http_requests_total", "duke_engine_batches_total",
                   "duke_engine_records_processed_total", "duke_corpus_rows",
                   "duke_links_rows", "duke_decisions_total",
-                  "duke_decision_disagreements_total", "duke_pair_logit")
+                  "duke_decision_disagreements_total", "duke_pair_logit",
+                  "duke_property_similarity")
 # process-wide counters, compared as before/after deltas of the traffic
 _DELTAS = ("duke_snapshot_fallbacks_total",
            "duke_corpus_capacity_growths_total",
@@ -518,7 +519,30 @@ def declared_labels(*registries):
             for name, fam in reg._families.items()}
 
 
-def test_metrics_families_subset_of_jax_with_equal_values(pair):
+@pytest.fixture()
+def every_decision_sampled(monkeypatch):
+    """Both recorders sample every breakdown: at the default rate (0.01,
+    an unseeded draw per decision) whether ``duke_property_similarity``
+    exists on either side is a coin toss on this test's few decisions.
+    Requested before ``pair``, so both apps are built with it."""
+    monkeypatch.setenv("DUKE_DECISION_SAMPLE", "1")
+
+
+@pytest.fixture()
+def fresh_slo_trackers():
+    """The SLO trackers are process-wide: a port-only test that ran
+    earlier in this process (a feed read, say) leaves trackers whose
+    samples the JAX side lacks.  Cleared on both sides before the apps
+    are built, so the SLO families hold only this test's traffic."""
+    for tel in (jtelemetry, ttelemetry):
+        tel.slo._reset_for_tests()
+    yield
+    for tel in (jtelemetry, ttelemetry):
+        tel.slo._reset_for_tests()
+
+
+def test_metrics_families_subset_of_jax_with_equal_values(
+        every_decision_sampled, fresh_slo_trackers, pair):
     apps, urls = pair
     before = [parse_metrics(request(u + "/metrics")[2].decode())[2]
               for u in urls]

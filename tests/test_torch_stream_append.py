@@ -159,7 +159,7 @@ def test_pending_full_upload_keeps_the_whole_batch(small_slices,
     run = Run(PORT, dedup_schema(PORT))
     run.feed(random_records(20, seed=31, pkg=PORT))
     corpus = run.index.corpus
-    corpus.release_device()
+    corpus.spill_device()
     assert corpus.stream_flush() is False
     before = _slices(PORT)
     calls = []

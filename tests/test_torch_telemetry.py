@@ -264,7 +264,7 @@ def test_hbm_component_fns_evaluate_once_per_scrape_pass():
         # reads every owner TWICE, like two collectors scanning the same
         # registrations inside one scrape
         samples = []
-        for _kind, name, owner, _fn in memory._iter_live():
+        for _kind, name, owner, _fn, _logical in memory._iter_live():
             first = memory.components_for(owner)
             assert memory.components_for(owner) == first
             samples.append(
