@@ -167,6 +167,29 @@ Phases, each fatal on failure:
    beside the flat ``ann`` app's, recall against the flat scan and the
    brute-force feed (every IVF link in it with an equal confidence), and
    two k-means trainings on the card equal bit for bit;
+8c. the mesh phase (``engine.sharded_matcher.set_serving_devices`` at
+   ``[cuda:0] * 4``: four logical shards of the one card, run one after
+   the other -- the layout, the global row offsets, the merge, the dd
+   survivor gather and the ring on the card, no scaling): (1) slice 1's
+   131,072 stresstest records and its query POST through a
+   ``sharded-brute`` app and a ``device`` app, feeds byte-identical (link
+   clocks are counters per app and traffic), both apps' records/s and
+   query-POST walls, the Myers W=1 launches with their local shapes,
+   ``duke_mesh_devices`` 4 and ``duke_corpus_capacity_rows_per_shard``;
+   then ``POST /deduplication/people/rematch`` on that app: 200 with
+   ``devices`` 4 and the live rows as ``queries``, the links it emits
+   equal to the device app's feed, the feed unchanged, its wall and
+   ``pairs_ranked``; (2) 16,384 mixed records, ``sharded-brute`` against
+   ``device``: feeds byte-identical, every scan kernel and gathered Myers
+   launched on the shards, ``duke_mesh_dd_gathers_total`` above 0; (3)
+   65,536 stresstest records through a ``sharded`` app (capacity 4 x
+   524,288, so each shard's local shape takes the fused route) against an
+   ``ann`` app (524,288): every ``ann`` link in the sharded feed with an
+   equal confidence, the segment-max launches on the shards and the
+   retrieval routes; then, measured and not checked, the same traffic
+   through a ``sharded`` app at the ``ann`` app's capacity split over the
+   shards (131,072 a shard): the ``ann`` links it lacks and the links it
+   adds;
 9. print the per-kernel JSON line, the card's name and power limit, and
    the result line ``{"ok": true, "device": {...}}`` last.
 
@@ -3352,6 +3375,301 @@ def phase_selfcheck(line, device_rows):
     return launches
 
 
+# -- the mesh phase: the single-process mesh on logical shards of one card -----
+
+# four logical shards on cuda:0 (engine.sharded_matcher.set_serving_devices):
+# they run one after the other, so the phase proves the layout, the global
+# row offsets, the merge, the survivor gather and the ring on the card, and
+# measures no scaling
+MESH_SHARDS = 4
+MESH_MIXED_RECORDS = 16384
+MESH_ANN_RECORDS = 65536
+# each shard must hold the single-device ann app's capacity for the fused
+# route to take its local shape (the bins / top-C gate of
+# encoder.fused_route); the bins then hold the same rows on both apps
+MESH_ANN_CAPACITY = MESH_SHARDS * ANN_CAPACITY
+
+
+def mesh_traffic(app, port, name, entities, queries, clocks, key):
+    """Drive one app of the mesh phase: ``entities`` in INGEST_BATCH-record
+    POSTs, then the ``queries`` POST if any, the launch counts set to 0
+    just before and read just after; returns what the phase compares."""
+    from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
+    from sesam_duke_microservice_tpu_torch.ops import encoder as E
+
+    path = f"/deduplication/{name}/crm"
+    clocks.key = key
+    with recording_shapes() as shapes:
+        for route in E.ROUTES:
+            E.ROUTES[route] = 0
+        ck.reset_launch_counts()
+        latencies, ingest_s = ingest(port, path, entities)
+        query_s = post(port, path, queries) if queries else None
+        launches = dict(ck.LAUNCHES)
+        routes = dict(E.ROUTES)
+    body = raw_since(port, f"/deduplication/{name}")
+    samples, _, _ = scrape(port)
+    wl = app.deduplications[name]
+    return dict(rps=len(entities) / ingest_s, ingest_s=ingest_s,
+                p50=statistics.median(latencies), query_s=query_s,
+                launches=launches, routes=routes, feed=body,
+                rows=json.loads(body), samples=samples,
+                shapes={k: dict(sorted(v.items()))
+                        for k, v in shapes.items() if v},
+                capacity=wl.index.corpus.capacity,
+                certified=wl.processor.stats.pairs_device_certified)
+
+
+def mesh_twins(stack, label, name, schema, entities, queries, clocks,
+               backends, envs=(None, None)):
+    """The traffic through a fresh app of each of ``backends`` (the mesh
+    app first); the mesh app stays served in ``stack``, its twin is
+    closed.  Returns (mesh run, its port, twin run)."""
+    runs, port0 = [], None
+    for backend, env in zip(backends, envs):
+        app = mesh_app(name, schema, backend, env)
+        if not runs:
+            port0 = stack.enter_context(serving(app))
+            runs.append((app, mesh_traffic(app, port0, name, entities,
+                                           queries, clocks, (label, backend))))
+            continue
+        with serving(app) as port:
+            runs.append((app, mesh_traffic(app, port, name, entities,
+                                           queries, clocks, (label, backend))))
+    (first, mesh), (_, twin) = runs
+    return first, mesh, port0, twin
+
+
+def mesh_app(name, schema, backend, env):
+    """A fresh app of ``backend`` serving ``name``, built under ``env``."""
+    from sesam_duke_microservice_tpu_torch.core.config import parse_config
+    from sesam_duke_microservice_tpu_torch.service.app import DukeApp
+
+    with mock.patch.dict(os.environ, env or {}):
+        return DukeApp(parse_config(config_xml({name: schema})),
+                       backend=backend, device=DEVICE, persistent=False)
+
+
+def mesh_rematch(app, port, twin, clocks, line):
+    """(4) ``POST /deduplication/people/rematch`` on the stresstest mesh
+    app: 200 with the mesh's shards and the live rows as its queries; the
+    links it emits equal the device twin's feed, and the feed after it is
+    the feed before it (a rematch of an intact store asserts nothing
+    new)."""
+    wl = app.deduplications["people"]
+    emitted = {}
+
+    class Recorder:
+        def batch_ready(self, size):
+            pass
+
+        def batch_done(self):
+            pass
+
+        def no_match_for(self, record):
+            pass
+
+        def matches(self, r1, r2, confidence):
+            a, b = sorted((r1.record_id, r2.record_id))
+            emitted[f"{a}_{b}".replace(":", "_")] = confidence
+
+        matches_perhaps = matches
+
+    before = raw_since(port, "/deduplication/people")
+    live = wl.index.live_records
+    recorder = Recorder()
+    wl.processor.add_match_listener(recorder)
+    clocks.key = ("mesh", "rematch")
+    try:
+        t0 = time.perf_counter()
+        status, _, stats = post_json(port, "/deduplication/people/rematch",
+                                     [])
+        wall = time.perf_counter() - t0
+    finally:
+        wl.processor.listeners.remove(recorder)
+    after = raw_since(port, "/deduplication/people")
+    if status != 200:
+        raise AssertionError(f"mesh rematch: {status} {stats!r}")
+    if stats["devices"] != MESH_SHARDS or stats["queries"] != live:
+        raise AssertionError(f"mesh rematch: stats {stats}, expected "
+                             f"{MESH_SHARDS} devices and {live} queries")
+    want = {r["_id"]: r["confidence"] for r in twin["rows"]
+            if not r["_deleted"]}
+    if emitted != want:
+        raise AssertionError(
+            f"mesh rematch: {len(emitted)} links emitted against the device "
+            f"feed's {len(want)}; differ e.g. "
+            f"{sorted(set(emitted.items()) ^ set(want.items()))[:3]}")
+    if after != before:
+        raise AssertionError("mesh rematch: the feed changed")
+    print(f"mesh rematch: POST /deduplication/people/rematch 200 in "
+          f"{wall:.3f} s (host clock): {stats}; the {len(emitted)} links it "
+          f"emitted equal the device app's feed, the feed after it equals "
+          f"the feed before it [{line}]", flush=True)
+    return wall, stats
+
+
+def phase_mesh(line):
+    """The single-process mesh: ``sharded-brute`` and ``sharded`` apps on
+    MESH_SHARDS logical shards of cuda:0 beside their single-device twins
+    on the same traffic, then the ring rematch.  Returns the launch counts
+    of each mesh app's traffic."""
+    import torch
+
+    from sesam_duke_microservice_tpu_torch.engine import sharded_matcher as SM
+    from sesam_duke_microservice_tpu_torch.links import base as linkbase
+
+    t0 = time.perf_counter()
+    card = torch.device("cuda", 0) if DEVICE == "cuda" else DEVICE
+    SM.set_serving_devices([card] * MESH_SHARDS)
+    clocks = LinkClocks()
+    out = {}
+    try:
+        with mock.patch.object(linkbase, "now_millis", clocks), \
+                contextlib.ExitStack() as stack:
+            # (1) stresstest sharded-brute at the main path's full width
+            entities = stresstest_entities(INGEST_RECORDS, 1234, "p")
+            queries = with_copies(stresstest_entities(QUERY_BATCH, 4321, "q"),
+                                  entities, 16, 1)
+            app, mesh, port, twin = mesh_twins(
+                stack, "stress", "people", STRESS_SCHEMA, entities, queries,
+                clocks, ("sharded-brute", "device"))
+            if mesh["feed"] != twin["feed"]:
+                raise AssertionError("mesh stresstest: the sharded-brute feed "
+                                     "differs from the device app's")
+            check_rows(mesh["rows"], "mesh stresstest")
+            if mesh["launches"]["myers_tile"] <= 0:
+                raise AssertionError("mesh stresstest: Myers W=1 never "
+                                     "launched")
+            devices = one(mesh["samples"], "duke_mesh_devices")
+            per_shard = one(mesh["samples"],
+                            "duke_corpus_capacity_rows_per_shard",
+                            workload="people")
+            if devices != MESH_SHARDS or per_shard != mesh["capacity"] // \
+                    MESH_SHARDS:
+                raise AssertionError(f"mesh stresstest: duke_mesh_devices "
+                                     f"{devices}, per shard {per_shard}")
+            out["stress"] = mesh["launches"]
+            print(f"mesh stresstest: {INGEST_RECORDS} records in "
+                  f"{INGEST_BATCH}-record POSTs and the {QUERY_BATCH}-record "
+                  f"query POST on {MESH_SHARDS} logical shards of cuda:0: "
+                  f"sharded-brute {mesh['rps']:.1f} records/s (p50 POST "
+                  f"{mesh['p50'] * 1e3:.1f} ms), query POST "
+                  f"{mesh['query_s']:.3f} s; device {twin['rps']:.1f} "
+                  f"records/s (p50 {twin['p50'] * 1e3:.1f} ms), query POST "
+                  f"{twin['query_s']:.3f} s; feeds byte-identical "
+                  f"({len(mesh['feed'])} bytes, {len(mesh['rows'])} links); "
+                  f"duke_mesh_devices {devices:.0f}, "
+                  f"duke_corpus_capacity_rows_per_shard {per_shard:.0f} of "
+                  f"{mesh['capacity']}; launches {mesh['launches']}, "
+                  f"wrapper calls by local shape {mesh['shapes']} [{line}]",
+                  flush=True)
+            # (4) the ring rematch on (1)'s app, while it serves
+            out["rematch"] = mesh_rematch(app, port, twin, clocks, line)
+            stack.close()
+
+            # (2) mixed sharded-brute: every scan kernel, dd on every block
+            entities = mixed_entities(MESH_MIXED_RECORDS, 2024, "m")
+            app, mesh, _, twin = mesh_twins(
+                stack, "mixed", "mixed", MIXED_SCHEMA, entities, None,
+                clocks, ("sharded-brute", "device"))
+            gathers = one(mesh["samples"], "duke_mesh_dd_gathers_total",
+                          workload="mixed")
+            rows_moved = one(mesh["samples"],
+                             "duke_mesh_dd_gather_rows_total",
+                             workload="mixed")
+            stack.close()
+            if mesh["feed"] != twin["feed"]:
+                raise AssertionError("mesh mixed: the sharded-brute feed "
+                                     "differs from the device app's")
+            check_rows(mesh["rows"], "mesh mixed")
+            for kernel in ("myers_tile", "jw_tile", "intersect_tile",
+                           "myers_gathered"):
+                if mesh["launches"][kernel] <= 0:
+                    raise AssertionError(f"mesh mixed: {kernel} never "
+                                         "launched")
+            if gathers <= 0 or mesh["certified"] <= 0:
+                raise AssertionError(f"mesh mixed: {gathers} dd gathers, "
+                                     f"{mesh['certified']} certified")
+            out["mixed"] = mesh["launches"]
+            print(f"mesh mixed: {MESH_MIXED_RECORDS} records: sharded-brute "
+                  f"{mesh['rps']:.1f} records/s, device {twin['rps']:.1f}; "
+                  f"feeds byte-identical ({len(mesh['rows'])} links); dd "
+                  f"survivor gathers {gathers:.0f} ({rows_moved:.0f} rows to "
+                  f"the lead shard), certified rejects {mesh['certified']} "
+                  f"(device app {twin['certified']}); launches "
+                  f"{mesh['launches']}, wrapper calls by local shape "
+                  f"{mesh['shapes']} [{line}]", flush=True)
+
+            # (3) stresstest sharded (ann) against the single-device ann
+            entities = stresstest_entities(MESH_ANN_RECORDS, 1234, "p")
+            app, mesh, _, twin = mesh_twins(
+                stack, "ann", "people", STRESS_SCHEMA, entities, None,
+                clocks, ("sharded", "ann"),
+                envs=({"DEVICE_INITIAL_CAPACITY": str(MESH_ANN_CAPACITY)},
+                      {"DEVICE_INITIAL_CAPACITY": str(ANN_CAPACITY)}))
+            stack.close()
+            sharded = {r["_id"]: r["confidence"] for r in mesh["rows"]}
+            missing = [r["_id"] for r in twin["rows"]
+                       if sharded.get(r["_id"]) != r["confidence"]]
+            if missing or not twin["rows"]:
+                raise AssertionError(f"mesh ann: {len(missing)} of the ann "
+                                     f"app's {len(twin['rows'])} links not "
+                                     f"in the sharded feed with equal "
+                                     f"confidence, e.g. {missing[:3]}")
+            for kernel in ("retrieval_segmax", "myers_gathered"):
+                if mesh["launches"][kernel] <= 0:
+                    raise AssertionError(f"mesh ann: {kernel} never "
+                                         "launched")
+            out["ann"] = mesh["launches"]
+            print(f"mesh ann: {MESH_ANN_RECORDS} stresstest records: "
+                  f"sharded (capacity {mesh['capacity']}, "
+                  f"{mesh['capacity'] // MESH_SHARDS} a shard) "
+                  f"{mesh['rps']:.1f} records/s, {len(mesh['rows'])} links; "
+                  f"ann (capacity {twin['capacity']}) {twin['rps']:.1f} "
+                  f"records/s, {len(twin['rows'])} links, every one in the "
+                  f"sharded feed with an equal confidence; retrieval routes "
+                  f"sharded {mesh['routes']} / ann {twin['routes']}; "
+                  f"launches {mesh['launches']} (segment max "
+                  f"{mesh['launches']['retrieval_segmax']} against the ann "
+                  f"app's {twin['launches']['retrieval_segmax']}), wrapper "
+                  f"calls by local shape {mesh['shapes']} [{line}]",
+                  flush=True)
+
+            # (3b) a measurement, not a check: the same traffic on a
+            # sharded app holding the ann app's capacity split over the
+            # shards, as one budget split over D cards would be -- the
+            # superset of (3) is shown only at equal local capacity
+            # (parallel/ann_sharded.py)
+            split_app = mesh_app("people", STRESS_SCHEMA, "sharded",
+                                 {"DEVICE_INITIAL_CAPACITY":
+                                  str(ANN_CAPACITY)})
+            with serving(split_app) as port:
+                split = mesh_traffic(split_app, port, "people", entities,
+                                     None, clocks, ("ann", "sharded-split"))
+            check_rows(split["rows"], "mesh ann split")
+            split_links = {r["_id"]: r["confidence"] for r in split["rows"]}
+            twin_links = {r["_id"]: r["confidence"] for r in twin["rows"]}
+            lost = sum(split_links.get(k) != v for k, v in twin_links.items())
+            extra = sum(k not in twin_links for k in split_links)
+            out["ann_split"] = dict(lost=lost, extra=extra,
+                                    links=len(split_links),
+                                    routes=split["routes"])
+            print(f"mesh ann split: the same {MESH_ANN_RECORDS} records on "
+                  f"sharded at capacity {split['capacity']} "
+                  f"({split['capacity'] // MESH_SHARDS} a shard): "
+                  f"{split['rps']:.1f} records/s, {len(split_links)} links; "
+                  f"{lost} of the ann app's {len(twin_links)} links missing "
+                  f"or at another confidence, {extra} links the ann app "
+                  f"lacks; retrieval routes {split['routes']}, launches "
+                  f"{split['launches']} [{line}]", flush=True)
+    finally:
+        SM.set_serving_devices(None)
+    torch.cuda.synchronize()
+    print(f"mesh phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def char_inputs(q, c, l, seed):
     """Small-alphabet chars so matches are real; random lengths with the
     edge cases (empty and full-width patterns and texts) forced in."""
@@ -3854,6 +4172,7 @@ def main() -> int:
     phase_control(line)
     phase_debug(line)
     phase_selfcheck(line, device_rows)
+    phase_mesh(line)
 
     def one_word(s):
         return ck.kernel_words(s[2]) == 1

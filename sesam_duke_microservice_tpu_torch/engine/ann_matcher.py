@@ -65,9 +65,15 @@ class AnnIndex(DeviceIndex):
         # IVF (DUKE_IVF): resolved at construction; trains lazily on the
         # scoring path once the corpus crosses DUKE_IVF_MIN_ROWS, under the
         # workload lock every mutation site already holds
-        self.ivf = (IVF.IvfState(device=self.device) if IVF.enabled()
-                    else None)
+        self.ivf = (IVF.IvfState(device=self.device,
+                                 nshards=self._ivf_shards())
+                    if IVF.enabled() else None)
         self.scorer_cache = _AnnScorerCache(self)
+
+    def _ivf_shards(self) -> int:
+        """Blocks of the IVF membership matrix: 1 on one device (the
+        sharded index overrides with its mesh size)."""
+        return 1
 
     def _extract(self, records: Sequence[Record], plan=None):
         return F.extract_batch(plan or self.plan, records,
@@ -138,23 +144,36 @@ class _AnnScorerCache(_ScorerCache):
     DUKE_IVF trained one, widening ``nprobe`` along the C ladder and
     falling back to the flat scan once every cell is probed."""
 
-    def _scorer(self, top_c: int, group_filtering: bool, from_rows: bool):
-        key = (top_c, group_filtering, from_rows)
-        if key not in self._scorers:
-            self._scorers[key] = S.build_ann_scorer(
-                self.index.plan, chunk=_CHUNK, top_c=top_c,
-                group_filtering=group_filtering, queries_from_rows=from_rows,
-            )
-        return self._scorers[key]
+    def _build(self, top_c: int, group_filtering: bool, from_rows: bool):
+        return S.build_ann_scorer(
+            self.index.plan, chunk=_CHUNK, top_c=top_c,
+            group_filtering=group_filtering, queries_from_rows=from_rows)
 
     def _ivf_scorer(self, top_c: int, nprobe: int, group_filtering: bool,
                     from_rows: bool):
         key = ("ivf", top_c, nprobe, group_filtering, from_rows)
         if key not in self._scorers:
-            self._scorers[key] = IVF.build_ivf_scorer(
-                self.index.plan, top_c=top_c, nprobe=nprobe,
-                group_filtering=group_filtering, queries_from_rows=from_rows)
+            self._scorers[key] = self._build_ivf(top_c, nprobe,
+                                                 group_filtering, from_rows)
         return self._scorers[key]
+
+    def _build_ivf(self, top_c: int, nprobe: int, group_filtering: bool,
+                   from_rows: bool):
+        return IVF.build_ivf_scorer(
+            self.index.plan, top_c=top_c, nprobe=nprobe,
+            group_filtering=group_filtering, queries_from_rows=from_rows)
+
+    def _split_embedding(self, cfeats_all):
+        """The corpus tree -> (embedding tree, property features): the
+        scorers take the two apart."""
+        return (cfeats_all[E.ANN_PROP],
+                {prop: t for prop, t in cfeats_all.items()
+                 if prop != E.ANN_PROP})
+
+    def _ivf_placers(self):
+        """(centroid, membership) placement hooks of ``IvfState.
+        device_tensors``: the defaults on one device."""
+        return None, None
 
     def dispatch_block(self, records: Sequence[Record], *,
                        group_filtering: bool):
@@ -172,9 +191,7 @@ class _AnnScorerCache(_ScorerCache):
         # gathered from the corpus rows by the scorer when from_rows
         q_emb = {} if from_rows else qfeats.pop(E.ANN_PROP)
         cfeats_all, cvalid, cdeleted, cgroup = corpus.device_arrays()
-        emb_tree = cfeats_all[E.ANN_PROP]
-        cfeats = {prop: t for prop, t in cfeats_all.items()
-                  if prop != E.ANN_PROP}
+        emb_tree, cfeats = self._split_embedding(cfeats_all)
         # lazy IVF maintenance (train on the first crossing, assign
         # appended slices, refresh on doubling) under the workload lock
         # the dispatch path holds
@@ -187,7 +204,7 @@ class _AnnScorerCache(_ScorerCache):
             if ivf is not None:
                 nprobe = ivf.nprobe_for(c, c0)
                 if nprobe < ivf.ncells:
-                    cents, cells = ivf.device_tensors()
+                    cents, cells = ivf.device_tensors(*self._ivf_placers())
                     return _Fetch(*self._ivf_scorer(
                         c, nprobe, group_filtering, from_rows)(
                         q_emb, qfeats, emb_tree, cents, cells, cfeats,

@@ -401,37 +401,53 @@ class DeviceCorpus:
     def _device_arrays_locked(self):
         if self._device_feats is None or self._dirty_full:
             telemetry.CORPUS_FULL_UPLOADS.inc()
-            self._device_feats = {
-                prop: {name: _to_device(arr, self.device, prop)
-                       for name, arr in tensors.items()}
-                for prop, tensors in self.feats.items()
-            }
-            self._device_masks = tuple(
-                _to_device(arr, self.device)
-                for arr in (self.row_valid, self.row_deleted, self.row_group)
-            )
+            self._upload_full()
             self._dirty_full = False
             self._pending_rows = None
             self._mask_rows = []
         else:
             if self._pending_rows is not None:
                 (lo, hi), self._pending_rows = self._pending_rows, None
-                for prop, tensors in self.feats.items():
-                    for name, arr in tensors.items():
-                        self._device_feats[prop][name][lo:hi] = _to_device(
-                            arr[lo:hi], self.device, prop)
-                for dev, arr in zip(self._device_masks,
-                                    (self.row_valid, self.row_deleted,
-                                     self.row_group)):
-                    dev[lo:hi] = _to_device(arr[lo:hi], self.device)
+                self._upload_rows(lo, hi)
             if self._mask_rows:
                 rows, self._mask_rows = self._mask_rows, []
-                idx = _to_device(np.asarray(rows, dtype=np.int64),
-                                 self.device)
-                valid, deleted, _ = self._device_masks
-                valid[idx] = _to_device(self.row_valid[rows], self.device)
-                deleted[idx] = _to_device(self.row_deleted[rows],
-                                          self.device)
+                self._upload_mask_rows(rows)
+        return self._arrays()
+
+    # The three copies below and ``_arrays`` are the device layout; the
+    # record-axis-sharded corpus (engine.sharded_matcher) overrides them to
+    # route each row to the shard that owns it.
+
+    def _upload_full(self) -> None:
+        self._device_feats = {
+            prop: {name: _to_device(arr, self.device, prop)
+                   for name, arr in tensors.items()}
+            for prop, tensors in self.feats.items()
+        }
+        self._device_masks = tuple(
+            _to_device(arr, self.device)
+            for arr in (self.row_valid, self.row_deleted, self.row_group))
+
+    def _upload_rows(self, lo: int, hi: int) -> None:
+        """Copy the appended host rows ``[lo, hi)`` into the device
+        tensors."""
+        for prop, tensors in self.feats.items():
+            for name, arr in tensors.items():
+                self._device_feats[prop][name][lo:hi] = _to_device(
+                    arr[lo:hi], self.device, prop)
+        for dev, arr in zip(self._device_masks,
+                            (self.row_valid, self.row_deleted,
+                             self.row_group)):
+            dev[lo:hi] = _to_device(arr[lo:hi], self.device)
+
+    def _upload_mask_rows(self, rows: List[int]) -> None:
+        """Copy the tombstoned rows' valid / deleted bits."""
+        idx = _to_device(np.asarray(rows, dtype=np.int64), self.device)
+        valid, deleted, _ = self._device_masks
+        valid[idx] = _to_device(self.row_valid[rows], self.device)
+        deleted[idx] = _to_device(self.row_deleted[rows], self.device)
+
+    def _arrays(self):
         valid, deleted, group = self._device_masks
         return self._device_feats, valid, deleted, group
 
@@ -442,18 +458,23 @@ class DeviceCorpus:
         tree (``corpus_embeddings``, and ``int8_scales`` under int8
         storage).  ``nbytes`` is a host read (no device sync); lock-free,
         so a scrape racing an upload may read the previous tensors."""
-        feats, masks = self._device_feats, self._device_masks
         out = {"corpus_tensors": 0, "corpus_embeddings": 0, "int8_scales": 0}
-        for prop, tensors in list((feats or {}).items()):
-            for name, t in list(tensors.items()):
-                if prop == E.ANN_PROP:
-                    out["int8_scales" if name == E.ANN_SCALE
-                        else "corpus_embeddings"] += t.nbytes
-                else:
-                    out["corpus_tensors"] += t.nbytes
-        for t in masks or ():
-            out["corpus_tensors"] += t.nbytes
+        _count_device_bytes(out, self._device_feats, self._device_masks)
         return out
+
+
+def _count_device_bytes(out: Dict[str, int], feats, masks) -> None:
+    """Add one device tree's and its masks' ``nbytes`` into the ledger
+    components of ``out``."""
+    for prop, tensors in list((feats or {}).items()):
+        for name, t in list(tensors.items()):
+            if prop == E.ANN_PROP:
+                out["int8_scales" if name == E.ANN_SCALE
+                    else "corpus_embeddings"] += t.nbytes
+            else:
+                out["corpus_tensors"] += t.nbytes
+    for t in masks or ():
+        out["corpus_tensors"] += t.nbytes
 
 
 class DeviceIndex(CandidateIndex):
@@ -477,7 +498,7 @@ class DeviceIndex(CandidateIndex):
                                     for p in self.plan.host_props}))
                 + ")"
             )
-        self.corpus = DeviceCorpus(self.plan, self.device)
+        self.corpus = self._make_corpus(self.plan)
         # id -> latest record; a store-backed LazyRecordMap after a
         # snapshot restore (engine.workload)
         self.records: Dict[str, Record] = {}
@@ -560,6 +581,11 @@ class DeviceIndex(CandidateIndex):
 
     def set_indexing_disabled(self, disabled: bool) -> None:
         self.indexing_disabled = disabled
+
+    def _make_corpus(self, plan) -> DeviceCorpus:
+        """The corpus factory (construction and plan-growth rebuilds); the
+        sharded index overrides it with its mesh-placed corpus."""
+        return DeviceCorpus(plan, self.device)
 
     def close(self) -> None:
         """Free the corpus' device tensors and the built scorers, and drop
@@ -771,7 +797,7 @@ class DeviceIndex(CandidateIndex):
         with self._lock:
             old_records = self.records
             old = self.corpus
-            self.corpus = DeviceCorpus(self.plan, self.device)
+            self.corpus = self._make_corpus(self.plan)
             # the replacement leases under the same identity; the old
             # corpus' lease goes with it
             self.corpus.arena_label = old.arena_label
@@ -1254,6 +1280,11 @@ class _ScorerCache:
     """Scorers per (top_k, group_filtering, from_rows), the query-side
     upload, and block dispatch."""
 
+    # an indexed batch's query features are gathered from its corpus rows
+    # on the device; the mesh caches upload them instead (a row of a
+    # split corpus lives on one shard, every shard needs every query)
+    queries_from_rows = True
+
     def __init__(self, index: DeviceIndex):
         self.index = index
         self._scorers: Dict[Tuple[int, bool, bool], object] = {}
@@ -1264,11 +1295,14 @@ class _ScorerCache:
     def _scorer(self, top_k: int, group_filtering: bool, from_rows: bool):
         key = (top_k, group_filtering, from_rows)
         if key not in self._scorers:
-            self._scorers[key] = S.build_corpus_scorer(
-                self.index.plan, chunk=_CHUNK, top_k=top_k,
-                group_filtering=group_filtering, queries_from_rows=from_rows,
-            )
+            self._scorers[key] = self._build(top_k, group_filtering,
+                                             from_rows)
         return self._scorers[key]
+
+    def _build(self, top_k: int, group_filtering: bool, from_rows: bool):
+        return S.build_corpus_scorer(
+            self.index.plan, chunk=_CHUNK, top_k=top_k,
+            group_filtering=group_filtering, queries_from_rows=from_rows)
 
     def _min_logit(self) -> float:
         # the 1e-3 insurance margin covering f32 kernel error at the bound
@@ -1291,7 +1325,7 @@ class _ScorerCache:
         if bucket > len(records):
             pad_child.inc(bucket - len(records))
         rows = [index.id_to_row.get(r.record_id, -1) for r in records]
-        from_rows = all(row >= 0 for row in rows)
+        from_rows = self.queries_from_rows and all(row >= 0 for row in rows)
         if from_rows:
             # the batch was just indexed: its features already sit in the
             # corpus tensors, and only the row indices cross to the device
@@ -1368,11 +1402,22 @@ class _ScorerCache:
         if fn is None:
             return None
         qfeats, _, query_row = ctx
-        cfeats_all = index.corpus.device_arrays()[0]
-        cfeats = {s.name: cfeats_all[s.name] for s in B.dd_plan_specs(plan)}
-        top_index = _to_device(result.top_index, index.device)
-        hi, lo, unsafe = fn(qfeats, cfeats, query_row, top_index)
+        names = [s.name for s in B.dd_plan_specs(plan)]
+        hi, lo, unsafe = self._dd_call(fn, qfeats,
+                                       index.corpus.device_arrays()[0],
+                                       names, query_row, result.top_index)
         return hi.cpu().numpy(), lo.cpu().numpy(), unsafe.cpu().numpy()
+
+    def _dd_call(self, fn, qfeats, cfeats_all, names, query_row,
+                 top_index: np.ndarray):
+        """Run the dd program against the corpus tensors of the ``names``
+        properties; on one device the survivor gather happens inside
+        ``fn``.  The mesh caches override this to gather the survivors to
+        the lead device first and feed ``fn`` an identity index: the same
+        program and arithmetic, so the verdicts stay bit-identical."""
+        cfeats = {name: cfeats_all[name] for name in names}
+        return fn(qfeats, cfeats, query_row,
+                  _to_device(top_index, self.index.device))
 
 
 class DeviceProcessor:

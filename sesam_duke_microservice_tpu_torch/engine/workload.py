@@ -473,7 +473,7 @@ class Workload:
             self.record_store.close()
 
 
-BACKENDS = ("device", "ann", "host")
+BACKENDS = ("device", "ann", "sharded", "sharded-brute", "host")
 
 
 def _restore(index: CandidateIndex, store: RecordStore,
@@ -510,7 +510,10 @@ def build_workload(wc: WorkloadConfig, sc: ServiceConfig, *,
 
     ``backend``: ``"device"`` (exact brute-force scoring,
     engine.device_matcher) or ``"ann"`` (embedding cosine blocking + exact
-    rescoring, engine.ann_matcher), on the torch ``device``; or ``"host"``
+    rescoring, engine.ann_matcher), on the torch ``device``; their mesh
+    twins ``"sharded-brute"`` and ``"sharded"`` (engine.sharded_matcher),
+    whose corpus splits over the process-wide serving mesh of
+    ``device``'s type; or ``"host"``
     (the Lucene-parity inverted index + the host ``Processor``, the JAX
     package's default and conformance backend), which runs no device code:
     it neither resolves nor touches ``device``.
@@ -523,7 +526,8 @@ def build_workload(wc: WorkloadConfig, sc: ServiceConfig, *,
     if backend not in BACKENDS:
         raise ValueError(
             f"unknown backend {backend!r}: the PyTorch port serves only the "
-            "'device', 'ann' and 'host' backends")
+            "'sharded', 'sharded-brute', 'device', 'ann' and 'host' "
+            "backends")
     if backend == "host":
         index, processor_cls = InvertedIndex(wc.duke, sc.tunables), Processor
     elif backend == "ann":
@@ -531,6 +535,16 @@ def build_workload(wc: WorkloadConfig, sc: ServiceConfig, *,
 
         index = AnnIndex(wc.duke, device=resolve_device(device))
         processor_cls = AnnProcessor
+    elif backend == "sharded":
+        from .sharded_matcher import ShardedAnnIndex, ShardedAnnProcessor
+
+        index = ShardedAnnIndex(wc.duke, device=resolve_device(device))
+        processor_cls = ShardedAnnProcessor
+    elif backend == "sharded-brute":
+        from .sharded_matcher import ShardedDeviceIndex, ShardedDeviceProcessor
+
+        index = ShardedDeviceIndex(wc.duke, device=resolve_device(device))
+        processor_cls = ShardedDeviceProcessor
     else:
         index = DeviceIndex(wc.duke, device=resolve_device(device))
         processor_cls = DeviceProcessor

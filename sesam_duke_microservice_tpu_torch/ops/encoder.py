@@ -147,10 +147,15 @@ def _total_order_desc(x: torch.Tensor) -> torch.Tensor:
 
 def _fused_retrieval(q_emb, corpus_emb, corpus_valid, corpus_deleted,
                      corpus_group, query_group, query_row, *, top_c: int,
-                     tc: int, seg: int, group_filtering: bool):
+                     tc: int, seg: int, group_filtering: bool,
+                     row_offset: int = 0):
     """The fused route: per-bin (max, argmax) from the segment-max kernel,
     then the exact top-C over the bin winners; all-masked bins (-3e38)
-    come back as row -1."""
+    come back as row -1.  The kernel masks in local row coordinates, so
+    the query's own global row shifts down by ``row_offset`` (a negative
+    row matches nothing) and the winners shift back up."""
+    if row_offset:
+        query_row = query_row - row_offset
     seg_max, seg_arg = ck.retrieval_segmax(
         q_emb.to(torch.bfloat16).contiguous(),
         corpus_emb.to(torch.bfloat16).contiguous(), corpus_valid,
@@ -158,15 +163,18 @@ def _fused_retrieval(q_emb, corpus_emb, corpus_valid, corpus_deleted,
         seg=seg, group_filtering=group_filtering)
     sel = _stable_desc(seg_max)[:, :top_c]
     top_sim = seg_max.gather(1, sel)
-    top_idx = torch.where(top_sim < -1e30, -1, seg_arg.gather(1, sel))
+    top_idx = torch.where(top_sim < -1e30, -1,
+                          seg_arg.gather(1, sel) + row_offset)
     return top_sim, top_idx
 
 
 def retrieval_scan(q_emb, corpus_emb, corpus_valid, corpus_deleted,
                    corpus_group, query_group, query_row, *, chunk: int,
-                   top_c: int, group_filtering: bool):
+                   top_c: int, group_filtering: bool, row_offset: int = 0):
     """Cosine top-C of each query over the corpus embedding matrix:
     ``(top_sim (Q, C) f32, top_index (Q, C) int32)``, -1 for empty slots.
+    ``row_offset`` maps local rows to global ids as in ``ops.scoring.
+    scan_topk`` (a shard of a mesh passes its first global row).
 
     ``q_emb`` / ``corpus_emb`` are bare matrices or ANN_PROP tensor dicts
     (``{emb}`` bf16, ``{emb, scale}`` int8).  The fused route runs when
@@ -201,7 +209,8 @@ def retrieval_scan(q_emb, corpus_emb, corpus_valid, corpus_deleted,
             return _fused_retrieval(
                 q_emb, corpus_emb, corpus_valid, corpus_deleted,
                 corpus_group, query_group, query_row, top_c=top_c,
-                tc=route[0], seg=route[1], group_filtering=group_filtering)
+                tc=route[0], seg=route[1], group_filtering=group_filtering,
+                row_offset=row_offset)
     ROUTES["scan"] += 1
 
     top_sim = torch.full((q, top_c), NEG_INF, dtype=torch.float32,
@@ -211,7 +220,8 @@ def retrieval_scan(q_emb, corpus_emb, corpus_valid, corpus_deleted,
         stop = start + chunk
         sims = chunk_sims(q_tree, corpus_emb[start:stop],
                           c_tree[ANN_SCALE][start:stop] if int8 else None)
-        cidx = torch.arange(start, stop, dtype=torch.int32, device=device)
+        cidx = torch.arange(row_offset + start, row_offset + stop,
+                            dtype=torch.int32, device=device)
         mask = candidate_mask(
             corpus_valid[start:stop], corpus_deleted[start:stop],
             corpus_group[start:stop], cidx, query_group, query_row,

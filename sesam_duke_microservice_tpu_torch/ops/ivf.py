@@ -32,6 +32,13 @@ the running top-C comes first in every merge, so an all-masked step never
 displaces its -1 sentinels.  The f32 products run with TF32 off, as the
 flat path's do (PyTorch's default).
 
+Sharded layout: cell membership is a stacked ``(nshards * K, B)`` matrix
+of shard-LOCAL row ids -- shard s's block is rows [s*K, (s+1)*K).  On one
+device (nshards=1) local == global; on a mesh (``parallel.ann_sharded``)
+each shard's block goes to that shard's device while the small centroid
+matrix is copied to every shard, and the probe maps local rows back to
+global ids with ``row_offset``.
+
 Safety net: the exact rescoring of retrieved pairs is unchanged (the
 shared ``ops.scoring.rescore_retrieved`` tail, which launches the
 gathered Myers kernel on the card), and a saturated probe widens
@@ -178,8 +185,10 @@ class IvfState:
     own.  Host state is authoritative; the device copies of the centroids
     and the membership matrix are re-made lazily per generation."""
 
-    def __init__(self, *, device="cpu", seed: Optional[int] = None):
+    def __init__(self, *, device="cpu", nshards: int = 1,
+                 seed: Optional[int] = None):
         self.device = torch.device(device)
+        self.nshards = max(1, nshards)
         self.seed = seed if seed is not None else env_int(
             "DUKE_IVF_SEED", 1234)
         self.iters = env_int("DUKE_IVF_ITERS", 8)
@@ -187,14 +196,14 @@ class IvfState:
         self.ncells = 0
         self.nprobe0 = 0
         self.cell_of = np.full((0,), -1, dtype=np.int32)  # per corpus row
-        self.cell_rows: Optional[np.ndarray] = None   # (K, B) row ids
-        self.counts: Optional[np.ndarray] = None      # (1, K)
+        self.cell_rows: Optional[np.ndarray] = None   # (nshards*K, B) local
+        self.counts: Optional[np.ndarray] = None      # (nshards, K)
         self.bucket = 0                               # B
         self.assigned_upto = 0
         self.trained_rows = 0
         self.generation = 0       # bumps on any centroid/membership change
         self._corpus_id: Optional[int] = None
-        self._cap = 0
+        self._local_cap = 0
         self._dev: Optional[tuple] = None
         self._dev_gen = -1
 
@@ -236,12 +245,12 @@ class IvfState:
         self.cell_rows = np.asarray(cell_rows, dtype=np.int32).copy()
         self.bucket = int(self.cell_rows.shape[1])
         self.counts = (self.cell_rows >= 0).sum(axis=1).reshape(
-            1, self.ncells)
+            self.nshards, self.ncells)
         self.assigned_upto = int(assigned_upto)
         self.trained_rows = int(trained_rows)
         if corpus is not None:
             self._corpus_id = id(corpus)
-            self._cap = corpus.capacity
+            self._local_cap = corpus.capacity // self.nshards
         self.generation += 1
         self._dev = None
 
@@ -275,7 +284,7 @@ class IvfState:
         self.bucket = 0
         self.assigned_upto = 0
         self.trained_rows = 0
-        self._cap = 0
+        self._local_cap = 0
         self.generation += 1
         self._dev = None
 
@@ -339,64 +348,75 @@ class IvfState:
         self._rebuild_membership(corpus, lo)
 
     def _rebuild_membership(self, corpus, appended_from: int) -> None:
-        """Maintain the padded (K, B) membership matrix.  Incremental for
-        appended rows; a bucket overflow (some cell outgrew B) or a
-        capacity change rebuilds from ``cell_of`` wholesale (O(N log N),
-        rare by the bucketing)."""
-        if self.cell_rows is None or self._cap != corpus.capacity:
-            self._rebuild_full(corpus)
+        """Maintain the padded (nshards*K, B) local-row membership
+        matrix.  Incremental for appended rows; a bucket overflow (some
+        cell outgrew B) or a capacity change (a new shard layout) rebuilds
+        from ``cell_of`` wholesale (O(N log N), rare by the bucketing)."""
+        local_cap = corpus.capacity // self.nshards
+        if self.cell_rows is None or self._local_cap != local_cap:
+            self._rebuild_full(corpus, local_cap)
             return
         rows = np.arange(appended_from, self.assigned_upto)
         if rows.size == 0:
             return
-        key = self.cell_of[rows].astype(np.int64)
-        need = np.bincount(key, minlength=self.ncells).reshape(
-            1, self.ncells)
+        shard = rows // local_cap
+        key = shard * self.ncells + self.cell_of[rows].astype(np.int64)
+        need = np.bincount(key, minlength=self.nshards * self.ncells).reshape(
+            self.nshards, self.ncells)
         if (self.counts + need).max() > self.bucket:
-            self._rebuild_full(corpus)
+            self._rebuild_full(corpus, local_cap)
             return
         # vectorized grouped scatter with the live counts as base offsets
         # (a large streamed append must not loop per row in Python)
         order = np.argsort(key, kind="stable")
         sorted_key = key[order]
-        starts = np.searchsorted(sorted_key, np.arange(self.ncells))
+        starts = np.searchsorted(sorted_key,
+                                 np.arange(self.nshards * self.ncells))
         rank = np.arange(rows.size) - starts[sorted_key]
         slots = self.counts.reshape(-1)[sorted_key] + rank
-        self.cell_rows[sorted_key, slots] = rows[order].astype(np.int32)
+        self.cell_rows[sorted_key, slots] = (
+            rows[order] - shard[order] * local_cap).astype(np.int32)
         self.counts += need
         self.generation += 1
         self._dev = None
 
-    def _rebuild_full(self, corpus) -> None:
+    def _rebuild_full(self, corpus, local_cap: int) -> None:
         n = self.assigned_upto
-        self._cap = corpus.capacity
+        self._local_cap = local_cap
         rows = np.arange(n)
-        key = self.cell_of[:n].astype(np.int64)
-        counts = np.bincount(key, minlength=self.ncells).reshape(
-            1, self.ncells)
+        shard = rows // max(1, local_cap)
+        key = shard * self.ncells + self.cell_of[:n].astype(np.int64)
+        counts = np.bincount(key, minlength=self.nshards * self.ncells
+                             ).reshape(self.nshards, self.ncells)
         self.bucket = _slot_bucket(int(counts.max(initial=1)))
         self.counts = counts
-        mat = np.full((self.ncells, self.bucket), -1, dtype=np.int32)
+        mat = np.full((self.nshards * self.ncells, self.bucket), -1,
+                      dtype=np.int32)
         order = np.argsort(key, kind="stable")
         sorted_key = key[order]
-        # slot index within each cell's run of the sorted order
-        starts = np.searchsorted(sorted_key, np.arange(self.ncells))
+        # slot index within each (shard, cell) run of the sorted order
+        starts = np.searchsorted(sorted_key,
+                                 np.arange(self.nshards * self.ncells))
         slot = np.arange(n) - starts[sorted_key]
-        mat[sorted_key, slot] = rows[order].astype(np.int32)
+        mat[sorted_key, slot] = (rows[order]
+                                 - shard[order] * local_cap).astype(np.int32)
         self.cell_rows = mat
         self.generation += 1
         self._dev = None
 
     # -- device copies -------------------------------------------------------
 
-    def device_tensors(self):
+    def device_tensors(self, place_centroids=None, place_cells=None):
         """(centroids f32, cell_rows int64) on the device, re-made when the
-        generation moved."""
+        generation moved.  The ``place_*`` hooks take the host arrays and
+        return what the scorer takes: a mesh copies the centroids to every
+        shard and hands each shard its own (K, B) membership block."""
         if self._dev is None or self._dev_gen != self.generation:
-            self._dev = (
-                torch.from_numpy(self.centroids).to(self.device),
-                torch.from_numpy(self.cell_rows).to(self.device,
-                                                    torch.int64))
+            pc = place_centroids or (
+                lambda a: torch.from_numpy(a).to(self.device))
+            pk = place_cells or (
+                lambda a: torch.from_numpy(a).to(self.device, torch.int64))
+            self._dev = (pc(self.centroids), pk(self.cell_rows))
             self._dev_gen = self.generation
         return self._dev
 
@@ -447,10 +467,12 @@ def _gathered_sims(q_tree: Dict, emb: torch.Tensor, scale, safe):
 def ivf_probe_topc(q_tree, emb_tree, centroids, cell_rows, corpus_valid,
                    corpus_deleted, corpus_group, query_group, query_row, *,
                    top_c: int, nprobe: int, slot_chunk: int,
-                   group_filtering: bool):
+                   group_filtering: bool, row_offset: int = 0):
     """Two-stage cell-probe retrieval: ``(top_sim (Q, C) f32, top_index
-    (Q, C) int32)``, -1 for empty slots -- ``ops.encoder.
-    retrieval_scan``'s contract.  The eligibility mask is ``ops.scoring.
+    (Q, C) int32)`` with GLOBAL rows, -1 for empty slots -- ``ops.encoder.
+    retrieval_scan``'s contract.  On a shard of a mesh ``cell_rows`` is the
+    shard's (K, B) block of local rows and ``row_offset`` maps them to
+    global ids.  The eligibility mask is ``ops.scoring.
     candidate_mask_gathered``, the scan's policy on gathered rows."""
     from .scoring import candidate_mask_gathered
 
@@ -477,15 +499,17 @@ def ivf_probe_topc(q_tree, emb_tree, centroids, cell_rows, corpus_valid,
         safe = rows.clamp_min(0)
         sims = _gathered_sims(q_tree, emb, scale, safe)
         flat = safe.reshape(-1)
+        grows = torch.where(rows >= 0, rows + row_offset, -1).to(
+            torch.int32)
         mask = candidate_mask_gathered(
             *(t.index_select(0, flat).reshape(q, step)
               for t in (corpus_valid, corpus_deleted, corpus_group)),
-            rows, query_group, query_row, group_filtering)
+            grows, query_group, query_row, group_filtering)
         sims = torch.where(mask, sims, NEG_INF)
         # the running top-C first: the positional tie-break keeps its -1
         # sentinels from being displaced by all-masked slots
         merged_sim = torch.cat([top_sim, sims], dim=1)
-        merged_idx = torch.cat([top_idx, rows.to(torch.int32)], dim=1)
+        merged_idx = torch.cat([top_idx, grows], dim=1)
         sel = E._total_order_desc(merged_sim)[:, :top_c]
         top_sim = merged_sim.gather(1, sel)
         top_idx = merged_idx.gather(1, sel)

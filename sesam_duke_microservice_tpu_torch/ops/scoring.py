@@ -368,7 +368,8 @@ def candidate_mask_gathered(gvalid, gdeleted, ggroup, grows, query_group,
 
 def scan_topk(pair_logits: Callable, qfeats, corpus_feats, corpus_valid,
               corpus_deleted, corpus_group, query_group, query_row,
-              min_logit, *, chunk: int, top_k: int, group_filtering: bool):
+              min_logit, *, chunk: int, top_k: int, group_filtering: bool,
+              row_offset: int = 0, init=None):
     """Score Q queries against the corpus chunk by chunk, keeping a running
     top-K (mirrors the JAX ``scan_topk`` with a Python loop over chunks).
 
@@ -376,6 +377,14 @@ def scan_topk(pair_logits: Callable, qfeats, corpus_feats, corpus_valid,
     first and the chunk after it in row order, and a STABLE descending
     sort keeps the lower position first among equal logits (the
     ``NEG_INF`` fill included).  Nothing here waits on the device.
+
+    ``row_offset`` maps local corpus rows to global row ids: 0 on one
+    device, ``shard * local_capacity`` for a shard of a mesh
+    (``parallel.sharded``), so self-exclusion through ``query_row`` and
+    the returned ``top_index`` stay global.  ``init`` seeds the running
+    ``(top_logit, top_index, count)`` carry: the ring scorer
+    (``parallel.ring``) threads a query block's top-K through successive
+    shards with it.  The count accumulates in int64 and comes back int32.
     """
     first = next(iter(qfeats.values()))
     q = first["valid"].shape[0]
@@ -384,10 +393,15 @@ def scan_topk(pair_logits: Callable, qfeats, corpus_feats, corpus_valid,
     # the f32 bound as a Python float (exactly representable, so the f32
     # comparison the JAX program makes is the one made here)
     min_logit = float(np.float32(min_logit))
-    top_logit = torch.full((q, top_k), NEG_INF, dtype=torch.float32,
-                           device=device)
-    top_index = torch.full((q, top_k), -1, dtype=torch.int32, device=device)
-    count = torch.zeros((q,), dtype=torch.int64, device=device)
+    if init is not None:
+        top_logit, top_index, count = init
+        count = count.to(torch.int64)
+    else:
+        top_logit = torch.full((q, top_k), NEG_INF, dtype=torch.float32,
+                               device=device)
+        top_index = torch.full((q, top_k), -1, dtype=torch.int32,
+                               device=device)
+        count = torch.zeros((q,), dtype=torch.int64, device=device)
     for start in range(0, cap - cap % chunk, chunk):
         stop = start + chunk
         cf = {
@@ -395,7 +409,8 @@ def scan_topk(pair_logits: Callable, qfeats, corpus_feats, corpus_valid,
             for prop, tensors in corpus_feats.items()
         }
         logits = pair_logits(qfeats, cf)                  # (Q, chunk)
-        cidx = torch.arange(start, stop, dtype=torch.int32, device=device)
+        cidx = torch.arange(row_offset + start, row_offset + stop,
+                            dtype=torch.int32, device=device)
         mask = candidate_mask(
             corpus_valid[start:stop], corpus_deleted[start:stop],
             corpus_group[start:stop], cidx, query_group, query_row,

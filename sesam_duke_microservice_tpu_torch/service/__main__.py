@@ -4,6 +4,8 @@ Loads ``--config`` (an XML file), else ``CONFIG_STRING``, else the bundled
 demo config, and serves the REST surface on ``--port`` (default ``PORT`` or
 4567).  ``--backend device`` (the default) scores by brute force,
 ``--backend ann`` by embedding cosine retrieval + exact rescoring,
+``--backend sharded-brute`` / ``--backend sharded`` the same two over a
+corpus split across one shard per visible card (``engine.sharded_matcher``),
 ``--backend host`` by the Lucene-parity inverted index and the host
 processor (no device code; ``--device`` is ignored).  ``--device cuda``
 (the default) scores on the GPU and fails without one; ``--device cpu``

@@ -58,8 +58,12 @@ registry with ``telemetry.GLOBAL``.  ``/debug/traces``,
 ``/debug/requests``, ``/debug/decisions``, ``/debug/profile``,
 ``/debug/costs``, ``/debug/memory``, ``/debug/slo`` and ``POST
 /explain`` are the JAX package's (``service.debug``), as is
-``/debug/probes``, the canary prober's read surface; its rematch route
-and ``/debug/loadmap`` wait for their modules.
+``/debug/probes``, the canary prober's read surface; ``/debug/loadmap``
+waits for its module.  ``POST /{kind}/{name}/rematch`` re-scores every
+live record against the whole corpus through the ring layout
+(``engine.rematch``: a link-store backfill, or a re-match after a
+threshold change); a datasource named ``rematch`` keeps the route as a
+batch POST.
 
 The canary prober (``service.prober``, on unless ``DUKE_PROBE=0``) keeps
 one shadow workload per user workload under the reserved ``__probe__``
@@ -468,6 +472,7 @@ _ENTITY_PATH = re.compile(
     r"^/(deduplication|recordlinkage)/([^/]*)/([^/]*?)(/httptransform)?$"
 )
 _FEED_PATH = re.compile(r"^/(deduplication|recordlinkage)/([^/]*)$")
+_REMATCH_PATH = re.compile(r"^/(deduplication|recordlinkage)/([^/]+)/rematch$")
 _DEBUG_TRACE_PATH = re.compile(r"^/debug/traces/([0-9a-f]{32})$")
 _DEBUG_DECISION_PATH = re.compile(r"^/debug/decisions/(d\d+)$")
 
@@ -502,6 +507,8 @@ def _route_template(path: str) -> str:
         return "/debug/traces/:id"
     if _DEBUG_DECISION_PATH.match(path):
         return "/debug/decisions/:id"
+    if m := _REMATCH_PATH.match(path):
+        return f"/{m.group(1)}/:name/rematch"
     if m := _ENTITY_PATH.match(path):
         suffix = "/httptransform" if m.group(4) else ""
         return f"/{m.group(1)}/:name/:datasetId{suffix}"
@@ -737,6 +744,8 @@ class DukeRequestHandler(BaseHTTPRequestHandler):
                 parse_qs(parsed.query)))
         elif path == "/debug/profile/reset":
             self._reply(*debug_api.handle_profile_reset())
+        elif m := _REMATCH_PATH.match(path):
+            self._handle_rematch(m, body)
         elif m := _ENTITY_PATH.match(path):
             self._handle_post_batch(m, body)
         else:
@@ -1157,6 +1166,41 @@ class DukeRequestHandler(BaseHTTPRequestHandler):
         slo.feed_meter(kind, name).note_drain()
         body = "[" + ",\n".join(json.dumps(r) for r in rows) + "]"
         self._reply(200, body.encode("utf-8"))
+
+    def _handle_rematch(self, m, body: bytes) -> None:
+        """Bulk corpus-vs-corpus re-match through the ring layout
+        (engine.rematch): a link-store backfill or re-population.  A
+        dataset literally named 'rematch' still wins the route (ingest
+        takes precedence, with the posted batch intact)."""
+        kind, name = m.group(1), m.group(2)
+        workload = self._workloads(kind).get(name)
+        if workload is not None and "rematch" in workload.datasources:
+            self._handle_post_batch(
+                _ENTITY_PATH.match(f"/{kind}/{name}/rematch"), body)
+            return
+        label = _kind_label(kind)
+        if workload is None:
+            raise self._unknown(404, kind, name)
+        from ..engine.rematch import ring_rematch
+
+        # bulk re-match writes the link database: the ingest's recovery
+        # fence, then the workload lock for the whole pass
+        self._check_write_fence(kind, name, workload)
+        with workload.lock:
+            if workload.closed:
+                raise _BusyError(label)
+            try:
+                stats = ring_rematch(workload)
+            except ValueError as e:
+                raise _HttpError(400, str(e))
+            except ArenaAdmissionError as e:
+                # the pass reads the corpus's resident tensors, leased
+                # like a scoring POST's: the same 503
+                raise _arena_refusal(e)
+            except Exception as e:
+                logger.exception("ring re-match failed")
+                raise _HttpError(500, f"Re-match failed: {e}")
+        self._reply(200, json.dumps(stats).encode("utf-8"))
 
     def _handle_config_upload(self, body: bytes) -> None:
         content_type = self.headers.get("Content-Type", "")

@@ -143,6 +143,12 @@ SNAPSHOT_FALLBACKS = GLOBAL.counter(
     ("reason",),
 )
 
+# -- mesh (engine/sharded_matcher.py) ----------------------------------------
+MESH_DEVICES = GLOBAL.gauge(
+    "duke_mesh_devices",
+    "Devices in the serving mesh (0 until a sharded backend builds one)",
+)
+
 # -- runtime SLO signals, cost and device-byte ledgers -----------------------
 # Imported last: each needs only .registry (and the package's env), and
 # registering their scrape-time collectors here keeps every surface that

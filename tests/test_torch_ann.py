@@ -68,6 +68,7 @@ from test_torch_slice import (
     _post,
     _stresstest_entities,
 )
+from torch_jax_cache import jax_cache_off  # noqa: F401
 
 FUSED_KNOBS = {"DUKE_TPU_PALLAS": "1", "DEVICE_ANN_FUSED": "1",
                "DEVICE_ANN_EXACT_TOPK": "0", "DEVICE_ANN_SEG": "8",

@@ -58,6 +58,7 @@ from test_torch_stream_append import (
     small_slices,  # noqa: F401 -- fixture
 )
 from test_torch_feature_cache import dedup_schema
+from torch_jax_cache import jax_cache_off  # noqa: F401
 
 ARENAS = (jarena, tarena)
 

@@ -769,3 +769,105 @@ def test_spill_lowers_memory_allocated(cuda_device, monkeypatch):
         assert torch.cuda.memory_allocated(cuda_device) - after >= freed
     finally:
         app.close()
+
+
+# -- the single-process mesh: four logical shards on one card ------------------
+
+
+def _cuda_names(n, seed):
+    g = torch.Generator().manual_seed(seed)
+    words = ["ole", "kari", "hansen", "olsen", "nordre", "gate", "vest"]
+    out = []
+    for i in range(n):
+        k = int(torch.randint(1, 4, (1,), generator=g))
+        out.append({"_id": f"s{seed}_{i}", "name": " ".join(
+            words[int(j)] for j in torch.randint(0, len(words), (k,),
+                                                 generator=g)),
+            "ssn": str(int(torch.randint(0, 30, (1,), generator=g)))})
+    return out
+
+
+@pytest.mark.parametrize("gf", [False, True])
+def test_sharded_scorer_on_four_shards_of_one_card_matches_one_device(
+        gf, cuda_device):
+    """The sharded scorer on ``[cuda:0] * 4`` (the Myers kernel launched
+    per shard at the local shape) equals the single-device scorer on the
+    same corpus: top-K rows and counts exactly, logits bit for bit."""
+    import numpy as np
+
+    from sesam_duke_microservice_tpu_torch.engine.device_matcher import (
+        _CHUNK,
+        DeviceCorpus,
+    )
+    from sesam_duke_microservice_tpu_torch.ops import scoring as S
+    from sesam_duke_microservice_tpu_torch.parallel import sharded as P
+
+    app = DukeApp(parse_config(CONFIG), device=cuda_device,
+                  persistent=False)
+    try:
+        wl = app.deduplications["people"]
+        with wl.lock:
+            wl.process_batch("crm", _cuda_names(3000, 1))
+        index = wl.index
+        corpus = index.corpus
+        n = corpus.size
+        group = (np.arange(corpus.capacity, dtype=np.int32) % 2) + 1
+        rows = np.arange(0, n, 7, dtype=np.int32)
+        qgroup = group[rows] if gf else np.full(rows.size, -2, np.int32)
+        mesh = P.Mesh([cuda_device] * 4)
+        feats = {p: {k: a[:n] for k, a in t.items()}
+                 for p, t in corpus.feats.items()}
+        sf, sv, sd, sg = P.ShardedCorpus(mesh, chunk=_CHUNK).place(
+            feats, corpus.row_valid[:n], corpus.row_deleted[:n], group[:n])
+        single = DeviceCorpus.from_numpy(
+            index.plan, feats, corpus.row_valid[:n], corpus.row_deleted[:n],
+            group[:n], cuda_device)
+        cf, cv, cd, cg = single.device_arrays()
+        qf = S.gather_rows(cf, torch.from_numpy(rows).to(cuda_device).long())
+        args = (torch.from_numpy(qgroup).to(cuda_device),
+                torch.from_numpy(rows).to(cuda_device), np.float32(-2.0))
+        ck.reset_launch_counts()
+        got = P.build_sharded_scorer(index.plan, mesh, chunk=_CHUNK,
+                                     top_k=16, group_filtering=gf)(
+            qf, sf, sv, sd, sg, *args)
+        assert ck.LAUNCHES["myers_tile"] >= 4
+        want = S.build_corpus_scorer(index.plan, chunk=_CHUNK, top_k=16,
+                                     group_filtering=gf)(
+            qf, cf, cv, cd, cg, *args)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b.cpu())
+        assert (got[2] > 0).any()
+    finally:
+        app.close()
+
+
+def test_sharded_brute_service_on_cuda_matches_device_service(cuda_device):
+    """``backend="sharded-brute"`` on four logical shards of the card: the
+    feed equals the ``device`` app's, and the rematch leaves it as it
+    was."""
+    from sesam_duke_microservice_tpu_torch.engine import sharded_matcher
+    from sesam_duke_microservice_tpu_torch.engine.rematch import ring_rematch
+
+    sharded_matcher.set_serving_devices([cuda_device] * 4)
+    try:
+        feeds = []
+        for backend in ("sharded-brute", "device"):
+            app = DukeApp(parse_config(CONFIG), backend=backend,
+                          device=cuda_device, persistent=False)
+            wl = app.deduplications["people"]
+            for seed in (1, 2):
+                with wl.lock:
+                    wl.process_batch("crm", _cuda_names(600, seed))
+            with wl.lock:
+                rows = wl.links_since(0)
+                if backend == "sharded-brute":
+                    stats = ring_rematch(wl)
+                    assert stats["devices"] == 4
+                    assert wl.links_since(0) == rows
+            feeds.append(json.dumps([{k: v for k, v in r.items()
+                                      if k != "_updated"} for r in rows]))
+            app.close()
+        assert feeds[0] == feeds[1]
+        assert len(json.loads(feeds[0])) > 10
+    finally:
+        sharded_matcher.set_serving_devices(None)

@@ -63,6 +63,7 @@ from test_torch_service_surface import (
     request,
     served,
 )
+from torch_jax_cache import jax_cache_off  # noqa: F401
 
 PKGS = pytest.mark.parametrize("pkg", ["jax", "port"])
 

@@ -43,6 +43,7 @@ from sesam_duke_microservice_tpu_torch.service.app import DukeApp as TApp
 from sesam_duke_microservice_tpu_torch.service.app import serve as tserve
 
 from test_torch_slice import _TS, _Tape, _feed, _post
+from torch_jax_cache import jax_cache_off  # noqa: F401
 
 _DS = """
       <data-source class="io.sesam.dukemicroservice.IncrementalDeduplicationDataSource">

@@ -62,6 +62,13 @@ def test_importing_the_port_loads_no_jax():
         "import sesam_duke_microservice_tpu_torch.ops.ivf\n"
         "import sesam_duke_microservice_tpu_torch.telemetry.probes\n"
         "import sesam_duke_microservice_tpu_torch.utils.numcheck\n"
+        "import sesam_duke_microservice_tpu_torch.utils.lockcheck\n"
+        "import sesam_duke_microservice_tpu_torch.parallel\n"
+        "import sesam_duke_microservice_tpu_torch.parallel.sharded\n"
+        "import sesam_duke_microservice_tpu_torch.parallel.ann_sharded\n"
+        "import sesam_duke_microservice_tpu_torch.parallel.ring\n"
+        "import sesam_duke_microservice_tpu_torch.engine.sharded_matcher\n"
+        "import sesam_duke_microservice_tpu_torch.engine.rematch\n"
         "print(json.dumps(sorted(set(sys.modules) - before)))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -90,6 +97,11 @@ def test_importing_the_port_loads_no_jax():
     # app and the ann backend
     for mod in ("ops.arena", "telemetry.probes", "service.prober",
                 "utils.numcheck", "ops.ivf"):
+        assert f"sesam_duke_microservice_tpu_torch.{mod}" in loaded
+    # the lock sanitizer loads with the package; the mesh and the ring
+    # re-match with their modules
+    for mod in ("utils.lockcheck", "parallel.sharded", "parallel.ann_sharded",
+                "parallel.ring", "engine.sharded_matcher", "engine.rematch"):
         assert f"sesam_duke_microservice_tpu_torch.{mod}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -210,6 +222,9 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
         build_workload(wc, sc)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DukeApp(sc, backend="ann")
+    for backend in ("sharded", "sharded-brute"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            DukeApp(sc, backend=backend)
     with pytest.raises(ValueError, match="'device', 'ann' and 'host'"):
         build_workload(wc, sc, backend="lucene", device="cpu")
     # the host backend runs no device code: it serves without a card

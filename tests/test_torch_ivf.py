@@ -47,6 +47,7 @@ from sesam_duke_microservice_tpu_torch.ops import ivf as TIVF
 
 from test_torch_ann import _assert_same_retrieval
 from test_torch_growth import BOTH, DEDUP, JAX, PORT
+from torch_jax_cache import jax_cache_off  # noqa: F401
 
 _FIRST = ["ole", "kari", "per", "anne", "nils", "ingrid", "lars", "berit",
           "jan", "liv", "arne", "astrid", "knut", "solveig", "odd", "randi"]

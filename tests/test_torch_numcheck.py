@@ -36,6 +36,7 @@ from sesam_duke_microservice_tpu_torch.ops import bounds as TB
 from sesam_duke_microservice_tpu_torch.utils import numcheck as tnumcheck
 
 from test_torch_finalize import _BATCH, _config, _entities
+from torch_jax_cache import jax_cache_off  # noqa: F401
 
 MODULES = (jnumcheck, tnumcheck)
 

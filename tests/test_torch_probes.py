@@ -47,6 +47,7 @@ from test_probes import CONFIG_XML, DEDUP_ONLY_XML, USER_BATCH, user_feed
 from test_probes import user_links
 from test_torch_finalize import _config as mixed_config
 from test_torch_slice import CONFIG_XML as STRESS_XML
+from torch_jax_cache import jax_cache_off  # noqa: F401
 
 SCHEMAS = {"probe": CONFIG_XML, "stresstest": STRESS_XML,
            "mixed": mixed_config("mixed")}

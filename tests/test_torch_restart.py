@@ -66,6 +66,7 @@ from sesam_duke_microservice_tpu_torch.service.app import serve as tserve
 from sesam_duke_microservice_tpu_torch.store.records import LazyRecordMap
 
 from test_torch_slice import _Tape
+from torch_jax_cache import jax_cache_off  # noqa: F401
 
 CONFIG = """
 <DukeMicroService dataFolder="{folder}">

@@ -56,6 +56,7 @@ from test_scheduler import (
     request,
     run_off,
 )
+from torch_jax_cache import jax_cache_off  # noqa: F401
 
 DRAIN = 10.0  # seconds a scheduler shutdown may take in these tests
 
@@ -700,7 +701,7 @@ def test_direct_path_after_close_answers_503(sc, monkeypatch):
 
 
 def test_cli_offers_the_host_backend():
-    assert BACKENDS == ("device", "ann", "host")
+    assert BACKENDS == ("device", "ann", "sharded", "sharded-brute", "host")
 
 
 # -- the merge cases of tests/test_service.py ---------------------------------

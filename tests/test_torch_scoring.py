@@ -42,6 +42,7 @@ from sesam_duke_microservice_tpu_torch.engine.device_matcher import (
 from sesam_duke_microservice_tpu_torch.ops import bounds as TB
 from sesam_duke_microservice_tpu_torch.ops import features as TF
 from sesam_duke_microservice_tpu_torch.ops import scoring as TS
+from torch_jax_cache import jax_cache_off  # noqa: F401
 
 CHUNK = 64
 TOP_K = 16

@@ -83,6 +83,7 @@ from sesam_duke_microservice_tpu_torch.service.app import DukeApp as TApp
 from sesam_duke_microservice_tpu_torch.service.app import serve as tserve
 
 from test_torch_slice import _Tape
+from torch_jax_cache import jax_cache_off  # noqa: F401
 
 CONFIG_XML = """
 <DukeMicroService{folder}>
@@ -541,8 +542,24 @@ def fresh_slo_trackers():
         tel.slo._reset_for_tests()
 
 
+@pytest.fixture()
+def fresh_mesh_gauge():
+    """``duke_mesh_devices`` is process-wide on both sides and set when a
+    mesh is built: a mesh test earlier in this process leaves one side at
+    8 and the other at 0 (the port's mesh tests drop their mesh, the JAX
+    package keeps its own).  Zeroed on both sides for the test -- neither
+    app here builds a mesh -- and put back after."""
+    gauges = [tel.MESH_DEVICES.single() for tel in (jtelemetry, ttelemetry)]
+    saved = [g.value for g in gauges]
+    for g in gauges:
+        g.set(0)
+    yield
+    for g, value in zip(gauges, saved):
+        g.set(value)
+
+
 def test_metrics_families_subset_of_jax_with_equal_values(
-        every_decision_sampled, fresh_slo_trackers, pair):
+        every_decision_sampled, fresh_slo_trackers, fresh_mesh_gauge, pair):
     apps, urls = pair
     before = [parse_metrics(request(u + "/metrics")[2].decode())[2]
               for u in urls]
@@ -579,6 +596,9 @@ def test_metrics_families_subset_of_jax_with_equal_values(
     assert tvalues[("duke_http_requests_total", (
         ("route", "/deduplication/:name/:datasetId"), ("method", "POST"),
         ("status", "200")))] == 4
+    # neither app built a mesh
+    assert tvalues[("duke_mesh_devices", ())] == jvalues[
+        ("duke_mesh_devices", ())] == 0
 
     def delta(values, prior, fam):
         return {k: v - prior.get(k, 0.0) for k, v in values.items()

@@ -34,6 +34,7 @@ from sesam_duke_microservice_tpu_torch.telemetry.registry import (
 )
 
 from test_telemetry import _assert_valid_exposition
+from torch_jax_cache import jax_cache_off  # noqa: F401
 
 CONFIG_XML = """
 <DukeMicroService>

@@ -41,6 +41,7 @@ from test_torch_service_surface import (
     request,
     served,
 )
+from torch_jax_cache import jax_cache_off  # noqa: F401
 
 TRACERS = pytest.mark.parametrize("tracing", [jtracing, ttracing],
                                   ids=["jax", "port"])
