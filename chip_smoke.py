@@ -190,6 +190,22 @@ Phases, each fatal on failure:
    through a ``sharded`` app at the ``ann`` app's capacity split over the
    shards (131,072 a shard): the ``ann`` links it lacks and the links it
    adds;
+8d. the multihost phase: the serving group of ``parallel/dispatch.py``
+   as two OS processes on cuda:0 (tests/torch_multihost_serving_child.py,
+   ``torch.distributed`` with gloo -- two ranks share the card -- and two
+   logical shards a process, a global mesh of 4): 65,536 stresstest
+   records (every 16th a copy of an earlier one) through ``sharded-brute``,
+   then 16,384 through ``sharded`` (capacity 4 x 524,288), each beside a
+   single-process app of the same backend on 4 logical shards of the card
+   on the same traffic: the frontend's feed byte-identical to it (link
+   clocks are counters in both), the follower's replica read plane
+   serving the same bytes at ``X-Replica-Lag: 0``, ``duke_dispatch_
+   followers`` 1 and ``duke_follower_evictions_total`` 0, a ``POST
+   /deduplication/people/rematch`` through the group (``sharded-brute``)
+   re-emitting the feed's links with the feed unchanged, and both
+   processes' hand-kernel launch counts equal (the lockstep check,
+   printed per process with the collectives each entered); records/s and
+   p50 POST of the group beside the twin's, and the collective backend;
 9. print the per-kernel JSON line, the card's name and power limit, and
    the result line ``{"ok": true, "device": {...}}`` last.
 
@@ -1699,7 +1715,9 @@ CONCURRENT_CLIENTS = 8
 # the admission check: DUKE_SCHED_QUEUE_MAX=1, 8 clients x 4 POSTs
 ADMISSION_POSTS = 4
 # the host backend's share of slice 1's traffic, in INGEST_BATCH POSTs
-HOST_RECORDS = 16384
+# (8,192 since the multihost phase joined the script: its Python
+# retrieval grows with the corpus, and the script keeps its time)
+HOST_RECORDS = 8192
 
 
 def post_status(port, path, body):
@@ -3670,6 +3688,235 @@ def phase_mesh(line):
     return out
 
 
+MULTIHOST_LOCAL_SHARDS = 2
+MULTIHOST_RECORDS = {"sharded-brute": 65536, "sharded": 16384}
+MULTIHOST_CHILD = REPO / "tests" / "torch_multihost_serving_child.py"
+# each child's own limit: the group's start-up, its traffic and its exit
+MULTIHOST_CHILD_TIMEOUT_S = 240
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def multihost_group(backend, env, report_dir):
+    """Start the two processes of a serving group on cuda:0, each with
+    MULTIHOST_LOCAL_SHARDS logical shards (a global mesh of twice as
+    many): rank 0 the HTTP frontend, rank 1 the follower with its replica
+    read plane.  The kernels were built before the spawn (phase 1), so
+    the children only load them.  Returns (procs, frontend port, replica
+    port, report paths)."""
+    http, replica, coordinator = free_port(), free_port(), free_port()
+    child_env = dict(os.environ, **(env or {}))
+    child_env.update(CONFIG_STRING=config_xml({"people": STRESS_SCHEMA}),
+                     DUKE_DISPATCH_HOST="127.0.0.1",
+                     DUKE_REPLICA_HTTP_PORT=str(replica),
+                     PYTHONPATH=str(REPO))
+    reports = [report_dir / f"rank{r}.json" for r in (0, 1)]
+    procs = []
+    for r in (0, 1):
+        # the child keeps its own copy of the log's descriptor
+        with open(report_dir / f"rank{r}.log", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(MULTIHOST_CHILD), str(r),
+                 f"127.0.0.1:{coordinator}", str(http), backend,
+                 "--shards", str(MULTIHOST_LOCAL_SHARDS), "--device", DEVICE,
+                 "--ephemeral", "--counter-clock", "--report",
+                 str(reports[r])],
+                env=child_env, stdout=subprocess.DEVNULL, stderr=log,
+                cwd=str(REPO)))
+    deadline = time.monotonic() + MULTIHOST_CHILD_TIMEOUT_S
+    while True:
+        for p in procs:
+            if p.poll() is not None:
+                raise AssertionError(
+                    f"multihost {backend}: a child exited {p.returncode} at "
+                    f"start-up: {multihost_log(report_dir)}")
+        try:
+            if all(urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/readyz", timeout=5).status
+                    == 200 for port in (http, replica)):
+                return procs, http, replica, reports
+        except OSError:
+            pass
+        if time.monotonic() > deadline:
+            raise AssertionError(f"multihost {backend}: the group never "
+                                 f"came up: {multihost_log(report_dir)}")
+        time.sleep(0.2)
+
+
+def multihost_log(report_dir):
+    return " | ".join(
+        f"rank {r}: " + (report_dir / f"rank{r}.log").read_text()[-2000:]
+        for r in (0, 1) if (report_dir / f"rank{r}.log").exists())
+
+
+def multihost_stop(procs, reports, report_dir, backend):
+    """SIGTERM the frontend (its dispatcher sends the follower the
+    shutdown op); both must exit 0.  Returns both processes' reports."""
+    import signal
+
+    procs[0].send_signal(signal.SIGTERM)
+    for p in procs:
+        try:
+            p.wait(timeout=MULTIHOST_CHILD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise AssertionError(f"multihost {backend}: a child did not "
+                                 f"exit: {multihost_log(report_dir)}")
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError(
+            f"multihost {backend}: exit codes {[p.returncode for p in procs]}"
+            f": {multihost_log(report_dir)}")
+    return [json.loads(r.read_text()) for r in reports]
+
+
+def multihost_run(backend, clocks, line, report_dir):
+    """One backend: its traffic through a single-process app of the same
+    backend on 2 * MULTIHOST_LOCAL_SHARDS logical shards of cuda:0 (the
+    twin), then through the two-process group; the checks of the phase.
+    Returns the group's per-process launch counts."""
+    from sesam_duke_microservice_tpu_torch.engine import sharded_matcher as SM
+
+    n = MULTIHOST_RECORDS[backend]
+    entities = stresstest_entities(n, 2718, "h")
+    entities = with_copies(entities, entities[: n // 2], 16, 3)
+    env = ({"DEVICE_INITIAL_CAPACITY": str(MESH_ANN_CAPACITY)}
+           if backend == "sharded" else None)
+    card = "cuda:0" if DEVICE == "cuda" else DEVICE
+    SM.set_serving_devices([card] * (2 * MULTIHOST_LOCAL_SHARDS))
+    try:
+        app = mesh_app("people", STRESS_SCHEMA, backend, env)
+        with serving(app) as port:
+            twin = mesh_traffic(app, port, "people", entities, None, clocks,
+                                ("multihost", backend))
+    finally:
+        SM.set_serving_devices(None)
+
+    t0 = time.perf_counter()
+    procs, http, replica, reports = multihost_group(backend, env, report_dir)
+    started = time.perf_counter() - t0
+    try:
+        path = "/deduplication/people"
+        latencies, wall = ingest(http, f"{path}/crm", entities)
+        body = raw_since(http, path)
+        if body != twin["feed"]:
+            raise AssertionError(
+                f"multihost {backend}: the group's feed ({len(body)} bytes) "
+                f"differs from the single-process app's "
+                f"({len(twin['feed'])} bytes)")
+        rows = json.loads(body)
+        check_rows(rows, f"multihost {backend}")
+        t1 = time.monotonic()
+        while True:  # the links ops carry no handshake: poll the replica
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{replica}{path}?since=0",
+                    timeout=120) as resp:
+                lag, got = resp.headers.get("X-Replica-Lag"), resp.read()
+            if got == body and lag == "0":
+                break
+            if time.monotonic() - t1 > 30:
+                raise AssertionError(
+                    f"multihost {backend}: the replica feed ({len(got)} "
+                    f"bytes, lag {lag}) never caught up with the frontend's")
+            time.sleep(0.05)
+        caught_up = time.monotonic() - t1
+        samples, _, _ = scrape(http)
+        followers = one(samples, "duke_dispatch_followers")
+        evictions = one(samples, "duke_follower_evictions_total")
+        down = one(samples, "duke_dispatch_down")
+        if (followers, evictions, down) != (1, 0, 0):
+            raise AssertionError(
+                f"multihost {backend}: duke_dispatch_followers {followers}, "
+                f"duke_follower_evictions_total {evictions}, "
+                f"duke_dispatch_down {down}")
+        rematch = None
+        if backend == "sharded-brute":
+            live = sum(not r["_deleted"] for r in rows)
+            t2 = time.perf_counter()
+            status, _, stats = post_json(http, f"{path}/rematch", [])
+            rematch = (time.perf_counter() - t2, stats)
+            if (status != 200 or stats["devices"] != 2 * MULTIHOST_LOCAL_SHARDS
+                    or stats["queries"] != n or stats["events"] != live):
+                raise AssertionError(f"multihost rematch: {status} {stats}, "
+                                     f"expected {live} events")
+            if raw_since(http, path) != body:
+                raise AssertionError("multihost rematch: the feed changed")
+    except BaseException:
+        for p in procs:
+            p.kill()
+        print(f"multihost {backend}: children's logs: "
+              f"{multihost_log(report_dir)}", flush=True)
+        raise
+    front, follower = multihost_stop(procs, reports, report_dir, backend)
+    kernels = sorted(set(front["launches"]) | set(follower["launches"]))
+    per = {k: (front["launches"].get(k, 0), follower["launches"].get(k, 0))
+           for k in kernels}
+    if any(a != b for a, b in per.values()):
+        raise AssertionError(f"multihost {backend}: the processes launched "
+                             f"the kernels unequally: {per}")
+    needed = (("myers_tile",) if backend == "sharded-brute"
+              else ("retrieval_segmax", "myers_gathered"))
+    for k in needed:
+        if per.get(k, (0, 0))[0] <= 0:
+            raise AssertionError(f"multihost {backend}: {k} never launched")
+    if front["backend"] != "gloo" or follower["backend"] != "gloo":
+        raise AssertionError(f"multihost {backend}: collective backend "
+                             f"{front['backend']} / {follower['backend']}")
+    print(f"multihost {backend}: {n} stresstest records (every 16th a copy) "
+          f"in {INGEST_BATCH}-record POSTs; two processes on cuda:0 x "
+          f"{MULTIHOST_LOCAL_SHARDS} logical shards each (global mesh "
+          f"{2 * MULTIHOST_LOCAL_SHARDS}), collective backend "
+          f"{front['backend']}, group up in {started:.1f} s: "
+          f"{n / wall:.1f} records/s, p50 POST "
+          f"{statistics.median(latencies) * 1e3:.1f} ms; the single-process "
+          f"{backend} app on {2 * MULTIHOST_LOCAL_SHARDS} logical shards "
+          f"{twin['rps']:.1f} records/s, p50 POST {twin['p50'] * 1e3:.1f} "
+          f"ms; feeds byte-identical ({len(body)} bytes, {len(rows)} links); "
+          f"the follower's replica feed byte-identical at X-Replica-Lag 0, "
+          f"{caught_up:.2f} s after the frontend's; duke_dispatch_followers "
+          f"{followers:.0f}, duke_follower_evictions_total {evictions:.0f}"
+          + (f"; POST {path}/rematch through the group in "
+             f"{rematch[0]:.3f} s (host clock): {rematch[1]}, its "
+             f"{rematch[1]['events']} links the feed's, the feed unchanged"
+             if rematch else "")
+          + f" [{line}]", flush=True)
+    print(f"multihost {backend} launches (process 0 / process 1): "
+          + ", ".join(f"{k} {a} / {b}" for k, (a, b) in per.items())
+          + f"; collectives process 0 {front['collectives']}, process 1 "
+          f"{follower['collectives']} [{line}]", flush=True)
+    return per
+
+
+def phase_multihost(line):
+    """The two-process serving group on one card: ``sharded-brute`` and
+    then ``sharded``, each beside its single-process twin.  Returns the
+    launch counts of each backend's group, per process."""
+    import tempfile
+
+    import torch
+
+    from sesam_duke_microservice_tpu_torch.links import base as linkbase
+
+    t0 = time.perf_counter()
+    clocks = LinkClocks()
+    out = {}
+    with mock.patch.object(linkbase, "now_millis", clocks), \
+            tempfile.TemporaryDirectory() as tmp:
+        for backend in MULTIHOST_RECORDS:
+            report_dir = Path(tmp) / backend
+            report_dir.mkdir()
+            out[backend] = multihost_run(backend, clocks, line, report_dir)
+    torch.cuda.synchronize()
+    print(f"multihost phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def char_inputs(q, c, l, seed):
     """Small-alphabet chars so matches are real; random lengths with the
     edge cases (empty and full-width patterns and texts) forced in."""
@@ -4173,6 +4420,7 @@ def main() -> int:
     phase_debug(line)
     phase_selfcheck(line, device_rows)
     phase_mesh(line)
+    phase_multihost(line)
 
     def one_word(s):
         return ck.kernel_words(s[2]) == 1

@@ -100,7 +100,7 @@ class AnnIndex(DeviceIndex):
         row = self.id_to_row.get(candidate.record_id)
         effective_c = None
         if row is not None:
-            result = resolve_block(self.scorer_cache.dispatch_block(
+            result = resolve_block(self._explain_scorer_cache().dispatch_block(
                 [record], group_filtering=group_filtering))
             effective_c = int(result.top_index.shape[1])
             out["effective_top_c"] = effective_c
@@ -135,6 +135,11 @@ class AnnIndex(DeviceIndex):
                 out["ivf"]["cell_probed"] = bool(
                     cell in set(int(c) for c in probed))
         return out
+
+
+    def _explain_scorer_cache(self):
+        """The scorer cache the explain replay retrieves with."""
+        return self.scorer_cache
 
 
 class _AnnScorerCache(_ScorerCache):

@@ -510,6 +510,15 @@ class DeviceIndex(CandidateIndex):
         # each fully applied batch instead (mark_store_synced).
         self._content_hash = EMPTY_CONTENT_HASH
         self._store_synced_hash: Optional[str] = None
+        # the serving group's mirror-consistency digest: a sha256 CHAIN
+        # over every committed batch (record content + assigned row),
+        # folded by commit() on the frontend and on every follower
+        # replica alike, so the two agree when -- and only when -- they
+        # applied the same mutations in the same order with the same row
+        # layout.  Chained, not XOR-folded: a missed or doubled batch
+        # must change it.  Compared after every commit of a group
+        # (parallel.dispatch's digest handshake).
+        self._mirror_digest = EMPTY_CONTENT_HASH
         self.id_to_row: Dict[str, int] = {}
         self.indexing_disabled = False
         self._pending: List[Record] = []
@@ -530,17 +539,54 @@ class DeviceIndex(CandidateIndex):
             pending, self._pending = self._pending, []
         if not pending:
             return
-        # last write per id wins within a batch (Duke re-index semantics)
-        by_id: Dict[str, Record] = {}
-        for r in pending:
-            by_id[r.record_id] = r
-        records = list(by_id.values())
-        self._maybe_grow_value_slots(records)
+        # a serving group: the drained batch is exactly the corpus
+        # mutation about to apply -- broadcast it so follower replicas
+        # make the identical mutation (parallel.dispatch invariant 1).
+        # The dispatcher tags the key on the frontend only; followers
+        # and single-process runs skip.
+        from ..parallel import dispatch
+
+        key = getattr(self, "_dispatch_key", None)
+        d = dispatch.current() if key is not None else None
+        if d is not None:
+            d.broadcast(dispatch.with_trace_ctx(("commit", key, pending)))
+        # once broadcast, a local failure leaves followers one commit
+        # AHEAD (a permanent mirror divergence): latch, then propagate
+        with dispatch.latch_on_failure(
+                d, "frontend commit failed after broadcast"):
+            # last write per id wins within a batch (Duke re-index
+            # semantics)
+            by_id: Dict[str, Record] = {}
+            for r in pending:
+                by_id[r.record_id] = r
+            records = list(by_id.values())
+            self._maybe_grow_value_slots(records)
+            for r in records:
+                old = self.id_to_row.get(r.record_id)
+                if old is not None:
+                    self.corpus.tombstone(old)
+            self._append_records(records)
+            self._fold_mirror_digest(records)
+        # every follower just replayed this batch through this code:
+        # compare the chained digests, so an asymmetric failure evicts
+        # that follower here instead of hanging a later collective
+        if d is not None:
+            d.verify_mirror_digest(key, self._mirror_digest)
+
+    def _fold_mirror_digest(self, records: Sequence[Record]) -> None:
+        """Chain one committed batch into the mirror-consistency digest:
+        per record its canonical content digest and the corpus row it
+        landed on (the row layout is what the collectives consume, so a
+        layout divergence must change the digest too).  The JAX
+        package's formula, byte for byte."""
+        import hashlib
+        import struct
+
+        h = hashlib.sha256(self._mirror_digest)
         for r in records:
-            old = self.id_to_row.get(r.record_id)
-            if old is not None:
-                self.corpus.tombstone(old)
-        self._append_records(records)
+            h.update(record_digest(r))
+            h.update(struct.pack("<q", self.id_to_row.get(r.record_id, -1)))
+        self._mirror_digest = h.digest()
 
     def find_record_by_id(self, record_id: str) -> Optional[Record]:
         return self.records.get(record_id)
@@ -1284,6 +1330,9 @@ class _ScorerCache:
     # on the device; the mesh caches upload them instead (a row of a
     # split corpus lives on one shard, every shard needs every query)
     queries_from_rows = True
+    # the certified dd rescore runs on the device; a mesh cache turns it
+    # off when its mesh spans processes (engine.sharded_matcher)
+    supports_dd = True
 
     def __init__(self, index: DeviceIndex):
         self.index = index
@@ -1388,7 +1437,7 @@ class _ScorerCache:
         ``dd_gate_bound`` can be a certified reject, and certified events
         and residue take the host compare either way."""
         ctx = result.dd_ctx
-        if ctx is None:
+        if ctx is None or not self.supports_dd:
             return None
         index = self.index
         plan = index.plan
@@ -1429,6 +1478,13 @@ class DeviceProcessor:
     they rescored."""
 
     exhaustive = True
+    # a serving group's follower replicas replay only the device-program
+    # side of a batch (parallel.dispatch): host finalization of the
+    # survivors -- and everything downstream of it (listeners, link
+    # databases) -- runs on the frontend alone.  The device-program ORDER
+    # stays identical either way, so the flag guards only the per-query
+    # host loop
+    finalize_survivors = True
 
     def __init__(self, schema: DukeSchema, database: DeviceIndex, *,
                  group_filtering: bool = False, threads: int = 1):
@@ -1491,8 +1547,23 @@ class DeviceProcessor:
         self.phases.observe(PHASE_ENCODE, encode_dt)
         retrieval0 = self.stats.retrieval_seconds
         compare0 = self.stats.compare_seconds
+        # a serving group: followers replay the scoring pass on the same
+        # query records (the corpus mutation went out from commit());
+        # broadcast before _score_blocks, so every process enters the
+        # block programs -- and their collectives -- in one global order
+        from ..parallel import dispatch
+
+        key = getattr(self.database, "_dispatch_key", None)
+        d = dispatch.current() if key is not None else None
+        if d is not None:
+            d.broadcast(dispatch.with_trace_ctx(("score", key,
+                                                 list(records))))
         match_ns = time.monotonic_ns()
-        self._score_blocks(records)
+        # a frontend that aborts mid-pass (a listener error, an OOM) has
+        # entered fewer collectives than the followers it just instructed
+        with dispatch.latch_on_failure(
+                d, "frontend scoring pass aborted after broadcast"):
+            self._score_blocks(records)
         self.stats.batches += 1
         retrieve_dt = self.stats.retrieval_seconds - retrieval0
         score_dt = self.stats.compare_seconds - compare0
@@ -1514,7 +1585,13 @@ class DeviceProcessor:
         before block N's results are fetched, so host finalization of N
         overlaps device scoring of N+1.  While a device trace is armed
         (``PROFILE_TRACE_DIR``) the lookahead is held back, so a traced
-        block is dispatched inside its own trace window."""
+        block is dispatched inside its own trace window.
+
+        A serving group's follower replicas call this directly with
+        ``finalize_survivors=False``: the block order, the lookahead and
+        the escalation re-runs must match the frontend's program for
+        program, or the collectives deadlock, so the loop is shared
+        rather than reimplemented (parallel.dispatch invariant 2)."""
         live_rows = self.database.corpus.live_rows
         size = _QUERY_BUCKETS[-1]
         blocks = [records[s:s + size] for s in range(0, len(records), size)]
@@ -1537,6 +1614,8 @@ class DeviceProcessor:
             pending = nxt
             t2 = time.monotonic()
             self.stats.retrieval_seconds += t2 - t1
+            if not self.finalize_survivors:
+                continue
             if self.finalizer.device:
                 # certified finalization: one more device program over the
                 # resolved (Q, K) survivors

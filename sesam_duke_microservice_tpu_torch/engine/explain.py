@@ -287,6 +287,14 @@ def _dd_breakdown(index, frozen, feats, r1: Record, r2: Record,
     if band_verdict in ("filtered", "pruned"):
         out["decided_path"] = "band_skip"
         return out
+    if not getattr(getattr(index, "scorer_cache", None), "supports_dd",
+                   True):
+        # a mesh that spans processes: the live path rescores on the
+        # host (its dd survivor gather would be a collective the
+        # followers never enter)
+        out["decided_path"] = "host_rescore"
+        out["dd_residue_reason"] = "backend"
+        return out
     if not dd_specs:
         out["decided_path"] = "host_rescore"
         out["dd_residue_reason"] = "kind"

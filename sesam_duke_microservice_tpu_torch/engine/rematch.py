@@ -18,8 +18,14 @@ workload's normal listener chain; links assert idempotently
 database is a no-op for pollers.
 
 Reachable from the REST surface as ``POST /{kind}/{name}/rematch`` and
-from Python as ``ring_rematch(workload)``.  One process drives the mesh,
-so the results come back with plain transfers (``_gather``).
+from Python as ``ring_rematch(workload)``.
+
+A serving group: the frontend broadcasts a ``rematch`` op before it runs
+(``parallel/dispatch.py``), follower replicas replay the device-program
+side (placement, ring passes, escalation re-runs) in lockstep through
+``replay_rematch``, and every result fetch (``_gather``) is a collective
+all processes enter, because the ring's outputs are split over every
+process's shards.
 """
 
 from __future__ import annotations
@@ -35,12 +41,16 @@ logger = logging.getLogger("ring-rematch")
 _INITIAL_TOP_K = 64
 
 
-def _gather(tree):
-    """The ring's per-shard outputs (a list per output) as host arrays,
-    block 0 first: plain transfers in one process."""
+def _gather(mesh, tree):
+    """The ring's per-shard outputs (a list per output) as host arrays in
+    global shard order: plain transfers in one process, one
+    ``all_gather`` a list across processes -- a collective every process
+    of the group enters, in this same order."""
+    from ..parallel.sharded import gather_shards
+
     if isinstance(tree, tuple):
-        return tuple(_gather(t) for t in tree)
-    return np.concatenate([t.cpu().numpy() for t in tree])
+        return tuple(_gather(mesh, t) for t in tree)
+    return gather_shards(mesh, tree)
 
 
 def ring_rematch(workload, *,
@@ -52,13 +62,38 @@ def ring_rematch(workload, *,
     device-family backend (the corpus host mirror supplies both the corpus
     and the query features); the host backend has no feature tensors to
     ride the mesh."""
+    from ..parallel import dispatch
+
     index = workload.index
     if getattr(index, "corpus", None) is None:
         raise ValueError(
             "ring re-match needs a device-family backend (device/ann/"
             "sharded); the host backend has no corpus tensors")
+    d = dispatch.current()
+    key = getattr(index, "_dispatch_key", None)
+    if d is not None and key is not None:
+        # a serving group: followers replay the device-program side of
+        # this exact run (same block bounds, same escalation decisions
+        # from the gathered counts) so the ring's collectives meet; any
+        # failure latches (dispatch.latch_on_failure)
+        with d.op_lock:
+            d.broadcast(dispatch.with_trace_ctx(
+                ("rematch", key, query_block_rows)))
+            with dispatch.latch_on_failure(
+                    d, "frontend rematch aborted mid-run"):
+                return _ring_rematch_impl(
+                    index, workload.processor, index.schema,
+                    query_block_rows=query_block_rows, finalize=True)
     return _ring_rematch_impl(index, workload.processor, index.schema,
-                              query_block_rows=query_block_rows)
+                              query_block_rows=query_block_rows,
+                              finalize=True)
+
+
+def replay_rematch(index, processor, query_block_rows=None) -> None:
+    """Follower-side replay (``parallel.dispatch`` op ``rematch``): the
+    same device-program sequence with host finalization off."""
+    _ring_rematch_impl(index, processor, index.schema,
+                       query_block_rows=query_block_rows, finalize=False)
 
 
 def _default_mesh(index):
@@ -99,6 +134,10 @@ def _resident_arrays(index, mesh, prop_names, chunk: int):
     else:
         return None
     local = valid[0].shape[0]
+    if mesh.spans_processes:
+        # another rank's first shard need not be whole: keep every shard
+        # at its full length, so the offsets read off it stay true
+        return feats, valid, deleted, group
     used = [max(chunk, -(-min(max(corpus.size - s * local, 0), local)
                          // chunk) * chunk) for s in range(mesh.size)]
     feats = [{prop: {name: t[:n] for name, t in tensors.items()}
@@ -110,7 +149,7 @@ def _resident_arrays(index, mesh, prop_names, chunk: int):
 
 
 def _ring_rematch_impl(index, processor, schema, *,
-                       query_block_rows) -> Dict:
+                       query_block_rows, finalize: bool) -> Dict:
     from ..parallel.ring import RingQueryPlacer, build_ring_scorer
     from ..parallel.sharded import ShardedCorpus
     from .device_matcher import _CHUNK
@@ -145,7 +184,7 @@ def _ring_rematch_impl(index, processor, schema, *,
     }
     placed = _resident_arrays(index, mesh, prop_names, _CHUNK)
     if placed is not None:
-        max_k = sum(t.shape[0] for t in placed[1])
+        max_k = sum(t.shape[0] for t in placed[1]) * mesh.world
     else:
         placer = ShardedCorpus(mesh, chunk=_CHUNK)
         placed = placer.place(
@@ -166,7 +205,7 @@ def _ring_rematch_impl(index, processor, schema, *,
                 group_filtering=group_filtering)
         return scorers[k]
 
-    listeners = processor.listeners
+    listeners = processor.listeners if finalize else []
     for listener in listeners:
         listener.batch_ready(n)
     threshold = schema.threshold
@@ -192,16 +231,18 @@ def _ring_rematch_impl(index, processor, schema, *,
                     np.float32(min_logit))
                 # only cnt drives the widening decision: fetch it alone
                 # per iteration
-                cmax = int(_gather(cnt)[: rows.size].max(initial=0))
+                cmax = int(_gather(mesh, cnt)[: rows.size].max(initial=0))
                 if cmax <= k or k >= max_k:
                     break
                 k = min(k * 2, max_k)
                 logger.info("ring escalation: %d at the bound, width=%d",
                             cmax, k)
-            top_logit, top_index = _gather((tl, ti))
+            top_logit, top_index = _gather(mesh, (tl, ti))
             top_logit = top_logit[: rows.size]
             top_index = top_index[: rows.size]
             stats["pairs_ranked"] += int(rows.size) * n
+            if not finalize:
+                continue
 
             # host finalization: each unordered pair is ranked from both
             # sides; keep the (qrow < crow) orientation so events emit once

@@ -1,8 +1,10 @@
 """Mesh-sharded serving backends: the REST service over a device mesh.
 
-Counterpart of the JAX package's ``engine/sharded_matcher.py`` for a
-single-process mesh (``parallel.sharded.Mesh``), the ``sharded`` (``ann``)
-and ``sharded-brute`` (``device``) backends:
+Counterpart of the JAX package's ``engine/sharded_matcher.py`` over a
+``parallel.sharded.Mesh`` -- one process's, or one that spans the
+processes of a serving group (``parallel.multihost``), each holding its
+own shards -- the ``sharded`` (``ann``) and ``sharded-brute`` (``device``)
+backends:
 
   * ``ShardedDeviceCorpus`` keeps the append / tombstone / incremental
     update model of ``DeviceCorpus`` (the host numpy mirror stays the
@@ -21,7 +23,8 @@ and ``sharded-brute`` (``device``) backends:
   * the certified dd finalize runs on the mesh (``_MeshProgramLift``):
     the resolved block's survivors are gathered across shards to the lead
     device, then the same ``ops.scoring`` dd program runs on them with an
-    identity index, bit-identical to the single-device path.
+    identity index, bit-identical to the single-device path; a mesh that
+    spans processes finalizes on the host instead (``supports_dd``).
 
 Queries are uploaded per block and copied to every shard (never gathered
 from corpus rows), escalation (K for brute force, C for ``ann``) runs
@@ -69,17 +72,39 @@ logger = logging.getLogger("sharded-matcher")
 
 _MESH_LOCK = threading.Lock()
 _MESH: Optional[Mesh] = None
+# this process's shard devices as set_serving_devices pinned them
+_PINNED: Optional[tuple] = None
+
+
+def pinned_devices() -> Optional[tuple]:
+    """The devices ``set_serving_devices`` pinned (this process's
+    shards), or None."""
+    return _PINNED
+
+
+def _global_mesh(local: Sequence) -> Mesh:
+    """Join the multi-process job when one is configured (a no-op
+    otherwise), then the mesh over every process's shards, ``local``
+    being this process's."""
+    from ..parallel import multihost
+
+    multihost.initialize(devices=local)
+    return multihost.global_corpus_mesh(local)
 
 
 def set_serving_devices(devices: Optional[Sequence]) -> Optional[Mesh]:
     """Pin the process-wide serving mesh to ``devices`` (one shard each, a
     device may repeat), or with None drop it so the next ``serving_mesh``
-    builds the default.  Call before the first sharded workload is built:
-    workloads keep the mesh they were built on."""
-    global _MESH
-    mesh = corpus_mesh(devices) if devices is not None else None
+    builds the default.  In a multi-process job (``JAX_COORDINATOR_ADDRESS``
+    set) ``devices`` are this process's shards and the mesh spans every
+    rank's.  Call before the first sharded workload is built: workloads
+    keep the mesh they were built on."""
+    global _MESH, _PINNED
+    pinned = (tuple(torch.device(d) for d in devices)
+              if devices is not None else None)
+    mesh = _global_mesh(corpus_mesh(pinned).devices) if pinned else None
     with _MESH_LOCK:
-        _MESH = mesh
+        _MESH, _PINNED = mesh, pinned
     telemetry.MESH_DEVICES.set(mesh.size if mesh is not None else 0)
     return mesh
 
@@ -87,22 +112,27 @@ def set_serving_devices(devices: Optional[Sequence]) -> Optional[Mesh]:
 def serving_mesh(device=None) -> Mesh:
     """The process-wide 1-D corpus mesh the sharded backends serve from:
     the pinned one (``set_serving_devices``), else one shard per visible
-    CUDA card, or for a CPU ``device`` a one-shard mesh on it.  One mesh
-    for all workloads, so hot config reloads keep it."""
+    CUDA card, or for a CPU ``device`` a one-shard mesh on it -- joined
+    with every other process's shards when a multi-process job is
+    configured (``parallel.multihost``).  One mesh for all workloads, so
+    hot config reloads keep it."""
     global _MESH
     dev = torch.device(device) if device is not None else None
     with _MESH_LOCK:
         mesh, built = _MESH, False
         if mesh is None:
-            mesh = corpus_mesh(None if dev is None or dev.type == "cuda"
-                               else [dev])
+            local = corpus_mesh(None if dev is None or dev.type == "cuda"
+                                else [dev]).devices
+            mesh = _global_mesh(local)
             _MESH, built = mesh, True
     if dev is not None and mesh.lead.type != dev.type:
         raise ValueError(f"the serving mesh {mesh} is not on {dev}")
     if built:
         telemetry.MESH_DEVICES.set(mesh.size)
-        logger.info("serving mesh: %d shard(s) on %s", mesh.size,
-                    sorted({str(d) for d in mesh.devices}))
+        logger.info("serving mesh: %d shard(s) on %s%s", mesh.size,
+                    sorted({str(d) for d in mesh.devices}),
+                    f" (rank {mesh.rank} of {mesh.world})"
+                    if mesh.spans_processes else "")
     return mesh
 
 
@@ -126,12 +156,15 @@ class ShardedDeviceCorpus(DeviceCorpus):
         return self.capacity // self.mesh.size
 
     def _shard_rows(self, lo: int, hi: int):
-        """(shard, local lo, local hi, global lo, global hi) for each shard
-        the global range ``[lo, hi)`` touches."""
+        """(local shard, local lo, local hi, global lo, global hi) for each
+        of this process's shards the global range ``[lo, hi)`` touches."""
         local = self._local_cap()
-        for s in range(lo // local, (hi - 1) // local + 1):
-            a, b = max(lo, s * local), min(hi, (s + 1) * local)
-            yield s, a - s * local, b - s * local, a, b
+        base = self.mesh.shard_base
+        first = max(lo // local, base)
+        last = min((hi - 1) // local, base + self.mesh.local_size - 1)
+        for g in range(first, last + 1):
+            a, b = max(lo, g * local), min(hi, (g + 1) * local)
+            yield g - base, a - g * local, b - g * local, a, b
 
     def _upload_full(self) -> None:
         cap, mesh = self.capacity, self.mesh
@@ -142,7 +175,7 @@ class ShardedDeviceCorpus(DeviceCorpus):
             for prop, tensors in self.feats.items()}
         self._device_feats = [
             {prop: parts[s] for prop, parts in per_prop.items()}
-            for s in range(mesh.size)]
+            for s in range(mesh.local_size)]
         masks = [split(mesh, arr[:cap], _to_device)
                  for arr in (self.row_valid, self.row_deleted,
                              self.row_group)]
@@ -164,10 +197,11 @@ class ShardedDeviceCorpus(DeviceCorpus):
         local = self._local_cap()
         rows = np.asarray(rows, dtype=np.int64)
         for s, dev in enumerate(self.mesh.devices):
-            mine = rows[rows // local == s]
+            g = self.mesh.shard_base + s
+            mine = rows[rows // local == g]
             if mine.size == 0:
                 continue
-            idx = _to_device(mine - s * local, dev)
+            idx = _to_device(mine - g * local, dev)
             valid, deleted, _ = self._device_masks[s]
             valid[idx] = _to_device(self.row_valid[mine], dev)
             deleted[idx] = _to_device(self.row_deleted[mine], dev)
@@ -176,6 +210,11 @@ class ShardedDeviceCorpus(DeviceCorpus):
         masks = self._device_masks
         return (self._device_feats, [m[0] for m in masks],
                 [m[1] for m in masks], [m[2] for m in masks])
+
+    def _device_nbytes(self) -> int:
+        # each process leases the bytes of the shards it holds
+        total = super()._device_nbytes()
+        return total * self.mesh.local_size // self.mesh.size
 
     def device_bytes(self):
         out = {"corpus_tensors": 0, "corpus_embeddings": 0, "int8_scales": 0}
@@ -188,9 +227,24 @@ class ShardedDeviceCorpus(DeviceCorpus):
 class _MeshProgramLift:
     """What both mesh scorer caches share: queries upload (and are copied
     to every shard) instead of being gathered from corpus rows, and the dd
-    survivor rescore runs through a gather to the lead device."""
+    survivor rescore runs through a gather to the lead device.
+
+    ``mesh`` is the index's unless the cache was built for another view
+    of it (``ShardedAnnIndex.explain_retrieval``'s local shards)."""
 
     queries_from_rows = False
+
+    def __init__(self, index, mesh: Optional[Mesh] = None):
+        super().__init__(index)
+        self.mesh = mesh if mesh is not None else index.mesh
+
+    @property
+    def supports_dd(self) -> bool:
+        """The dd survivor gather needs every shard in this process: a
+        mesh that spans processes finalizes on the host (the frontend
+        runs finalization alone, so a gather across processes would be a
+        collective the followers never enter), as the JAX package does."""
+        return not self.mesh.spans_processes
 
     # single-writer mesh observability (plain ints, snapshotted at scrape
     # time by service/metrics.py -- never a registry write here)
@@ -207,8 +261,7 @@ class _MeshProgramLift:
         semantics, so the verdicts are bit-identical."""
         gather = getattr(self, "_dd_gather_fn", None)
         if gather is None:
-            gather = self._dd_gather_fn = build_replicated_gather(
-                self.index.mesh)
+            gather = self._dd_gather_fn = build_replicated_gather(self.mesh)
         q, k = top_index.shape
         rows = np.clip(top_index, 0, None).reshape(-1)
         gathered = gather([{name: shard[name] for name in names}
@@ -216,7 +269,7 @@ class _MeshProgramLift:
         self._dd_gathers += 1
         self._dd_gather_rows += int(q * k)
         ident = torch.arange(q * k, dtype=torch.int32,
-                             device=self.index.mesh.lead).reshape(q, k)
+                             device=self.mesh.lead).reshape(q, k)
         return fn(qfeats, gathered, query_row, ident)
 
 
@@ -227,7 +280,7 @@ class _ShardedScorerCache(_MeshProgramLift, _ScorerCache):
         from ..parallel.sharded import build_sharded_scorer
 
         return build_sharded_scorer(
-            self.index.plan, self.index.mesh, chunk=_CHUNK, top_k=top_k,
+            self.index.plan, self.mesh, chunk=_CHUNK, top_k=top_k,
             group_filtering=group_filtering)
 
 
@@ -253,7 +306,7 @@ class _ShardedAnnScorerCache(_MeshProgramLift, _AnnScorerCache):
         from ..parallel.ann_sharded import build_sharded_ann_scorer
 
         base = build_sharded_ann_scorer(
-            self.index.plan, self.index.mesh, chunk=_CHUNK, top_c=top_c,
+            self.index.plan, self.mesh, chunk=_CHUNK, top_c=top_c,
             group_filtering=group_filtering)
 
         def call(q_emb, qfeats, corpus_emb, corpus_feats, cvalid, cdeleted,
@@ -269,7 +322,7 @@ class _ShardedAnnScorerCache(_MeshProgramLift, _AnnScorerCache):
         from ..parallel.ann_sharded import build_sharded_ivf_scorer
 
         base = build_sharded_ivf_scorer(
-            self.index.plan, self.index.mesh, top_c=top_c, nprobe=nprobe,
+            self.index.plan, self.mesh, top_c=top_c, nprobe=nprobe,
             group_filtering=group_filtering)
 
         def call(q_emb, qfeats, corpus_emb, centroids, cell_rows,
@@ -285,7 +338,7 @@ class _ShardedAnnScorerCache(_MeshProgramLift, _AnnScorerCache):
         """The shared partition rules: the small centroid table is copied
         to every shard, the stacked (nshards * K, B) membership matrix of
         local rows splits so each shard gets its own (K, B) block."""
-        mesh = self.index.mesh
+        mesh = self.mesh
         repl = rule_sharding(mesh, "centroids")
         split = rule_sharding(mesh, "ivf_membership")
         return (lambda a: repl(torch.from_numpy(a)),
@@ -326,6 +379,21 @@ class ShardedAnnIndex(AnnIndex):
         # the IVF membership matrix stacks per-shard (K, B) blocks of
         # LOCAL row ids, so the split hands each shard its own block
         return self.mesh.size
+
+    def _explain_scorer_cache(self):
+        """The explain replay's retrieval runs on the frontend alone, off
+        the op stream: on a mesh that spans processes it scores this
+        process's shards as a mesh of one process (a collective the
+        followers never enter would hang), so the rank it reports is
+        among the rows those shards hold.  The frontend is rank 0, whose
+        shards' global row offsets the local mesh keeps."""
+        if not self.mesh.spans_processes:
+            return self.scorer_cache
+        cache = getattr(self, "_local_scorer_cache", None)
+        if cache is None:
+            cache = self._local_scorer_cache = _ShardedAnnScorerCache(
+                self, mesh=self.mesh.local())
+        return cache
 
 
 # the JAX package's processor names: a mesh index needs nothing of its

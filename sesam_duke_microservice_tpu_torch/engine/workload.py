@@ -30,6 +30,7 @@ updates for both, as in the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import threading
@@ -181,6 +182,15 @@ class Workload:
             corpus.arena_label = f"{self.kind}/{self.name}"
             corpus.arena_heat = lambda: _arena_heat(wl_ref)
 
+    def replace_link_database(self, link_database: LinkDatabase) -> None:
+        """Swap the link database wrapper in place -- the dispatcher
+        installs the replicated link stream's publisher this way.  Call
+        before serving starts or with ``self.lock`` held: the write path
+        (the listener chain), the feeds and the delete path all resolve
+        through the new wrapper from then on."""
+        self.link_database = link_database
+        self.listener._wrapped.linkdb = link_database
+
     # -- lock-hold observations ---------------------------------------------
 
     def note_lock_hold(self, seconds: float) -> None:
@@ -254,6 +264,17 @@ class Workload:
             link.retract()
             self.link_database.assert_link(link)
 
+    def _mesh_op_lock(self):
+        """A serving group: the dispatcher's global op lock, held across
+        every section that produces device programs, so every process
+        enters the mesh programs -- and their collectives -- in ONE
+        global order (parallel.dispatch invariant 2).  Single-process
+        serving gets a no-op context."""
+        from ..parallel import dispatch
+
+        d = dispatch.current()
+        return d.op_lock if d is not None else contextlib.nullcontext()
+
     def _mark_synced(self) -> None:
         """Stamp the index as caught up with the store (the snapshot's
         staleness guard, ``DeviceIndex.mark_store_synced``; the host
@@ -316,13 +337,15 @@ class Workload:
                 all_live.extend(r for r in records if not r.is_deleted())
                 ok.append(req)
             try:
-                if any_deleted:
-                    self.index.commit()
-                    # seal the retraction writes even when no scoring pass
-                    # (and thus no listener batch_done/commit) follows
-                    self.link_database.commit()
-                if all_live:
-                    self.processor.deduplicate(all_live)
+                with self._mesh_op_lock():
+                    if any_deleted:
+                        self.index.commit()
+                        # seal the retraction writes even when no scoring
+                        # pass (and thus no listener batch_done/commit)
+                        # follows
+                        self.link_database.commit()
+                    if all_live:
+                        self.processor.deduplicate(all_live)
                 if ok:
                     self._mark_synced()
             except Exception as e:
@@ -382,12 +405,13 @@ class Workload:
                     # feed's point lookups); links retract batched below
                     self.index.index(record)
                 self._retract_links_for(deleted)
-            if deleted and not http_transform:
-                self.index.commit()
-                # seal the retraction writes of a delete-only batch
-                self.link_database.commit()
-            if live or http_transform:
-                self.processor.deduplicate(live)
+            with self._mesh_op_lock():
+                if deleted and not http_transform:
+                    self.index.commit()
+                    # seal the retraction writes of a delete-only batch
+                    self.link_database.commit()
+                if live or http_transform:
+                    self.processor.deduplicate(live)
             if http_transform:
                 return self._transform_response(entities)
             self._mark_synced()
@@ -504,7 +528,7 @@ def _restore(index: CandidateIndex, store: RecordStore,
 
 def build_workload(wc: WorkloadConfig, sc: ServiceConfig, *,
                    backend: str = "device", device="cuda",
-                   persistent: bool = True) -> Workload:
+                   persistent: bool = True, mesh=None) -> Workload:
     """Assemble a workload: candidate index + processor + listener + link
     DB (+ record store when ``persistent``).
 
@@ -538,12 +562,14 @@ def build_workload(wc: WorkloadConfig, sc: ServiceConfig, *,
     elif backend == "sharded":
         from .sharded_matcher import ShardedAnnIndex, ShardedAnnProcessor
 
-        index = ShardedAnnIndex(wc.duke, device=resolve_device(device))
+        index = ShardedAnnIndex(wc.duke, device=resolve_device(device),
+                                mesh=mesh)
         processor_cls = ShardedAnnProcessor
     elif backend == "sharded-brute":
         from .sharded_matcher import ShardedDeviceIndex, ShardedDeviceProcessor
 
-        index = ShardedDeviceIndex(wc.duke, device=resolve_device(device))
+        index = ShardedDeviceIndex(wc.duke, device=resolve_device(device),
+                                   mesh=mesh)
         processor_cls = ShardedDeviceProcessor
     else:
         index = DeviceIndex(wc.duke, device=resolve_device(device))
@@ -586,3 +612,40 @@ def build_workload(wc: WorkloadConfig, sc: ServiceConfig, *,
         raise
     return Workload(wc, index, processor, listener, link_database,
                     record_store, route)
+
+
+def adopt_workload(wc: WorkloadConfig, sc: ServiceConfig, *, backend: str,
+                   index: CandidateIndex, link_database: LinkDatabase,
+                   record_store: Optional[RecordStore] = None) -> Workload:
+    """Build a SERVING workload around an already-populated index and link
+    database: the leader-failover promotion path.
+
+    A promoted follower's replica corpus (bootstrap snapshot + replayed
+    commits) and replica link DB (the published op stream at the applied
+    watermark) already equal the deposed leader's, so only the write
+    plane is new: a full processor (host finalization ON -- the replica
+    ran with it off) and a match listener whose events land in the
+    replica link DB from now on."""
+    if backend == "device":
+        processor_cls = DeviceProcessor
+    elif backend == "ann":
+        from .ann_matcher import AnnProcessor as processor_cls
+    elif backend == "sharded":
+        from .sharded_matcher import ShardedAnnProcessor as processor_cls
+    elif backend == "sharded-brute":
+        from .sharded_matcher import ShardedDeviceProcessor as processor_cls
+    else:
+        raise RuntimeError(
+            f"promotion needs a device-family backend (got {backend!r})")
+    processor = processor_cls(wc.duke, index,
+                              group_filtering=wc.is_record_linkage,
+                              threads=sc.threads)
+    one_to_one = (wc.enforce_one_to_one if sc.one_to_one is None
+                  else sc.one_to_one and wc.is_record_linkage)
+    listener = ServiceMatchListener(
+        wc.name, link_database, kind=wc.kind, one_to_one=one_to_one,
+        record_resolver=index.find_record_by_id,
+    )
+    processor.add_match_listener(listener)
+    return Workload(wc, index, processor, listener, link_database,
+                    record_store)

@@ -244,6 +244,8 @@ class LinkJournal:
         # lock-free scrape mirrors (plain ints; exact under self._lock)
         self.pending_batches = 0  # guarded by: self._lock [writes]
         self.size_bytes = 0  # guarded by: self._lock [writes]
+        # compaction pins held by batches_after walks (retained())
+        self._pins = 0  # guarded by: self._lock [writes]
         # torn tails truncated by the startup scan (0 or 1 per open)
         self.torn_tails = 0
         self._scan()
@@ -307,9 +309,53 @@ class LinkJournal:
             out, self._unapplied = self._unapplied, []
         return out
 
+    # -- streaming the stable prefix ------------------------------------------
+
+    def head_seq(self) -> int:
+        with self._lock:
+            return self._last_seq
+
     def applied_watermark(self) -> int:
         with self._lock:
             return self._applied_seq
+
+    @contextlib.contextmanager
+    def retained(self):
+        """Pin the journal against compaction for the duration: a walk of
+        ``batches_after`` streams frames from the file, and a concurrent
+        flusher catching up to the head must not truncate them under the
+        walk.  Reentrant (pin counted)."""
+        with self._lock:
+            self._pins += 1
+        try:
+            yield self
+        finally:
+            with self._lock:
+                self._pins -= 1
+
+    def batches_after(self, after_seq: int):
+        """Stream ``(seq, encoded rows)`` for every journaled batch frame
+        with seq > ``after_seq``, in append order.  Lock-free walk of the
+        stable append-only prefix (the startup scan's discipline); call
+        under ``retained()`` so compaction cannot truncate the frames
+        mid-walk.  A torn tail ends the walk silently: frames past a tear
+        are untrusted, and the startup scan owns counting and truncating
+        them."""
+        fd = self._fd
+        if fd < 0:
+            return
+        size = os.fstat(fd).st_size
+        try:
+            for kind, seq, payload, _end in _iter_frames(fd, size):
+                if kind != _KIND_BATCH or seq <= after_seq:
+                    continue
+                try:
+                    rows = json.loads(payload.decode("utf-8"))
+                except ValueError:
+                    return
+                yield seq, rows
+        except _TornTail:
+            return
 
     # -- append path (ingest thread) ------------------------------------------
 
@@ -360,6 +406,8 @@ class LinkJournal:
 
     def _compact_locked(self) -> None:
         # called with self._lock held
+        if self._pins > 0:
+            return  # a batches_after walk is reading the file; keep frames
         os.ftruncate(self._fd, 0)
         self.size_bytes = 0
         self.pending_batches = 0

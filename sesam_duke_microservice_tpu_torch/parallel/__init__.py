@@ -1,7 +1,7 @@
-"""Mesh-parallel scale-out: sharded corpus scoring driven by one process.
+"""Mesh-parallel scale-out: sharded corpus scoring.
 
-Counterpart of the JAX package's ``parallel`` for a single-host mesh, with
-two layouts for the corpus-axis scale-out:
+Counterpart of the JAX package's ``parallel``, with two layouts for the
+corpus-axis scale-out:
 
   * ``sharded`` / ``ann_sharded`` -- corpus record axis split over a
     ``Mesh`` of torch devices, queries replicated; every shard scores the
@@ -11,7 +11,10 @@ two layouts for the corpus-axis scale-out:
     their running top-K.  The regime for large query blocks (bulk
     re-matching).
 
-Multi-host meshes (process groups) are not part of this package yet.
+A mesh may span processes: ``multihost`` joins a ``torch.distributed``
+job and builds the global mesh (each process holding its own shards), and
+``dispatch`` is the serving group that keeps the processes in lockstep --
+the frontend broadcasts every mesh operation, the followers replay it.
 """
 
 from .ann_sharded import build_sharded_ann_scorer, build_sharded_ivf_scorer

@@ -14,7 +14,8 @@ shape), then exact rescoring of the shard's candidates, whose rows are
 clipped into the shard's local range before the gather (on the card the
 gathered Myers kernel), so no gather crosses shards.  Only the (Q, C)
 scored results move to the lead device, where ``merge_topk`` reduces the
-D lists to the global top-C.
+D lists to the global top-C (across processes: one ``all_gather`` for the
+merge and one ``all_reduce`` for the saturation count).
 
 The merged candidate pool is a superset of the single-device pool on the
 scan route, whose top-C is exact: every shard keeps its own local top-C
@@ -46,7 +47,7 @@ import torch
 from ..ops import encoder as E
 from ..ops import ivf as IVF
 from ..ops import scoring as S
-from .sharded import merge_topk, replicate, shard_offsets
+from .sharded import max_counts, merge_topk, replicate, shard_offsets
 
 
 def _local_rescore(pair_logits, q_tree, qfeats, feats, emb_tree, top_sim,
@@ -85,8 +86,7 @@ def _merge(mesh, logits, top_index, local_count, min_logit: float, *,
     out_logit, out_index, merged_logit = merge_topk(mesh, logits, top_index,
                                                     top_c)
     merged_above = (merged_logit > min_logit).sum(dim=1).to(torch.int32)
-    lead = mesh.lead
-    local_max = torch.stack([c.to(lead) for c in local_count]).amax(dim=0)
+    local_max = max_counts(mesh, local_count)
     return out_logit, out_index, torch.maximum(local_max, merged_above)
 
 
@@ -121,7 +121,7 @@ def build_sharded_ann_scorer(plan, mesh, *, chunk: int = 512,
         qt, qf, qg, qr = (replicate(mesh, t) for t in (
             E.as_emb_tree(q_emb), qfeats, query_group, query_row))
         logits, index, counts = [], [], []
-        for s in range(mesh.size):
+        for s in range(mesh.local_size):
             emb_tree, feats = _split_ann(corpus_feats[s])
             top_sim, top_index = E.retrieval_scan(
                 qt[s], emb_tree, corpus_valid[s], corpus_deleted[s],
@@ -161,7 +161,7 @@ def build_sharded_ivf_scorer(plan, mesh, *, top_c: int = 64,
         qt, qf, qg, qr = (replicate(mesh, t) for t in (
             E.as_emb_tree(q_emb), qfeats, query_group, query_row))
         logits, index, counts = [], [], []
-        for s in range(mesh.size):
+        for s in range(mesh.local_size):
             emb_tree, feats = _split_ann(corpus_feats[s])
             top_sim, top_index = IVF.ivf_probe_topc(
                 qt[s], emb_tree, centroids[s], cell_rows[s],

@@ -17,8 +17,11 @@ The visit order is the JAX ring's exactly: at step t shard s holds block
 ``(s - t) mod D``; the carry moves from shard i to shard i + 1 on EVERY
 hop (the last one brings each block's top-K home), and the query payload
 -- the big per-hop transfer -- skips the final dead hop.  A hop is a
-``.to(next device)`` copy (nothing when the next shard shares the device).
-With that order the port's ring gives the JAX ring's index sets, ties in
+``.to(next device)`` copy (nothing when the next shard shares the device);
+on a mesh that spans processes each process's first shard receives from
+the previous rank's last shard, one packed point-to-point exchange a hop
+(``parallel.multihost.ring_hop``), in the same visit order.  With that
+order the port's ring gives the JAX ring's index sets, ties in
 the same places (tests/test_torch_ring.py).
 
 The ring is the regime for large query blocks -- bulk re-matching,
@@ -37,12 +40,38 @@ from ..ops import scoring as S
 from .sharded import LeadingAxisPlacer, Mesh, shard_offsets, tree_map
 
 
-def _rotate(mesh: Mesh, blocks: List) -> List:
-    """One hop: shard i + 1 receives shard i's block (a roll by one)."""
-    d = mesh.size
-    return [tree_map(lambda t, dev=mesh.devices[i]: t.to(
+def _flat(tree) -> List[torch.Tensor]:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _flat(v)]
+    return [tree]
+
+
+def _fill(tree, leaves):
+    if isinstance(tree, dict):
+        return {k: _fill(v, leaves) for k, v in tree.items()}
+    return next(leaves)
+
+
+def _rotate(mesh: Mesh, parts: List[List]) -> List[List]:
+    """One hop for each per-shard list in ``parts``: global shard g + 1
+    receives shard g's entry (a roll by one).  Within the process it is
+    a copy to the next shard's device; the process's first shard takes
+    the previous rank's last shard's entries, all of ``parts`` in one
+    exchange."""
+    d = mesh.local_size
+    out = [[tree_map(lambda t, dev=mesh.devices[i]: t.to(
                 dev, non_blocking=True), blocks[(i - 1) % d])
-            for i in range(d)]
+            for i in range(d)] for blocks in parts]
+    if mesh.spans_processes:
+        from . import multihost
+
+        last = [blocks[d - 1] for blocks in parts]
+        leaves = iter(multihost.ring_hop(
+            mesh, [t for tree in last for t in _flat(tree)],
+            mesh.devices[0]))
+        for rotated, tree in zip(out, last):
+            rotated[0] = _fill(tree, leaves)
+    return out
 
 
 def build_ring_scorer(plan, mesh: Mesh, *, chunk: int = 512,
@@ -54,9 +83,10 @@ def build_ring_scorer(plan, mesh: Mesh, *, chunk: int = 512,
            query_group, query_row, min_logit)
         -> (top_logit, top_index, count), each a per-shard list
 
-    Both sides are per-shard lists: the corpus as ``ShardedCorpus.place``
-    gives it, the queries as ``RingQueryPlacer.place`` (equal blocks, one
-    per shard).  Block s's results come back on shard s's device."""
+    Both sides are per-shard lists of this process's shards: the corpus
+    as ``ShardedCorpus.place`` gives it, the queries as
+    ``RingQueryPlacer.place`` (equal blocks, one per global shard).
+    Block g's results come back on global shard g's device."""
     pair_logits = S.build_pair_logits(plan)
 
     def score(qfeats, corpus_feats, corpus_valid, corpus_deleted,
@@ -72,7 +102,7 @@ def build_ring_scorer(plan, mesh: Mesh, *, chunk: int = 512,
                for dev in mesh.devices]
         qf, qg, qr = list(qfeats), list(query_group), list(query_row)
         for step in range(d):
-            for s in range(d):
+            for s in range(mesh.local_size):
                 tl[s], ti[s], cnt[s] = S.scan_topk(
                     pair_logits, qf[s], corpus_feats[s], corpus_valid[s],
                     corpus_deleted[s], corpus_group[s], qg[s], qr[s],
@@ -80,8 +110,10 @@ def build_ring_scorer(plan, mesh: Mesh, *, chunk: int = 512,
                     group_filtering=group_filtering, row_offset=offsets[s],
                     init=(tl[s], ti[s], cnt[s]))
             if step + 1 < d:
-                qf, qg, qr = (_rotate(mesh, x) for x in (qf, qg, qr))
-            tl, ti, cnt = (_rotate(mesh, x) for x in (tl, ti, cnt))
+                qf, qg, qr, tl, ti, cnt = _rotate(
+                    mesh, [qf, qg, qr, tl, ti, cnt])
+            else:
+                tl, ti, cnt = _rotate(mesh, [tl, ti, cnt])
         return tl, ti, cnt
 
     return score

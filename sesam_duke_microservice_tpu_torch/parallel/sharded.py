@@ -12,10 +12,15 @@ Counterpart of the JAX package's ``parallel/sharded.py``.  Data layout:
     lists to the global top-K.  Only Q * K * D pairs move, never the
     candidate matrix.
 
-One process drives every shard, as the JAX package's single-controller
-``jit`` does: shard s's scan runs on its own device with
-``row_offset = s * L``, so self-exclusion and the returned row ids stay
-global.  A device may repeat in a mesh (``[cuda:0] * 4``): the shards then
+One process drives every shard it holds, as the JAX package's
+single-controller ``jit`` does: shard s's scan runs on its own device
+with ``row_offset = s * L``, so self-exclusion and the returned row ids
+stay global.  A mesh may span processes (``parallel.multihost``): each
+process then holds the shards of its rank (rank-major global order), the
+merge gathers every process's local top-Ks with one ``all_gather`` and
+the counts sum with one integer ``all_reduce``, so every process gets the
+same merged result bit for bit; a one-process mesh keeps its plain
+transfers.  A device may repeat in a mesh (``[cuda:0] * 4``): the shards then
 run one after the other on that card, which proves the layout, the global
 row offsets and the merge, and measures no scaling.  Every record-axis
 split of a whole tree goes through ``split``; the IVF placers of
@@ -53,24 +58,58 @@ PARTITION_RULES: Dict[str, str] = {
 
 class Mesh:
     """A 1-D mesh: one ``torch.device`` per shard, shard order = axis
-    order.  A device may repeat (several logical shards on one card)."""
+    order.  A device may repeat (several logical shards on one card).
 
-    def __init__(self, devices: Sequence):
+    ``devices`` are THIS process's shards.  A mesh that spans processes
+    (``world`` > 1, built by ``parallel.multihost.global_corpus_mesh``)
+    has ``world * len(devices)`` shards in all, rank-major: this
+    process's shards are the global shards ``shard_base ..
+    shard_base + local_size - 1``; ``backend`` is the job's collective
+    backend."""
+
+    def __init__(self, devices: Sequence, *, world: int = 1, rank: int = 0,
+                 backend: Optional[str] = None):
         self.devices = tuple(torch.device(d) for d in devices)
         if not self.devices:
             raise ValueError("a mesh needs at least one device")
+        self.world = world
+        self.rank = rank
+        self.backend = backend
+
+    @property
+    def local_size(self) -> int:
+        """Shards this process holds (the length of every per-shard
+        list)."""
+        return len(self.devices)
 
     @property
     def size(self) -> int:
-        return len(self.devices)
+        """Shards of the whole mesh, every process's."""
+        return len(self.devices) * self.world
+
+    @property
+    def shard_base(self) -> int:
+        """The global index of this process's first shard."""
+        return self.rank * len(self.devices)
+
+    @property
+    def spans_processes(self) -> bool:
+        return self.world > 1
 
     @property
     def lead(self) -> torch.device:
         """Where merged results land (the replicated layout's home)."""
         return self.devices[0]
 
+    def local(self) -> "Mesh":
+        """This process's shards as a mesh of one process (itself when
+        the mesh is one process's already)."""
+        return self if self.world == 1 else Mesh(self.devices)
+
     def __repr__(self) -> str:
-        return f"Mesh({[str(d) for d in self.devices]})"
+        where = (f", rank {self.rank} of {self.world}"
+                 if self.spans_processes else "")
+        return f"Mesh({[str(d) for d in self.devices]}{where})"
 
 
 def corpus_mesh(devices: Optional[Sequence] = None) -> Mesh:
@@ -118,17 +157,19 @@ def _to(t, dev):
 
 
 def split(mesh: Mesh, tree, put: Callable = _to) -> List:
-    """The record-axis layout: shard s gets rows ``[s * L, (s + 1) * L)``
-    of every leaf, moved by ``put(rows, mesh.devices[s])`` -- by default
-    ``.to`` (a view where the device is the tensor's own); host arrays
-    pass their upload function."""
+    """The record-axis layout: global shard g gets rows
+    ``[g * L, (g + 1) * L)`` of every leaf, moved by
+    ``put(rows, device)`` -- by default ``.to`` (a view where the device
+    is the tensor's own); host arrays pass their upload function.  Only
+    this process's shards are placed (the list is per local shard)."""
     n = first_leaf(tree).shape[0]
     if n % mesh.size:
         raise ValueError(f"leading axis {n} does not split over "
                          f"{mesh.size} shards")
     local = n // mesh.size
-    return [tree_map(lambda t, s=s, d=dev: put(
-                t[s * local:(s + 1) * local], d), tree)
+    base = mesh.shard_base
+    return [tree_map(lambda t, g=base + s, d=dev: put(
+                t[g * local:(g + 1) * local], d), tree)
             for s, dev in enumerate(mesh.devices)]
 
 
@@ -142,8 +183,9 @@ def rule_sharding(mesh: Mesh, family: str) -> Callable:
 
 
 def shard_offsets(mesh: Mesh, local_cap: int) -> List[int]:
-    """Per-shard global row offset."""
-    return [s * int(local_cap) for s in range(mesh.size)]
+    """Global row offset of each of this process's shards."""
+    return [(mesh.shard_base + s) * int(local_cap)
+            for s in range(mesh.local_size)]
 
 
 def merge_topk(mesh: Mesh, top_logit: Sequence[torch.Tensor],
@@ -153,10 +195,19 @@ def merge_topk(mesh: Mesh, top_logit: Sequence[torch.Tensor],
 
     The layout is the JAX merge's transpose: query q's row holds shard 0's
     K entries first, then shard 1's, ...; the STABLE descending sort then
-    breaks ties by that position, as ``lax.top_k`` does."""
+    breaks ties by that position, as ``lax.top_k`` does.  On a mesh that
+    spans processes one ``all_gather`` brings every rank's (Q, L, K)
+    block, laid out rank-major -- the global shard order -- so every
+    process sorts the same merged row and gets the same result."""
     lead = mesh.lead
-    logits = torch.stack([t.to(lead) for t in top_logit], dim=1)  # (Q,D,K)
+    logits = torch.stack([t.to(lead) for t in top_logit], dim=1)  # (Q,L,K)
     index = torch.stack([t.to(lead) for t in top_index], dim=1)
+    if mesh.spans_processes:
+        from . import multihost
+
+        parts = multihost.all_gather(mesh, [logits, index])
+        logits = torch.cat([p[0] for p in parts], dim=1)  # (Q, D, K)
+        index = torch.cat([p[1] for p in parts], dim=1)
     q = logits.shape[0]
     merged_logit = logits.reshape(q, -1)
     merged_index = index.reshape(q, -1)
@@ -168,12 +219,43 @@ def merge_topk(mesh: Mesh, top_logit: Sequence[torch.Tensor],
 
 def sum_counts(mesh: Mesh, counts: Sequence[torch.Tensor]) -> torch.Tensor:
     """Per-shard (Q,) int32 counts summed on the lead device (in int64,
-    returned int32 as every scorer's count is)."""
+    returned int32 as every scorer's count is); across processes one
+    integer ``all_reduce``."""
     lead = mesh.lead
     total = counts[0].to(lead, torch.int64)
     for c in counts[1:]:
         total = total + c.to(lead, torch.int64)
+    if mesh.spans_processes:
+        from . import multihost
+
+        total = multihost.all_reduce(mesh, total, "sum")
     return total.to(torch.int32)
+
+
+def max_counts(mesh: Mesh, counts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Per-shard (Q,) int32 counts' maximum on the lead device; across
+    processes one integer ``all_reduce``."""
+    lead = mesh.lead
+    out = torch.stack([c.to(lead) for c in counts]).amax(dim=0)
+    if mesh.spans_processes:
+        from . import multihost
+
+        out = multihost.all_reduce(mesh, out, "max")
+    return out
+
+
+def gather_shards(mesh: Mesh, per_shard: Sequence[torch.Tensor]):
+    """Per-shard tensors of equal shapes concatenated in global shard
+    order, on the host as numpy: local transfers, and across processes
+    one ``all_gather`` that every process enters (the ring's
+    query-split outputs)."""
+    local = torch.cat([t.to(mesh.lead) for t in per_shard])
+    if not mesh.spans_processes:
+        return local.cpu().numpy()
+    from . import multihost
+
+    parts = multihost.all_gather(mesh, [local])
+    return torch.cat([p[0] for p in parts]).cpu().numpy()
 
 
 def build_sharded_scorer(plan, mesh: Mesh, *, chunk: int = 512,
@@ -197,7 +279,7 @@ def build_sharded_scorer(plan, mesh: Mesh, *, chunk: int = 512,
         qf, qg, qr = (replicate(mesh, t)
                       for t in (qfeats, query_group, query_row))
         tl, ti, cnt = [], [], []
-        for s in range(mesh.size):
+        for s in range(mesh.local_size):
             out = S.scan_topk(
                 pair_logits, qf[s], corpus_feats[s], corpus_valid[s],
                 corpus_deleted[s], corpus_group[s], qg[s], qr[s], min_logit,
@@ -222,7 +304,11 @@ def build_replicated_gather(mesh: Mesh) -> Callable:
     its own device and only those rows travel.  This is the bridge that
     lets the sharded backends reuse the single-device dd rescore program
     bit for bit: gather a resolved block's (Q, K) survivors here, then
-    rescore them with an identity ``top_index``."""
+    rescore them with an identity ``top_index``.  One process's mesh
+    only: a row of another process's shard is not here to gather."""
+    if mesh.spans_processes:
+        raise ValueError("the replicated gather needs every shard in this "
+                         "process")
     lead = mesh.lead
 
     def gather(cfeats, rows):
@@ -294,7 +380,7 @@ class LeadingAxisPlacer:
                for prop, tensors in feats.items()}
         return [{prop: {name: parts[s] for name, parts in tensors.items()}
                  for prop, tensors in per.items()}
-                for s in range(self.mesh.size)]
+                for s in range(self.mesh.local_size)]
 
 
 class ShardedCorpus(LeadingAxisPlacer):

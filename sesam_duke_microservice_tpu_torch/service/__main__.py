@@ -14,6 +14,14 @@ unless ``DUKE_SCHEDULER=0``.  State persists in each
 workload's data folder (``dataFolder`` in the config, else ``./data``)
 unless ``--ephemeral`` keeps it in memory; SIGTERM/SIGINT shut down
 gracefully (drain, flush, snapshot).
+
+A serving group (``parallel.dispatch``): with ``JAX_COORDINATOR_ADDRESS``,
+``JAX_NUM_PROCESSES`` and ``JAX_PROCESS_ID`` set, every process joins the
+``torch.distributed`` job first (``parallel.multihost``); process 0
+serves HTTP and dispatches the mesh ops (``--backend sharded`` or
+``sharded-brute``), every other process runs the follower replay loop
+(no HTTP, unless ``DUKE_REPLICA_HTTP_PORT`` serves its read plane or
+``DUKE_PROMOTE_PORT`` lets it take over on leader loss).
 """
 
 import argparse
@@ -47,24 +55,58 @@ def main() -> None:
     from ..telemetry.logctx import install as install_request_ids
 
     install_request_ids()
-    if args.config:
-        with open(args.config, "r", encoding="utf-8") as f:
-            config = parse_config(f.read())
-    else:
-        config = load_default_config()
-    app = create_app(config, backend=args.backend, device=args.device,
-                     persistent=not args.ephemeral)
-    server = serve(app, port=args.port, host=args.host)
-    install_shutdown_handlers(app, server)
-    logging.getLogger("duke-torch-service").info(
-        "Serving on %s:%d (backend=%s, device=%s, %s)", args.host,
-        server.server_address[1], app.backend, app.device,
-        "ephemeral" if args.ephemeral else "persistent")
+    log = logging.getLogger("duke-torch-service")
+    # a serving group: join the job first; process 0 becomes the HTTP
+    # frontend and op dispatcher, every other process the follower
+    # replay loop
+    from ..parallel import multihost
+
+    multihost.initialize(
+        devices=multihost.default_local_devices(args.device))
+    dispatcher = None
     try:
-        server.serve_forever()
+        if multihost.process_count() > 1:
+            from ..parallel.dispatch import follower_main, start_dispatcher
+
+            if multihost.process_index() != 0:
+                log.info(
+                    "process %d/%d: follower mode (frontend is process "
+                    "0%s%s)", multihost.process_index(),
+                    multihost.process_count(),
+                    "; replica read plane on :%s" % env_int(
+                        "DUKE_REPLICA_HTTP_PORT", 0)
+                    if env_int("DUKE_REPLICA_HTTP_PORT", 0) else "",
+                    "; promotes on leader loss to :%s" % env_int(
+                        "DUKE_PROMOTE_PORT", 0)
+                    if env_int("DUKE_PROMOTE_PORT", 0) else "")
+                follower_main(device=args.device)
+                return
+        if args.config:
+            with open(args.config, "r", encoding="utf-8") as f:
+                config = parse_config(f.read())
+        else:
+            config = load_default_config()
+        app = create_app(config, backend=args.backend, device=args.device,
+                         persistent=not args.ephemeral)
+        if multihost.process_count() > 1:
+            dispatcher = start_dispatcher(app)
+        server = serve(app, port=args.port, host=args.host)
+        install_shutdown_handlers(app, server)
+        log.info(
+            "Serving on %s:%d (backend=%s, device=%s, %s%s)", args.host,
+            server.server_address[1], app.backend, app.device,
+            "ephemeral" if args.ephemeral else "persistent",
+            f", {multihost.process_count()} processes" if dispatcher
+            else "")
+        try:
+            server.serve_forever()
+        finally:
+            server.server_close()
+            app.close()  # idempotent: waits when the signal handler closes
+            if dispatcher is not None:
+                dispatcher.close()
     finally:
-        server.server_close()
-        app.close()  # idempotent: waits when the signal handler closes
+        multihost.shutdown()
 
 
 if __name__ == "__main__":

@@ -201,7 +201,9 @@ class DukeApp:
     memory."""
 
     def __init__(self, config: ServiceConfig, *, backend: str = "device",
-                 device="cuda", persistent: bool = True):
+                 device="cuda", persistent: bool = True,
+                 prebuilt: Optional[Tuple[Dict[str, Workload],
+                                          Dict[str, Workload]]] = None):
         self.device = None if backend == "host" else resolve_device(device)
         self.backend = backend
         self.persistent = persistent
@@ -238,7 +240,18 @@ class DukeApp:
         self._first_batch_served = False
         self.scheduler: Optional[IngestScheduler] = None
         self.prober = None
-        self.apply_config(config)
+        # a promoted leader (parallel.dispatch.promote_follower): its
+        # adopted workloads hold the ONLY copy of the replicated link
+        # state, so apply_config refuses to rebuild them
+        self.adopted = prebuilt is not None
+        if prebuilt is not None:
+            # the workloads already exist, built around the replica corpus
+            # and the replicated link databases: adopt them instead of
+            # rebuilding from durable stores
+            self.config = config
+            self.deduplications, self.record_linkages = prebuilt
+        else:
+            self.apply_config(config)
         # queues are keyed by (kind, name) and dispatch re-resolves from
         # the live registries, so a reload retargets queued requests at
         # the replacement; DUKE_SCHEDULER=0 leaves POSTs to
@@ -358,6 +371,15 @@ class DukeApp:
         these locks: it requeues and retries, then re-resolves the
         replacement.  A failed build closes what it built and keeps the
         old config."""
+        if self.adopted:
+            # rebuilding through build_workload would swap in fresh EMPTY
+            # link databases and close the only copy: total link loss
+            # behind a 200
+            raise RuntimeError(
+                "config reload is disabled on a promoted leader: its "
+                "workloads hold the only copy of the replicated link "
+                "state (restart the job to re-form the serving group, "
+                "then reload)")
         with self._swap_lock:
             old = self._workloads()
             for wl in old:
@@ -391,6 +413,16 @@ class DukeApp:
                             logger.exception(
                                 "Error closing partially-built workload")
                     raise
+                # a serving group: ship the followers the new config and
+                # the just-built corpora, so their replicas swap in
+                # lockstep (the old locks are held: nothing is in flight
+                # on the op stream)
+                from ..parallel import dispatch
+
+                d = dispatch.current()
+                if d is not None:
+                    with d.op_lock:
+                        d.on_reload(sc, new_dedups, new_linkages)
                 self.config = sc
                 self.deduplications = new_dedups
                 self.record_linkages = new_linkages
@@ -436,7 +468,10 @@ class DukeApp:
             for wl in workloads:
                 with wl.lock:
                     try:
-                        wl.close()
+                        # a promoted leader's adopted workloads keep their
+                        # store in a follower-local folder: no snapshot
+                        # lands in the config's data folder
+                        wl.close(save_snapshot=not self.adopted)
                     except Exception:
                         logger.exception("Error closing workload %s",
                                          wl.name)

@@ -229,7 +229,8 @@ class CanaryProber:
         )
         compiles_base = costs.compile_count()
         wl = build_workload(pwc, sc, backend=self.app.backend,
-                            device=self.app.device, persistent=False)
+                            device=self.app.device, persistent=False,
+                            mesh=self._shadow_mesh())
         duke = pwc.duke
         if duke.groups:
             ds_a = wl.datasources[duke.groups[0][0].dataset_id]
@@ -242,6 +243,18 @@ class CanaryProber:
         entry = _Shadow(wl, corpus, state, ds_a, ds_b, compiles_base)
         self._shadows[(kind, name)] = entry
         return entry
+
+    def _shadow_mesh(self):
+        """The mesh a shadow of a mesh backend scores on: the serving
+        mesh, but on a mesh that spans processes only this process's
+        shards as a mesh of one process -- a shadow is never on the op
+        stream, so a collective of its own would wait for followers that
+        never enter it.  None for the single-device backends."""
+        if self.app.backend not in ("sharded", "sharded-brute"):
+            return None
+        from ..engine.sharded_matcher import serving_mesh
+
+        return serving_mesh(self.app.device).local()
 
     def _cycle_one(self, kind: str, name: str, entry: _Shadow) -> dict:
         st = entry.state

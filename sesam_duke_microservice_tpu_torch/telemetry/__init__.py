@@ -16,9 +16,8 @@ registries exist at runtime:
 ``GET /metrics`` renders both (``registry.render(app.metrics, GLOBAL)``).
 Every family here has the JAX package's name, type and label keys, and
 only families whose writer exists in the port are declared: the JIT /
-AOT / prewarm families (XLA compile caches), the dispatch, follower,
-epoch and replica families and the mesh families wait for the modules
-that write them.
+AOT / prewarm families (XLA compile caches) are not, and the federation
+families wait for the modules that write them.
 
 Naming scheme: every family is ``duke_<subsystem>_<metric>[_total]`` with
 base units (seconds, bytes, rows); latency histograms share the fixed
@@ -97,6 +96,48 @@ STREAM_APPEND_SLICES = GLOBAL.counter(
     locked=False,
 )
 
+# -- multi-process dispatch (parallel/dispatch.py) ---------------------------
+DISPATCH_OPS = GLOBAL.counter(
+    "duke_dispatch_ops_total",
+    "Ops broadcast on the multi-host dispatch stream, by op tag",
+    ("op",),
+)
+DISPATCH_BYTES = GLOBAL.counter(
+    "duke_dispatch_bytes_total",
+    "Serialized bytes broadcast on the multi-host dispatch stream",
+)
+DISPATCH_FOLLOWERS = GLOBAL.gauge(
+    "duke_dispatch_followers",
+    "Connected follower processes (frontend only)",
+)
+DISPATCH_DOWN = GLOBAL.gauge(
+    "duke_dispatch_down",
+    "1 once the dispatcher latched failed (mesh ops refused until restart)",
+)
+FOLLOWER_REPLAY_SECONDS = GLOBAL.histogram(
+    "duke_follower_replay_seconds",
+    "Follower-side replay time per dispatch op",
+    ("op",),
+)
+
+# -- the serving group (parallel/dispatch.py, links/replica.py) --------------
+FOLLOWER_EVICTIONS = GLOBAL.counter(
+    "duke_follower_evictions_total",
+    "Followers evicted from the serving group after exhausted send "
+    "retries, a dead digest handshake, or mirror divergence — the slice "
+    "degrades to the survivors instead of latching down",
+)
+DISPATCH_EPOCH = GLOBAL.gauge(
+    "duke_epoch",
+    "Leadership epoch fencing the dispatch op stream (followers reject "
+    "lower-epoch ops from a zombie ex-leader; promotion bumps it)",
+)
+REPLICA_LAG = GLOBAL.gauge(
+    "duke_replica_lag_ops",
+    "Link-stream ops this follower has seen but not yet applied to its "
+    "replica link DB (head seq - applied watermark), by workload",
+    ("kind", "workload"),
+)
 FAULTS_INJECTED = GLOBAL.counter(
     "duke_faults_injected_total",
     "Faults injected by the deterministic DUKE_FAULTS chaos layer, by "

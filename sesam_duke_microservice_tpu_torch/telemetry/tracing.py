@@ -599,6 +599,145 @@ def start_trace(name: str, *, traceparent: Optional[str] = None,
 
 # -- exporters ---------------------------------------------------------------
 
+def propagation_context() -> Optional[Dict[str, Any]]:
+    """The active trace context as a small picklable dict, for embedding
+    in dispatch op tuples (parallel/dispatch.py).  None outside a trace
+    -- callers skip the op-tuple field entirely."""
+    active = _ACTIVE.get()
+    if active is None:
+        return None
+    trace, span_id = active
+    return {"trace_id": trace.trace_id, "parent_id": span_id,
+            "sampled": trace.sampled}
+
+
+# -- remote (follower) spans -------------------------------------------------
+
+class _RemoteCapture:
+    """Follower-side capture of one replay as a remote child span tree.
+
+    Opens a detached trace continuing the leader's ids so nested engine
+    spans (the replica's commit path) land in the same tree; ``wire()``
+    serializes the collected spans (offsets relative to the capture
+    root) for the digest handshake.  With ``ctx=None`` (no active trace
+    on the leader) the capture is a no-op and ``wire()`` is empty.
+
+    Ops with no response channel (score, rematch) pass ``recorder``
+    instead: the replay tree lands in the follower's LOCAL flight
+    recorder under the leader's trace id (same tail-latch rules).
+    """
+
+    __slots__ = ("_ctx", "_name", "_attributes", "_trace", "_root",
+                 "_token", "_recorder")
+
+    def __init__(self, name: str, ctx: Optional[Dict[str, Any]],
+                 attributes: Optional[Dict[str, Any]],
+                 recorder: Optional[FlightRecorder] = None):
+        self._name = name
+        self._ctx = ctx
+        self._attributes = attributes
+        self._recorder = recorder
+        self._trace = None
+        self._root = None
+        self._token = None
+
+    def __enter__(self) -> "_RemoteCapture":
+        if self._ctx is None:
+            return self
+        trace = _Trace(str(self._ctx["trace_id"]),
+                       bool(self._ctx.get("sampled")))
+        root = Span(trace.trace_id, _new_span_id(),
+                    self._ctx.get("parent_id"), self._name,
+                    trace.started_ns, self._attributes)
+        self._trace, self._root = trace, root
+        self._token = _ACTIVE.set((trace, root.span_id))
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        if self._root is None:
+            return False
+        _ACTIVE.reset(self._token)
+        self._root.end_ns = time.monotonic_ns()
+        if exc_type is not None:
+            self._root.status = "error"
+            self._root.set_attribute("error", repr(exc))
+        self._trace.spans.append(self._root)  # root bypasses the cap
+        if self._recorder is not None:
+            self._recorder.finish(self._trace, self._root)
+        return False
+
+    def wire(self) -> bytes:
+        """Collected spans as compact JSON (raw bytes for the handshake
+        frame — never pickle on the response path)."""
+        if self._root is None:
+            return b""
+        base = self._root.start_ns
+        rows = []
+        for s in self._trace.spans:
+            rows.append({
+                "trace_id": s.trace_id,
+                "span_id": s.span_id,
+                "parent_id": s.parent_id,
+                "name": s.name,
+                "offset_ns": s.start_ns - base,
+                "duration_ns": s.duration_ns,
+                "status": s.status,
+                "attributes": s.attributes or {},
+            })
+        return json.dumps(rows, separators=(",", ":")).encode("utf-8")
+
+
+def capture_remote(name: str, ctx: Optional[Dict[str, Any]],
+                   attributes: Optional[Dict[str, Any]] = None,
+                   recorder: Optional[FlightRecorder] = None
+                   ) -> _RemoteCapture:
+    """Wrap a follower replay in a remote child span of the leader's
+    trace (see ``_RemoteCapture``)."""
+    return _RemoteCapture(name, ctx, attributes, recorder)
+
+
+def graft_remote(payload: bytes) -> int:
+    """Leader side: splice follower replay spans into the active trace.
+
+    Follower monotonic clocks are unrelated to the leader's, so the
+    remote tree is re-anchored to end at graft time (the handshake read
+    just completed, so that is within socket latency of the truth).
+    Returns the number of spans grafted (0 on no payload / no active
+    trace / trace-id mismatch)."""
+    if not payload:
+        return 0
+    active = _ACTIVE.get()
+    if active is None:
+        return 0
+    trace, _ = active
+    try:
+        rows = json.loads(payload.decode("utf-8"))
+    except (ValueError, UnicodeDecodeError):
+        return 0
+    if not isinstance(rows, list) or not rows:
+        return 0
+    try:
+        total_ns = max(int(r["offset_ns"]) + int(r["duration_ns"])
+                       for r in rows)
+        anchor = time.monotonic_ns() - total_ns
+        grafted = 0
+        for r in rows:
+            if r.get("trace_id", trace.trace_id) != trace.trace_id:
+                continue
+            s = Span(trace.trace_id, str(r["span_id"]),
+                     r.get("parent_id"), str(r["name"]),
+                     anchor + int(r["offset_ns"]),
+                     dict(r.get("attributes") or {}) or None)
+            s.end_ns = s.start_ns + int(r["duration_ns"])
+            s.status = str(r.get("status", "ok"))
+            s.set_attribute("remote", True)
+            trace.add(s)
+            grafted += 1
+        return grafted
+    except (KeyError, TypeError, ValueError):
+        return 0
+
+
 def trace_to_json(record: TraceRecord) -> Dict[str, Any]:
     """Flat JSON tree for ``GET /debug/traces/<id>`` (default format)."""
     out = record.summary()
