@@ -622,13 +622,16 @@ def recording_shapes():
     from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
 
     shapes = {name: {} for name in WRAPPER_SHAPES}
+    # the federation's scatter threads call the wrappers concurrently
+    lock = threading.Lock()
     with contextlib.ExitStack() as stack:
         for name, key in WRAPPER_SHAPES.items():
             def recording(*args, _wrapper=getattr(ck, name), _key=key,
                           _seen=shapes[name], **kwargs):
                 if args[0].is_cuda:
                     k = _key(args, kwargs)
-                    _seen[k] = _seen.get(k, 0) + 1
+                    with lock:
+                        _seen[k] = _seen.get(k, 0) + 1
                 return _wrapper(*args, **kwargs)
 
             stack.enter_context(mock.patch.object(ck, name, recording))
@@ -3917,6 +3920,417 @@ def phase_multihost(line):
     return out
 
 
+# -- the federation tier -------------------------------------------------------
+
+FED_GROUPS = 3
+FED_RANGES_PER_GROUP = 4
+FED_RECORDS = 65536
+FED_MORE_RECORDS = 8192
+FED_MOVED_COPIES = 512
+FED_PATH = "/deduplication/people"
+
+
+def fed_feed(port, token):
+    """Drain the federated feed from ``token`` one page a GET: (rows, the
+    next token, the degraded ranges and Retry-After of the last page)."""
+    rows = []
+    while True:
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}{FED_PATH}?since={token}",
+                timeout=900) as resp:
+            if resp.status != 200:
+                raise AssertionError(f"federated feed: {resp.status}")
+            rows.extend(json.loads(resp.read()))
+            token = resp.headers["X-Fed-Next-Since"]
+            degraded = resp.headers.get("X-Fed-Degraded-Ranges")
+            retry = resp.headers.get("Retry-After")
+            if resp.headers["X-Fed-Drained"] == "true" or degraded:
+                return rows, token, degraded, retry
+
+
+def fed_norm(rows):
+    """Feed rows without their timestamps, sorted (the groups' link clocks
+    run on their own threads)."""
+    return sorted(json.dumps(dict(r, _updated=None), sort_keys=True)
+                  for r in rows)
+
+
+def fed_owner(fed, entities):
+    """Each entity's owning range under the live map, by the router's rule
+    (``route_key`` of its store record id)."""
+    from sesam_duke_microservice_tpu_torch.federation.ranges import route_key
+
+    ds = fed.groups[0].workload("deduplication", "people").datasources["crm"]
+    ranges = fed.map.ranges()
+    return [next(r for r in ranges
+                 if r.contains(route_key(ds.record_id_for_entity(e))))
+            for e in entities]
+
+
+def id_routed(fed, prefix, pred):
+    """The first id ``<prefix>_<k>`` whose record id routes to a range that
+    ``pred`` accepts."""
+    k = 0
+    while True:
+        cand = {"_id": f"{prefix}_{k}"}
+        if pred(fed_owner(fed, [cand])[0]):
+            return cand["_id"]
+        k += 1
+
+
+def fed_twins(tmp, batches_per_group):
+    """Three standalone durable ``device`` workloads, each fed by
+    ``submit_batch`` exactly the sub-batches the map sent its group, in
+    order: (their feed rows, Myers W=1 launches, seconds)."""
+    import dataclasses
+
+    import torch
+
+    from sesam_duke_microservice_tpu_torch.core.config import parse_config
+    from sesam_duke_microservice_tpu_torch.engine.workload import (
+        build_workload)
+    from sesam_duke_microservice_tpu_torch.links.replica import feed_row
+    from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
+
+    rows = []
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    for g, subs in enumerate(batches_per_group):
+        folder = Path(tmp) / f"twin{g}"
+        folder.mkdir()
+        sc = parse_config(config_xml({"people": STRESS_SCHEMA},
+                                     data_folder=str(folder)))
+        wc = dataclasses.replace(sc.deduplications["people"],
+                                 data_folder=str(folder))
+        wl = build_workload(wc, sc, backend="device", device=DEVICE,
+                            persistent=True)
+        try:
+            for sub in subs:
+                if wl.submit_batch("crm", sub) is None:
+                    raise AssertionError(f"twin {g}: workload closed")
+            wl.link_database.drain()
+            rows.extend(feed_row(l, wl.index.find_record_by_id)
+                        for l in wl.link_database.get_all_links())
+        finally:
+            with wl.lock:
+                wl.close()
+    torch.cuda.synchronize()
+    return rows, ck.LAUNCHES["myers_tile"], time.perf_counter() - t0
+
+
+def fed_single_app(tmp, posts):
+    """The same POSTs through one standalone durable ``device`` app:
+    (records/s, p50 POST seconds, its links)."""
+    from sesam_duke_microservice_tpu_torch.core.config import parse_config
+    from sesam_duke_microservice_tpu_torch.service.app import DukeApp
+
+    folder = Path(tmp) / "single"
+    folder.mkdir()
+    app = DukeApp(parse_config(config_xml({"people": STRESS_SCHEMA},
+                                          data_folder=str(folder))),
+                  device=DEVICE)
+    with serving(app) as port:
+        t0 = time.perf_counter()
+        latencies = [post(port, f"{FED_PATH}/crm", b) for b in posts]
+        wall = time.perf_counter() - t0
+        links = len(feed_all_pages(port))
+    n = sum(len(b) for b in posts)
+    return n / wall, statistics.median(latencies), links
+
+
+def feed_all_pages(port):
+    """Every row of a standalone app's feed (``?since=0``, streamed)."""
+    return json.loads(raw_since(port, FED_PATH))
+
+
+def phase_federation(line):
+    """Three serving groups of the ``device`` backend on cuda:0 behind the
+    partition router (12 ranges), through ``serve_federation`` over HTTP:
+    the ingest held against three standalone twins fed the same
+    sub-batches, a live range migration under traffic, the ``fed_down``
+    and scatter-timeout drills, the fleet rollup and ``/debug/loadmap``;
+    then the same POSTs through one standalone app (measured only).
+    Returns the launch counts of the federation's ingest."""
+    import tempfile
+
+    import torch
+
+    from sesam_duke_microservice_tpu_torch.core.config import parse_config
+    from sesam_duke_microservice_tpu_torch.federation import Federation
+    from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
+    from sesam_duke_microservice_tpu_torch.service.federation_plane import (
+        serve_federation)
+    from sesam_duke_microservice_tpu_torch.utils import faults
+
+    t_phase = time.perf_counter()
+    entities = stresstest_entities(FED_RECORDS, 3141, "f")
+    entities = with_copies(entities, entities[: FED_RECORDS // 2], 16, 5)
+    posts = [entities[s:s + INGEST_BATCH]
+             for s in range(0, len(entities), INGEST_BATCH)]
+    with tempfile.TemporaryDirectory() as tmp:
+        sc = parse_config(config_xml({"people": STRESS_SCHEMA},
+                                     data_folder=tmp))
+        fed = Federation(sc, n_groups=FED_GROUPS, data_folder=tmp,
+                         ranges_per_group=FED_RANGES_PER_GROUP,
+                         backend="device", device=DEVICE)
+        server = serve_federation(fed, port=0)
+        port = server.server_address[1]
+        try:
+            out = federation_traffic(fed, port, entities, posts, tmp, line)
+        finally:
+            faults.configure(None)
+            server.shutdown()
+            server.server_close()
+            fed.close()
+        rps, p50, single_links = fed_single_app(tmp, posts + out["more"])
+    torch.cuda.synchronize()
+    fed_links = out["links_after_migration"]
+    print(f"federation vs one app: the federation {out['rps']:.1f} "
+          f"records/s, p50 POST {out['p50'] * 1e3:.1f} ms over "
+          f"{FED_RECORDS} records; one standalone durable device app fed the "
+          f"same {len(posts) + len(out['more'])} POSTs {rps:.1f} records/s, "
+          f"p50 POST {p50 * 1e3:.1f} ms; links after the migration's "
+          f"traffic: federation {fed_links}, one app {single_links}, share "
+          f"{fed_links / max(1, single_links):.4f} [{line}]", flush=True)
+    print(f"federation phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return out["launches"]
+
+
+def federation_traffic(fed, port, entities, posts, tmp, line):
+    """The phase's steps 1-4 on a served federation (see
+    ``phase_federation``)."""
+    import torch
+
+    from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
+    from sesam_duke_microservice_tpu_torch.telemetry import heat
+    from sesam_duke_microservice_tpu_torch.utils import faults
+
+    # 1. ingest, held against the twins
+    owners = fed_owner(fed, entities)
+    per_group = [[] for _ in range(FED_GROUPS)]
+    for s in range(0, len(entities), INGEST_BATCH):
+        subs = {}
+        for e, r in zip(entities[s:s + INGEST_BATCH],
+                        owners[s:s + INGEST_BATCH]):
+            subs.setdefault(r.group, []).append(e)
+        for g, sub in subs.items():
+            per_group[g].append(sub)
+    ck.reset_launch_counts()
+    with recording_shapes() as shapes:
+        t0 = time.perf_counter()
+        latencies = [post(port, f"{FED_PATH}/crm", b) for b in posts]
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    launches = {k: v for k, v in ck.LAUNCHES.items() if v}
+    if launches.get("myers_tile", 0) <= 0:
+        raise AssertionError(f"federation: myers_tile never launched "
+                             f"({launches})")
+    rows, token, degraded, _ = fed_feed(port, "")
+    if degraded:
+        raise AssertionError(f"federation: degraded ranges {degraded}")
+    check_rows(rows, "federation")
+    twin_rows, twin_myers, twin_s = fed_twins(tmp, per_group)
+    if fed_norm(rows) != fed_norm(twin_rows):
+        raise AssertionError(
+            f"federation: the feed ({len(rows)} rows) differs from the three "
+            f"twins' ({len(twin_rows)} rows)")
+    if launches["myers_tile"] != twin_myers:
+        raise AssertionError(
+            f"federation: {launches['myers_tile']} Myers W=1 launches, the "
+            f"twins {twin_myers}")
+    print(f"federation ingest: {FED_RECORDS} stresstest records (every 16th "
+          f"a copy) in {INGEST_BATCH}-record POSTs to {FED_GROUPS} device "
+          f"groups x {FED_RANGES_PER_GROUP} ranges on cuda:0: "
+          f"{FED_RECORDS / wall:.1f} records/s, p50 POST "
+          f"{statistics.median(latencies) * 1e3:.1f} ms; sub-batches per "
+          f"group {[len(p) for p in per_group]}, records per group "
+          f"{[sum(map(len, p)) for p in per_group]}; feed {len(rows)} rows "
+          f"equal to the three twins' ({twin_s:.1f} s); launches {launches}"
+          f" (twins' Myers W=1 {twin_myers}); shapes "
+          f"{ {k: v for k, v in shapes.items() if v} } [{line}]", flush=True)
+
+    # 2. live migration of the fullest range to the next group, then
+    # traffic holding copies of moved records routed into that range
+    counts = {}
+    for r in owners:
+        counts[r.range_id] = counts.get(r.range_id, 0) + 1
+    moved_id = max(sorted(counts), key=counts.get)
+    src = fed.map.find(moved_id).group
+    target = (src + 1) % FED_GROUPS
+    moved = [e for e, r in zip(entities, owners) if r.range_id == moved_id]
+    t0 = time.perf_counter()
+    status, _, result = post_json(port, "/federation/migrate",
+                                  {"range": moved_id, "target": target})
+    migrate_s = time.perf_counter() - t0
+    if status != 200 or result.get("moved_records") != len(moved):
+        raise AssertionError(f"federation migrate: {status} {result}, "
+                             f"{len(moved)} records in the range")
+    _, _, timeline = get_json(port, "/debug/migrations")
+    more = stresstest_entities(FED_MORE_RECORDS, 2653, "g")
+    rng = random.Random(7)
+    copies = []
+    for i, k in enumerate(range(0, FED_MORE_RECORDS,
+                                FED_MORE_RECORDS // FED_MOVED_COPIES)):
+        orig = rng.choice(moved)
+        new_id = id_routed(fed, f"mv{i}",
+                           lambda r: r.range_id == moved_id)
+        more[k] = dict(orig, _id=new_id)
+        copies.append((orig["_id"], new_id))
+    more_posts = [more[s:s + INGEST_BATCH]
+                  for s in range(0, len(more), INGEST_BATCH)]
+    for b in more_posts:
+        post(port, f"{FED_PATH}/crm", b)
+    rows2, token, degraded, _ = fed_feed(port, token)
+    full, _, _, _ = fed_feed(port, "")
+    if degraded or fed_norm(rows + rows2) != fed_norm(full):
+        raise AssertionError(
+            f"federation migration: the old token's rows ({len(rows)} + "
+            f"{len(rows2)}) differ from a fresh drain ({len(full)})")
+    pairs = {frozenset((r["entity1"], r["entity2"])) for r in full}
+    missing = [c for c in copies if frozenset(c) not in pairs]
+    if missing:
+        raise AssertionError(f"federation migration: {len(missing)} copies "
+                             f"of moved records did not link, e.g. "
+                             f"{missing[:3]}")
+    links_after_migration = len(full)
+    print(f"federation migration: range {moved_id} ({len(moved)} records) "
+          f"group {src} -> {target} in {migrate_s:.3f} s (host clock): "
+          f"{result}; then {FED_MORE_RECORDS} records with "
+          f"{FED_MOVED_COPIES} copies of moved records: the old token's feed "
+          f"continued with {len(rows2)} rows, none lost or duplicated "
+          f"({len(full)} in all), every copy linked at the new owner; "
+          f"timeline {json.dumps(timeline['migrations'][0]['phases'])} "
+          f"[{line}]", flush=True)
+
+    # 3. degraded drills: a dead group, then a scatter timeout
+    down = (target + 1) % FED_GROUPS
+    down_ranges = sorted(r.range_id for r in fed.map.group_ranges(down))
+    drill = stresstest_entities(INGEST_BATCH, 5821, "d")
+    # copies of live groups' records under ids routed to the same group,
+    # so the live sub-batches write links while group ``down`` is dead
+    live = [e for i, (e, r) in enumerate(zip(drill, fed_owner(fed, drill)))
+            if r.group != down and i % 16]
+    for i, k in enumerate(range(0, INGEST_BATCH, 16)):
+        orig = rng.choice(live)
+        og = fed_owner(fed, [orig])[0].group
+        drill[k] = dict(orig, _id=id_routed(fed, f"dd{i}",
+                                            lambda r, og=og: r.group == og))
+    faults.configure(f"fed_down={down}")
+    try:
+        status, retry, body = post_fed(port, drill)
+        if (status != 503 or retry is None
+                or sorted(body["degraded_ranges"]) != down_ranges):
+            raise AssertionError(f"federation fed_down={down}: {status} "
+                                 f"Retry-After {retry} {body}")
+        rows3, token3, degraded, retry3 = fed_feed(port, token)
+        if (degraded is None or sorted(degraded.split(",")) != down_ranges
+                or retry3 is None or not rows3):
+            raise AssertionError(
+                f"federation fed_down={down}: feed page degraded "
+                f"{degraded}, Retry-After {retry3}, {len(rows3)} live rows")
+    finally:
+        faults.configure(None)
+    status, _, _ = post_fed(port, drill)
+    if status != 200:
+        raise AssertionError(f"federation: {status} after fed_down cleared")
+    # a group call that outlives DUKE_FED_TIMEOUT answers 503 while its
+    # thread runs on; the resend lands idempotently
+    slow = fed.groups[down].workload("deduplication", "people")
+    real_submit = slow.submit_batch
+
+    def late_submit(*args, **kwargs):
+        time.sleep(1.0)
+        return real_submit(*args, **kwargs)
+
+    late = stresstest_entities(INGEST_BATCH, 6007, "t")
+    with mock.patch.dict(os.environ, {"DUKE_FED_TIMEOUT": "0.2",
+                                      "DUKE_FED_RETRIES": "0"}), \
+            mock.patch.object(slow, "submit_batch", late_submit):
+        status, _, body = post_fed(port, late)
+        for t in threading.enumerate():
+            if t.name == f"fed-scatter-g{down}":
+                t.join(timeout=120)
+    if status != 503 or "timed out" not in json.dumps(body):
+        raise AssertionError(f"federation scatter timeout: {status} {body}")
+    status, _, _ = post_fed(port, late)
+    if status != 200:
+        raise AssertionError(f"federation: {status} resending after the "
+                             "scatter timeout")
+    rows4, _, degraded, _ = fed_feed(port, token3)
+    full2, _, _, _ = fed_feed(port, "")
+    chain = rows + rows2 + rows3 + rows4
+    if (degraded or fed_norm(chain) != fed_norm(full2)
+            or len({r["_id"] for r in full2}) != len(full2)):
+        raise AssertionError(
+            f"federation drills: the token chain ({len(chain)} rows) differs "
+            f"from a fresh drain ({len(full2)})")
+    print(f"federation drills: fed_down={down} answered 503 with its ranges "
+          f"{down_ranges} and Retry-After {retry}; a feed page listed them "
+          f"while {len(rows3)} live rows flowed; 200 after the fault cleared;"
+          f" a scatter timeout (DUKE_FED_TIMEOUT 0.2 s, group {down} held "
+          f"1 s) answered 503 and the resend 200; the token chain's "
+          f"{len(chain)} rows equal a fresh drain's, no row twice [{line}]",
+          flush=True)
+
+    # 4. surfaces: the fleet rollup's device bytes, /debug/loadmap
+    samples, _, _ = scrape(port)
+    per_group_bytes = {}
+    for (name, labels), v in samples.items():
+        d = dict(labels)
+        if name == "duke_device_bytes" and "group" in d:
+            per_group_bytes[d["group"]] = per_group_bytes.get(
+                d["group"], 0) + v
+    corpora = 0
+    for g in fed.groups:
+        for wl in g.workloads.values():
+            corpora += sum(wl.index.corpus.device_bytes().values())
+    allocated = torch.cuda.memory_allocated()
+    if (sorted(per_group_bytes) != [str(g) for g in range(FED_GROUPS)]
+            or min(per_group_bytes.values()) <= 0
+            or sum(per_group_bytes.values()) != corpora
+            or allocated < corpora):
+        raise AssertionError(
+            f"federation rollup: duke_device_bytes by group "
+            f"{per_group_bytes}, the corpora {corpora} bytes, "
+            f"memory_allocated {allocated}")
+    _, _, loadmap = get_json(port, "/debug/loadmap")
+    routed = FED_RECORDS + FED_MORE_RECORDS + 4 * INGEST_BATCH
+    heat_total = sum(r["records_total"] for r in loadmap["ranges"])
+    if (len(loadmap["ranges"]) != FED_GROUPS * FED_RANGES_PER_GROUP
+            or loadmap["n_buckets"] != heat.N_BUCKETS
+            or heat_total != routed):
+        raise AssertionError(
+            f"federation loadmap: {len(loadmap['ranges'])} ranges, heat "
+            f"{heat_total}, {routed} records routed")
+    print(f"federation surfaces: duke_device_bytes by group "
+          f"{ {k: int(v) for k, v in sorted(per_group_bytes.items())} } sum "
+          f"to the groups' corpora ({corpora} bytes; memory_allocated "
+          f"{allocated}); /debug/loadmap {len(loadmap['ranges'])} ranges, "
+          f"heat {heat_total} = records routed [{line}]", flush=True)
+    return {"launches": launches, "rps": FED_RECORDS / wall,
+            "p50": statistics.median(latencies), "more": more_posts,
+            "links_after_migration": links_after_migration}
+
+
+def post_fed(port, body):
+    """A federated POST: (status, Retry-After, the JSON body or None)."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{FED_PATH}/crm",
+        data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=900) as resp:
+            return resp.status, None, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        payload = e.read()
+        try:
+            payload = json.loads(payload)
+        except ValueError:
+            payload = {"text": payload.decode(errors="replace")}
+        return e.code, e.headers.get("Retry-After"), payload
+
+
 def char_inputs(q, c, l, seed):
     """Small-alphabet chars so matches are real; random lengths with the
     edge cases (empty and full-width patterns and texts) forced in."""
@@ -4421,6 +4835,7 @@ def main() -> int:
     phase_selfcheck(line, device_rows)
     phase_mesh(line)
     phase_multihost(line)
+    phase_federation(line)
 
     def one_word(s):
         return ck.kernel_words(s[2]) == 1

@@ -100,8 +100,7 @@ class AnnIndex(DeviceIndex):
         row = self.id_to_row.get(candidate.record_id)
         effective_c = None
         if row is not None:
-            result = resolve_block(self._explain_scorer_cache().dispatch_block(
-                [record], group_filtering=group_filtering))
+            result = self._explain_retrieve(record, group_filtering)
             effective_c = int(result.top_index.shape[1])
             out["effective_top_c"] = effective_c
             positions = np.nonzero(result.top_index[0] == row)[0]
@@ -137,9 +136,12 @@ class AnnIndex(DeviceIndex):
         return out
 
 
-    def _explain_scorer_cache(self):
-        """The scorer cache the explain replay retrieves with."""
-        return self.scorer_cache
+    def _explain_retrieve(self, record: Record, group_filtering: bool):
+        """The explain replay's retrieval of one query: the resolved
+        block of the serving scorer (the sharded index routes it through
+        a serving group's op stream)."""
+        return resolve_block(self.scorer_cache.dispatch_block(
+            [record], group_filtering=group_filtering))
 
 
 class _AnnScorerCache(_ScorerCache):

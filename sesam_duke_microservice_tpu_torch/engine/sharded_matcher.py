@@ -50,6 +50,7 @@ import torch
 
 from .. import telemetry
 from ..core.config import DukeSchema
+from ..core.records import Record
 from ..parallel.sharded import (
     Mesh,
     build_replicated_gather,
@@ -227,16 +228,13 @@ class ShardedDeviceCorpus(DeviceCorpus):
 class _MeshProgramLift:
     """What both mesh scorer caches share: queries upload (and are copied
     to every shard) instead of being gathered from corpus rows, and the dd
-    survivor rescore runs through a gather to the lead device.
-
-    ``mesh`` is the index's unless the cache was built for another view
-    of it (``ShardedAnnIndex.explain_retrieval``'s local shards)."""
+    survivor rescore runs through a gather to the lead device."""
 
     queries_from_rows = False
 
-    def __init__(self, index, mesh: Optional[Mesh] = None):
+    def __init__(self, index):
         super().__init__(index)
-        self.mesh = mesh if mesh is not None else index.mesh
+        self.mesh = index.mesh
 
     @property
     def supports_dd(self) -> bool:
@@ -380,20 +378,26 @@ class ShardedAnnIndex(AnnIndex):
         # LOCAL row ids, so the split hands each shard its own block
         return self.mesh.size
 
-    def _explain_scorer_cache(self):
-        """The explain replay's retrieval runs on the frontend alone, off
-        the op stream: on a mesh that spans processes it scores this
-        process's shards as a mesh of one process (a collective the
-        followers never enter would hang), so the rank it reports is
-        among the rows those shards hold.  The frontend is rank 0, whose
-        shards' global row offsets the local mesh keeps."""
-        if not self.mesh.spans_processes:
-            return self.scorer_cache
-        cache = getattr(self, "_local_scorer_cache", None)
-        if cache is None:
-            cache = self._local_scorer_cache = _ShardedAnnScorerCache(
-                self, mesh=self.mesh.local())
-        return cache
+    def _explain_retrieve(self, record: Record, group_filtering: bool):
+        """On a mesh that spans processes the explain replay's retrieval
+        goes through the serving group's op stream: under the op lock the
+        frontend broadcasts an ``explain`` op and every process runs the
+        same block program on the global mesh (a collective the followers
+        never entered would pair with their next one), so the rank it
+        reports is among the whole corpus's rows, the JAX package's
+        retrieval provenance.  Called with the workload lock held."""
+        from ..parallel import dispatch
+
+        d = dispatch.current()
+        key = getattr(self, "_dispatch_key", None)
+        if d is None or key is None or not self.mesh.spans_processes:
+            return super()._explain_retrieve(record, group_filtering)
+        with d.op_lock:
+            d.broadcast(dispatch.with_trace_ctx(
+                ("explain", key, record, group_filtering)))
+            with dispatch.latch_on_failure(
+                    d, "frontend explain retrieval aborted after broadcast"):
+                return super()._explain_retrieve(record, group_filtering)
 
 
 # the JAX package's processor names: a mesh index needs nothing of its

@@ -1048,6 +1048,20 @@ class _FollowerSession:
                     self.replicas[key].processor.score(records)
             except Exception:
                 logger.exception("follower: score replay failed")
+        elif tag == "explain":
+            _, key, record, group_filtering = op[:4]
+            from ..engine.device_matcher import resolve_block
+
+            index = self.replicas[key].index
+            try:
+                with telemetry.tracing.capture_remote(
+                        "follower:explain", _op_trace_ctx(op, 4),
+                        {"process": "follower"},
+                        recorder=telemetry.tracing.RECORDER):
+                    resolve_block(index.scorer_cache.dispatch_block(
+                        [record], group_filtering=group_filtering))
+            except Exception:
+                logger.exception("follower: explain replay failed")
         elif tag == "rematch":
             _, key, block_rows = op[:3]
             from ..engine.rematch import replay_rematch

@@ -22,15 +22,27 @@ serves HTTP and dispatches the mesh ops (``--backend sharded`` or
 ``sharded-brute``), every other process runs the follower replay loop
 (no HTTP, unless ``DUKE_REPLICA_HTTP_PORT`` serves its read plane or
 ``DUKE_PROMOTE_PORT`` lets it take over on leader loss).
+
+A federation (``federation.Federation``): ``--federation N`` (or
+``DUKE_FED_GROUPS``) serves N serving groups in this process behind the
+digest-range partition router (``service.federation_plane``: scatter-gather
+ingest and feeds, live range migration by ``POST /federation/migrate``),
+each group's workloads on ``--backend`` and ``--device`` over
+``<dataFolder>/federation/g<i>``; SIGTERM/SIGINT stop the plane and close
+the groups.
 """
 
 import argparse
 import logging
+import signal
+import threading
 
 from ..core.config import load_default_config, parse_config
 from ..engine.workload import BACKENDS
 from ..env import env_int
+from ..federation import Federation
 from .app import DEFAULT_PORT, create_app, install_shutdown_handlers, serve
+from .federation_plane import serve_federation
 
 
 def main() -> None:
@@ -46,6 +58,10 @@ def main() -> None:
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     parser.add_argument("--ephemeral", action="store_true",
                         help="keep all state in memory (no data folder writes)")
+    parser.add_argument("--federation", type=int,
+                        default=env_int("DUKE_FED_GROUPS", 0), metavar="N",
+                        help="serve a digest-range partition federation of "
+                             "N serving groups instead of one group")
     args = parser.parse_args()
 
     logging.basicConfig(level=logging.INFO)
@@ -56,6 +72,9 @@ def main() -> None:
 
     install_request_ids()
     log = logging.getLogger("duke-torch-service")
+    if args.federation >= 1:
+        _serve_federation(args, log)
+        return
     # a serving group: join the job first; process 0 becomes the HTTP
     # frontend and op dispatcher, every other process the follower
     # replay loop
@@ -81,13 +100,8 @@ def main() -> None:
                     if env_int("DUKE_PROMOTE_PORT", 0) else "")
                 follower_main(device=args.device)
                 return
-        if args.config:
-            with open(args.config, "r", encoding="utf-8") as f:
-                config = parse_config(f.read())
-        else:
-            config = load_default_config()
-        app = create_app(config, backend=args.backend, device=args.device,
-                         persistent=not args.ephemeral)
+        app = create_app(_load_config(args), backend=args.backend,
+                         device=args.device, persistent=not args.ephemeral)
         if multihost.process_count() > 1:
             dispatcher = start_dispatcher(app)
         server = serve(app, port=args.port, host=args.host)
@@ -107,6 +121,41 @@ def main() -> None:
                 dispatcher.close()
     finally:
         multihost.shutdown()
+
+
+def _load_config(args):
+    if args.config:
+        with open(args.config, "r", encoding="utf-8") as f:
+            return parse_config(f.read())
+    return load_default_config()
+
+
+def _serve_federation(args, log) -> None:
+    """N serving groups in this process behind the partition router.  N=1
+    is a legitimate federation (one group, the federated data layout and
+    the /federation/* surface): falling back to the standalone service
+    would read a different data layout."""
+    fed = Federation(_load_config(args), n_groups=args.federation,
+                     backend=args.backend, device=args.device)
+    try:
+        server = serve_federation(fed, port=args.port, host=args.host)
+        log.info("Federation of %d groups serving on %s:%d (backend=%s, "
+                 "device=%s)", args.federation, args.host,
+                 server.server_address[1], args.backend, fed.device)
+        stop = threading.Event()
+
+        def _stop(signum, frame):
+            log.info("signal %d: federation shutdown", signum)
+            stop.set()
+
+        signal.signal(signal.SIGTERM, _stop)
+        signal.signal(signal.SIGINT, _stop)
+        stop.wait()
+        server.shutdown()
+        server.server_close()
+    finally:
+        fed.close()
+    log.info("shutdown complete")
 
 
 if __name__ == "__main__":

@@ -58,12 +58,12 @@ registry with ``telemetry.GLOBAL``.  ``/debug/traces``,
 ``/debug/requests``, ``/debug/decisions``, ``/debug/profile``,
 ``/debug/costs``, ``/debug/memory``, ``/debug/slo`` and ``POST
 /explain`` are the JAX package's (``service.debug``), as is
-``/debug/probes``, the canary prober's read surface; ``/debug/loadmap``
-waits for its module.  ``POST /{kind}/{name}/rematch`` re-scores every
-live record against the whole corpus through the ring layout
-(``engine.rematch``: a link-store backfill, or a re-match after a
-threshold change); a datasource named ``rematch`` keeps the route as a
-batch POST.
+``/debug/probes``, the canary prober's read surface, and ``/debug/loadmap``
+(empty here: a single group routes nothing through a federation
+router).  ``POST /{kind}/{name}/rematch`` re-scores every live record
+against the whole corpus through the ring layout (``engine.rematch``: a
+link-store backfill, or a re-match after a threshold change); a
+datasource named ``rematch`` keeps the route as a batch POST.
 
 The canary prober (``service.prober``, on unless ``DUKE_PROBE=0``) keeps
 one shadow workload per user workload under the reserved ``__probe__``
@@ -517,7 +517,8 @@ _STATIC_ROUTES = frozenset((
     "/", "/config", "/health", "/healthz", "/readyz", "/metrics", "/stats",
     "/debug/traces", "/debug/requests", "/debug/decisions", "/explain",
     "/debug/profile", "/debug/profile/reset",
-    "/debug/costs", "/debug/memory", "/debug/slo", "/debug/probes",
+    "/debug/costs", "/debug/memory", "/debug/loadmap", "/debug/slo",
+    "/debug/probes",
 ))
 
 
@@ -753,6 +754,10 @@ class DukeRequestHandler(BaseHTTPRequestHandler):
                 debug_api._app_workloads(self.app)))
         elif path == "/debug/memory":
             self._reply(*debug_api.handle_memory())
+        elif path == "/debug/loadmap":
+            # a single group routes nothing through a federation router:
+            # the heat map is present but empty
+            self._reply(*debug_api.handle_loadmap(None))
         elif path == "/debug/slo":
             self._reply(*debug_api.handle_slo())
         elif path == "/debug/probes":

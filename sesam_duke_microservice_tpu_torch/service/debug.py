@@ -1,6 +1,5 @@
 """``/debug`` surface: flight recorders, decisions, explain, profiling,
-probes (the JAX package's ``service/debug.py`` on torch, without
-``/debug/loadmap``, whose heat map is not ported yet).
+probes, load map (the JAX package's ``service/debug.py`` on torch).
 
 Rendering helpers for the debug/explainability endpoints:
 
@@ -14,6 +13,7 @@ Rendering helpers for the debug/explainability endpoints:
     POST /debug/profile/reset       re-arm the PROFILE_TRACE_DIR budget
     GET  /debug/costs               device-time ledger + reconciliation
     GET  /debug/memory              device-memory ledger + headroom
+    GET  /debug/loadmap             federation sub-range heat map
     GET  /debug/slo                 SLO violations w/ exemplar traces
     GET  /debug/probes              canary prober history + mismatches
 
@@ -255,6 +255,15 @@ def handle_memory() -> Reply:
     from ..telemetry import memory
 
     return _reply_json(200, memory.debug_snapshot())
+
+
+def handle_loadmap(heatmap) -> Reply:
+    """``GET /debug/loadmap``: sub-range heat per owned range with the
+    suggested split point (``heatmap`` may be None -- single-group
+    deployments route nothing through a federation router)."""
+    from ..telemetry import heat
+
+    return _reply_json(200, heat.loadmap(heatmap))
 
 
 def handle_slo() -> Reply:

@@ -551,3 +551,120 @@ def make_app_collector(app):
         return out
 
     return collect
+
+
+def make_group_collector(group):
+    """Scrape-time collector over one federation group's live workloads
+   .
+
+    Each group gets its own ``MetricRegistry`` carrying only this
+    collector; the federation plane merges all of them through
+    ``telemetry.rollup.GroupRollup`` -- counters and histograms summed
+    key-wise across groups (lossless: every group shares the family's
+    bucket ladder), gauges relabeled with ``group=``.  The collector
+    therefore emits the SAME family names the leader app does, so fleet
+    dashboards reuse replica queries unchanged.
+
+    Reads are the same lock-free single-writer snapshots the app
+    collector takes; nothing here acquires a workload or group lock, so
+    a scrape can never stall an ingest (or another group's scrape).
+    """
+
+    def collect():
+        counter_samples: Dict[str, list] = {
+            "batches": [], "records": [], "candidates": [], "pairs": [],
+        }
+        phase_samples = []
+        rows_samples = []
+        link_samples = []
+        queue_samples = []
+        hold_samples = []
+        cost_samples = []
+        hbm_samples = []
+        for (kind, name), wl in list(group.workloads.items()):
+            labels = (("kind", kind), ("workload", name))
+            proc = wl.processor
+            phases = getattr(proc, "phases", None)
+            if phases is not None:
+                phase_samples.extend(phases.collect_samples(labels))
+                for phase, seconds in sorted(
+                        phases.phase_seconds().items()):
+                    cost_samples.append(
+                        ("", labels + (("phase", phase),), seconds))
+            for comp, nbytes in sorted(hbm.components_for(wl).items()):
+                hbm_samples.append(
+                    ("", labels + (("component", comp),), nbytes))
+            stats = getattr(proc, "stats", None)
+            if stats is not None:
+                counter_samples["batches"].append(
+                    ("", labels, stats.batches))
+                counter_samples["records"].append(
+                    ("", labels, stats.records_processed))
+                counter_samples["candidates"].append(
+                    ("", labels, stats.candidates_retrieved))
+                counter_samples["pairs"].append(
+                    ("", labels, stats.pairs_compared))
+            live = getattr(wl.index, "live_records", None)
+            indexed = None
+            corpus = getattr(wl.index, "corpus", None)
+            if corpus is not None:
+                indexed = corpus.size
+            else:
+                try:
+                    indexed = len(wl.index)
+                except TypeError:
+                    pass
+            if indexed is not None:
+                rows_samples.append(
+                    ("", labels + (("state", "indexed"),), indexed))
+            rows_samples.append((
+                "", labels + (("state", "live"),),
+                live if live is not None else (indexed or 0),
+            ))
+            try:
+                link_samples.append(("", labels, wl.link_database.count()))
+            except Exception:
+                pass  # a closed/raced link DB must never fail the scrape
+            queue_samples.append(("", labels, len(wl._mb_queue)))
+            if wl._hold_ewma is not None:
+                hold_samples.append(("", labels, wl._hold_ewma))
+        return [
+            FamilySnapshot(
+                "duke_engine_phase_seconds", "histogram",
+                "Per-batch engine phase durations (encode, retrieve, "
+                "score, persist) by workload", phase_samples),
+            FamilySnapshot("duke_engine_batches_total", "counter",
+                           "Batches processed", counter_samples["batches"]),
+            FamilySnapshot("duke_engine_records_processed_total", "counter",
+                           "Records matched", counter_samples["records"]),
+            FamilySnapshot(
+                "duke_engine_candidates_retrieved_total", "counter",
+                "Candidates retrieved", counter_samples["candidates"]),
+            FamilySnapshot("duke_engine_pairs_compared_total", "counter",
+                           "Record pairs scored", counter_samples["pairs"]),
+            FamilySnapshot("duke_corpus_rows", "gauge",
+                           "Corpus rows by state (indexed includes "
+                           "tombstones; live excludes them)", rows_samples),
+            FamilySnapshot("duke_links_rows", "gauge",
+                           "Rows in the workload's link store",
+                           link_samples),
+            FamilySnapshot("duke_ingest_queue_depth", "gauge",
+                           "Queued ingest requests awaiting the merged "
+                           "device batch", queue_samples),
+            FamilySnapshot("duke_write_hold_seconds", "gauge",
+                           "EWMA of recent write-side workload lock holds "
+                           "(the Retry-After hint source; absent until the "
+                           "first write)", hold_samples),
+            FamilySnapshot(
+                "duke_cost_device_seconds_total", "counter",
+                "Attributed device-busy seconds by workload and engine "
+                "phase; sums to duke_cost_busy_seconds_total (the ledger "
+                "reconciliation invariant)", cost_samples),
+            FamilySnapshot(
+                "duke_device_bytes", "gauge",
+                "Registered device-buffer bytes by workload and component "
+                "(corpus tensors, embeddings, int8 scales, IVF "
+                "membership)", hbm_samples),
+        ]
+
+    return collect

@@ -1,6 +1,6 @@
 """Background canary prober: ground-truth synthetic monitoring (the JAX
-package's ``service/prober.py`` on torch: ``CanaryProber``; its
-``RangeProber`` waits for the federation modules).
+package's ``service/prober.py`` on torch: ``CanaryProber``, and the
+federation plane's per-range ``RangeProber``).
 
 ``CanaryProber`` owns one shadow workload per user workload.  The
 shadow is built from a clone of the user's ``WorkloadConfig`` that
@@ -501,3 +501,109 @@ class CanaryProber:
             ),
             "mismatches": mismatches,
         }
+
+
+# -- federation range probing -------------------------------------------------
+
+class RangeProber:
+    """Black-box per-range reachability probe through the group read
+    path.  A range whose owner group is down, busy, or mis-routed fails
+    its probe -- surfaced per range on the federation plane before any
+    consumer's ``?since=`` poll hits it."""
+
+    def __init__(self, fed):
+        self.fed = fed
+        self._lock = threading.Lock()
+        # guarded by: self._lock [writes]
+        self._checks: Dict[str, Dict[str, int]] = {}
+        self._groups: Dict[str, int] = {}
+        self._errors: Dict[str, str] = {}
+        self._cycles = 0
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> None:
+        if self._thread is not None:
+            return
+        self._thread = threading.Thread(
+            target=self._loop, name="range-prober", daemon=True
+        )
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        t = self._thread
+        if t is not None:
+            t.join(timeout=30)
+            self._thread = None
+
+    def _loop(self) -> None:
+        while not self._stop.wait(probe_interval_s()):
+            try:
+                self.run_cycle()
+            except Exception:
+                logger.exception("range probe cycle crashed")
+
+    def run_cycle(self) -> Dict[str, str]:
+        """Probe every owned range once; returns range_id -> outcome."""
+        pmap = self.fed.map
+        outcomes: Dict[str, str] = {}
+        with self._lock:
+            self._cycles += 1
+        for rng in pmap.ranges():
+            group = self.fed.groups[rng.group]
+            workloads = sorted(group.workloads)
+            if not workloads:
+                continue
+            kind, name = workloads[0]
+            outcome, err = "ok", None
+            try:
+                group.links_walk(kind, name, 0, 1)
+            except Exception as exc:
+                outcome, err = "fail", type(exc).__name__
+            outcomes[rng.range_id] = outcome
+            with self._lock:
+                per = self._checks.setdefault(rng.range_id, {})
+                per[outcome] = per.get(outcome, 0) + 1
+                self._groups[rng.range_id] = rng.group
+                if err is not None:
+                    self._errors[rng.range_id] = err
+                else:
+                    self._errors.pop(rng.range_id, None)
+        return outcomes
+
+    def collector_for(self, idx: int):
+        """Scrape collector for ONE group's owned ranges -- registered on
+        that group's rollup registry so GroupRollup merges the fleet
+        view (telemetry.rollup) like every other per-group family."""
+        def collect():
+            with self._lock:
+                checks = {
+                    rid: dict(per) for rid, per in self._checks.items()
+                    if self._groups.get(rid) == idx
+                }
+                groups = {rid: idx for rid in checks}
+            if not checks:
+                return []
+            return [probes.range_probe_family(checks, groups)]
+        return collect
+
+    def failing_ranges(self) -> List[str]:
+        with self._lock:
+            return sorted(self._errors)
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {
+                "enabled": True,
+                "interval_seconds": probe_interval_s(),
+                "cycles": self._cycles,
+                "ranges": {
+                    rid: {
+                        "group": self._groups.get(rid),
+                        "checks": dict(per),
+                        "last_error": self._errors.get(rid),
+                    }
+                    for rid, per in sorted(self._checks.items())
+                },
+            }

@@ -292,3 +292,28 @@ def probe_families(states: Sequence[ProbeState],
             mismatches,
         ),
     ]
+
+
+def range_probe_family(checks: Dict[str, Dict[str, int]],
+                       groups: Dict[str, int]) -> FamilySnapshot:
+    """``duke_probe_range_checks_total{range,group,outcome}`` -- per-range
+    reachability probes through the federation router (service.prober.
+    RangeProber).  Registered per group so GroupRollup merges the fleet
+    view exactly like every other per-group family."""
+    samples = []
+    for range_id in sorted(checks):
+        for outcome in ("ok", "fail"):
+            n = checks[range_id].get(outcome, 0)
+            samples.append((
+                "",
+                (("range", range_id),
+                 ("group", str(groups.get(range_id, ""))),
+                 ("outcome", outcome)),
+                float(n),
+            ))
+    return FamilySnapshot(
+        "duke_probe_range_checks_total", "counter",
+        "Per-range black-box reachability probes via the federation "
+        "router, by outcome.",
+        samples,
+    )

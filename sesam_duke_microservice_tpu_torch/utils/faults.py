@@ -32,20 +32,31 @@ the same ops whatever the thread interleaving.  The token kinds read here
                                    readback seam) -- drives the mismatch
                                    latch and the ``/healthz`` degraded
                                    detection drill
+  ``fed_down=<g>``                 federation group ``g`` is unreachable:
+                                   every router call into it raises
+                                   GroupUnavailable -- drives the
+                                   scatter-gather degraded-mode contract
+                                   (dead ranges 503 + Retry-After, live
+                                   ranges keep serving)
 
 Crash sites: ``post_store_put`` (store rows durable, index and links not
 yet applied), ``post_journal_append`` (batch journaled, not yet flushed),
 ``pre_flush``, ``mid_flush`` (links asserted, not committed),
 ``post_flush_pre_truncate`` (committed, watermark not yet written),
 ``mid_journal_write`` (HALF the journal frame written first: a torn
-tail) and ``mid_snapshot_save`` (snapshot tmp written, rename pending).
+tail) and ``mid_snapshot_save`` (snapshot tmp written, rename pending);
+the range-migration sites (federation/migrate.py): ``pre_freeze`` (state
+recorded, map not yet frozen), ``post_snapshot`` (range snapshot taken,
+nothing shipped), ``mid_replay`` (snapshot loaded at the target, journal
+slice partly replayed), ``pre_cutover`` (target complete, map still names
+the source) and ``post_cutover`` (map cut over, drain pending).
 
-The JAX package's other token kinds (``flush_fail``, ``slow_lock``, and
-``fed_down`` of its federation router) are accepted and ignored, so one
-spec drives both packages.  Every injected fault counts in
-``duke_faults_injected_total{kind}``.  Wired into ``parallel/dispatch.py``
-(send path and follower loop), the ingest crash sites and the prober;
-with no spec every hook is one env read.
+The JAX package's other token kinds (``flush_fail``, ``slow_lock``) are
+accepted and ignored, so one spec drives both packages.  Every injected
+fault counts in ``duke_faults_injected_total{kind}``.  Wired into
+``parallel/dispatch.py`` (send path and follower loop), the ingest and
+migration crash sites, the prober and the federation router
+(``fed_down``); with no spec every hook is one env read.
 """
 
 from __future__ import annotations
@@ -93,7 +104,7 @@ def _unit(seed: int, *key) -> float:
 
 
 # token kinds of the JAX package's spec the port reads no hook for
-_IGNORED = ("flush_fail", "slow_lock", "fed_down")
+_IGNORED = ("flush_fail", "slow_lock")
 
 
 class FaultPlan:
@@ -116,6 +127,8 @@ class FaultPlan:
         self._crash_counts: Dict[str, int] = {}  # guarded by: self._lock
         self._probe_flip_at: Optional[int] = None
         self._probe_count = 0  # guarded by: self._lock
+        # federation groups whose router calls fail
+        self._fed_down: set = set()
         for raw in spec.replace(",", ";").split(";"):
             token = raw.strip()
             if not token:
@@ -146,6 +159,8 @@ class FaultPlan:
                     self._probe_flip_at = int(parts[0])
                 elif kind == "crash_at":
                     self._crash_at[parts[0]] = int(parts[1])
+                elif kind == "fed_down":
+                    self._fed_down.add(int(parts[0]))
                 elif kind not in _IGNORED:
                     raise ValueError(f"unknown fault kind {kind!r}")
             except (IndexError, ValueError) as e:
@@ -241,6 +256,17 @@ class FaultPlan:
     def check_crash(self, site: str) -> None:
         if self.crash_hit(site):
             self.crash_now(site)
+
+    # -- federation router ----------------------------------------------------
+
+    def fed_group_down(self, group: int) -> bool:
+        """True iff router calls into federation group ``group`` should
+        fail (spec ``fed_down=<g>``) -- the deterministic dead-group fault
+        behind the degraded-mode contract."""
+        if group in self._fed_down:
+            _count("fed_down")
+            return True
+        return False
 
 
 _cached: Tuple[Optional[str], Optional[FaultPlan]] = (None, None)

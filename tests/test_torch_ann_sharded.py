@@ -42,6 +42,7 @@ from sesam_duke_microservice_tpu_torch.parallel import sharded as TP
 from test_ann_sharded import CHUNK, DIM, TOP_C, build_inputs
 from test_torch_growth import DEDUP, PORT
 from torch_jax_cache import jax_cache_off  # noqa: F401
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 MESH = TP.Mesh([torch.device("cpu")] * 8)
 

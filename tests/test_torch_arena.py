@@ -59,6 +59,7 @@ from test_torch_stream_append import (
 )
 from test_torch_feature_cache import dedup_schema
 from torch_jax_cache import jax_cache_off  # noqa: F401
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 ARENAS = (jarena, tarena)
 

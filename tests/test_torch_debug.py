@@ -12,12 +12,13 @@ a 409, a 400, the reset), ``/debug/costs``, ``/debug/memory`` and
 ``/debug/slo`` answer the same statuses with the same keys, and
 ``/metrics`` labels every one of these requests with the JAX package's
 route template; ``/debug/memory`` carries the ``arena`` block and
-``/debug/probes`` the canary prober's history, as in the JAX package.
-Deliberate differences, each asserted: ``/debug/memory`` has no
-``aot_executables`` component in the port (the XLA executable store is
-not ported), and ``/debug/loadmap`` answers 404 (its federation heat map
-is not ported).  Keys compare exactly; values are not compared
-here (the tracing, explain and service-surface tests hold them).
+``/debug/probes`` the canary prober's history, as in the JAX package, and
+``/debug/loadmap`` the JAX app's empty heat map (a single group routes
+nothing through a federation router).  The deliberate difference,
+asserted: ``/debug/memory`` has no ``aot_executables`` component in the
+port (the XLA executable store is not ported).  Keys compare exactly;
+values are not compared here (the tracing, explain and service-surface
+tests hold them).
 """
 
 import json
@@ -224,11 +225,14 @@ def test_debug_profile_cycle_and_reset_keys_equal_jax(pair, monkeypatch):
 
 
 def test_unported_debug_routes_answer_404(pair):
-    """``/debug/loadmap`` (the federation heat map) is not ported; the
-    canary prober's ``/debug/probes`` is served with the JAX keys."""
+    """No ``/debug`` route of the JAX app answers 404 on the port any
+    more: ``/debug/loadmap`` serves the JAX app's payload (the federation
+    heat map, empty on a single group), and the canary prober's
+    ``/debug/probes`` is served with the JAX keys."""
     _, urls = pair
-    assert request(urls[0] + "/debug/loadmap")[0] == 200
-    assert request(urls[1] + "/debug/loadmap")[0] == 404
+    (jstatus, jbody), (tstatus, tbody) = both(urls, "/debug/loadmap")
+    assert tstatus == jstatus == 200
+    assert tbody == jbody == {"n_buckets": 256, "ranges": []}
     (jstatus, jbody), (tstatus, tbody) = both(urls, "/debug/probes")
     assert tstatus == jstatus == 200
     assert loose(shape(tbody)) == loose(shape(jbody))
@@ -241,7 +245,8 @@ def test_debug_route_templates_equal_jax(pair):
     _, urls = pair
     for url in urls:
         for path in ("/debug/traces", f"/debug/traces/{TID}",
-                     "/debug/decisions", "/debug/decisions/d00000001"):
+                     "/debug/decisions", "/debug/decisions/d00000001",
+                     "/debug/loadmap"):
             request(url + path)
         post_json(url + "/explain", {"name": "people", "id1": "crm__c0",
                                      "id2": "crm__c1"})
@@ -254,5 +259,6 @@ def test_debug_route_templates_equal_jax(pair):
                                                            "/explain"))})
     assert routes[1] <= routes[0]
     assert {"/debug/traces/:id", "/debug/decisions/:id", "/explain",
-            "/debug/traces", "/debug/decisions"} <= routes[1]
-    assert tapp_module._route_template("/debug/loadmap") == "(unmatched)"
+            "/debug/traces", "/debug/decisions",
+            "/debug/loadmap"} <= routes[1]
+    assert tapp_module._route_template("/debug/loadmap") == "/debug/loadmap"

@@ -45,6 +45,7 @@ from sesam_duke_microservice_tpu_torch.utils import faults as TF
 from test_sharded_service import DEDUP_XML, _seeded_batch
 from test_torch_growth import JAX, PORT
 from torch_jax_cache import jax_cache_off  # noqa: F401
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 KEY = ("deduplication", "t")
 PEOPLE = ("deduplication", "people")

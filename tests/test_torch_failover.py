@@ -45,6 +45,7 @@ from test_torch_replica_serving import KEY, HaGroup
 from test_sharded_service import DEDUP_XML, _seeded_batch
 from test_sharded_service import _run_dedup as jax_clean_run
 from torch_jax_cache import jax_cache_off  # noqa: F401
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

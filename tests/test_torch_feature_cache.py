@@ -34,6 +34,7 @@ from sesam_duke_microservice_tpu_torch.ops import feature_cache as FC
 from sesam_duke_microservice_tpu_torch.ops import features as F
 from test_torch_growth import DEDUP, JAX, PORT, Run, assert_same
 from torch_jax_cache import jax_cache_off  # noqa: F401
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 NAMES = [
     "acme corp", "acme corporation", "globex", "globex inc", "initech",

@@ -37,6 +37,7 @@ from sesam_duke_microservice_tpu_torch.links import (
 from sesam_duke_microservice_tpu_torch.ops import feature_cache as TFC
 from sesam_duke_microservice_tpu_torch.ops import features as TF
 from torch_jax_cache import jax_cache_off  # noqa: F401
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 
 class Pkg:

@@ -48,6 +48,7 @@ import sesam_duke_microservice_tpu_torch.service.datasource as TD
 from test_engine import DEDUP_XML, LINKAGE_XML
 from test_torch_slice import _TS, _Tape, _feed, _post, _stresstest_entities
 from torch_jax_cache import jax_cache_off  # noqa: F401
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 JAX = types.SimpleNamespace(C=JC, CFG=JCFG, R=JR, L=JL, W=JW, I=JI, M=JM,
                             A=JA, D=JD, name="jax")

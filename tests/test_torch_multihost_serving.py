@@ -14,11 +14,14 @@ the transform's links must equal the JAX package's single-process
 test's bar); the follower's replica feed must equal the frontend's, byte
 for byte, at ``X-Replica-Lag: 0``.
 
-Then the paths that run on the frontend alone, off the op stream: a
-canary prober cycle and a ``POST /explain`` on the group must return --
-they score on the frontend's own shards as a mesh of one process -- and
-the group must keep serving in lockstep after them.  Each child gets its
-own 90 s timeout.
+Then a canary prober cycle, which scores on the frontend's own shards as
+a mesh of one process, off the op stream, and a ``POST /explain`` on the
+group, whose retrieval goes through the op stream onto the global mesh:
+both must return and leave the group serving in lockstep, and an
+explained candidate held on the follower's shards must be retrieved at
+the rank the JAX package's sharded ``ann`` index gives it.  Each child
+gets its own 90 s timeout and a data folder of its own under the test's
+``tmp_path`` (its working directory).
 """
 
 import json
@@ -41,6 +44,7 @@ from sesam_duke_microservice_tpu.engine.workload import (
 
 from test_sharded_service import DEDUP_XML, _seeded_batch
 from torch_jax_cache import jax_cache_off  # noqa: F401
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
@@ -88,8 +92,12 @@ class Group:
     """Both processes of a two-process group, the frontend's and the
     follower's replica plane's base URLs."""
 
-    def __init__(self, backend, xml, extra_env=None):
+    def __init__(self, backend, xml, folder, extra_env=None):
         env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+        # one intra-op thread a child: under ``pytest -n 6`` several
+        # groups' children share the cores, and torch's default of one
+        # thread a core spends the small ops' time in hand-offs
+        env.setdefault("OMP_NUM_THREADS", "1")
         env.update(PYTHONPATH=REPO + os.pathsep + env.get("PYTHONPATH", ""),
                    CONFIG_STRING=xml, MIN_RELEVANCE="0.05",
                    DUKE_DISPATCH_HOST="127.0.0.1",
@@ -102,7 +110,7 @@ class Group:
         self.procs = [subprocess.Popen(
             [sys.executable, CHILD, str(rank), coordinator, str(port),
              backend], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True, env=env, cwd=REPO) for rank in (0, 1)]
+            text=True, env=env, cwd=str(folder)) for rank in (0, 1)]
 
     def wait_up(self, deadline_s=CHILD_TIMEOUT_S):
         t0 = time.monotonic()
@@ -185,7 +193,7 @@ def _replica_caught_up(group, want_body, deadline_s=30):
 def test_two_process_serving_full_rest_surface(backend, tmp_path,
                                                jax_oracle):
     xml = _durable_xml(tmp_path / backend)
-    group = Group(backend, xml)
+    group = Group(backend, xml, tmp_path)
     ingest = f"{group.base}/deduplication/people/crm"
     try:
         group.wait_up()
@@ -246,10 +254,12 @@ def test_two_process_serving_full_rest_surface(backend, tmp_path,
 
 
 def test_prober_cycle_and_explain_return_on_the_group(tmp_path):
-    """The prober's shadow workload and the explain replay run on the
-    frontend alone: on the group they score the frontend's own shards as
-    a mesh of one process, return, and leave the group in lockstep."""
-    group = Group("sharded", DEDUP_XML, {"DUKE_PROBE_INTERVAL_S": "0.5"})
+    """The prober's shadow workload runs on the frontend alone (the
+    frontend's own shards as a mesh of one process) and the explain
+    replay through the op stream: both return and leave the group in
+    lockstep."""
+    group = Group("sharded", DEDUP_XML, tmp_path,
+                  {"DUKE_PROBE_INTERVAL_S": "0.5"})
     ingest = f"{group.base}/deduplication/people/crm"
     try:
         group.wait_up()
@@ -273,6 +283,87 @@ def test_prober_cycle_and_explain_return_on_the_group(tmp_path):
         explain = json.loads(body)
         assert explain["retrieval"]["retrieved"] is True
         # the group still serves in lockstep after both
+        assert _post(ingest, B2)[0] == 200
+        metrics = _get(f"{group.base}/metrics")[2].decode()
+        assert "duke_dispatch_followers 1" in metrics
+        assert "duke_dispatch_down 0" in metrics
+    finally:
+        group.stop()
+
+
+# 164 records before the explained pair: at the test knobs (DEVICE_CHUNK
+# 64, a global mesh of 4) the capacity is 256 rows, 64 a shard, so the
+# candidate's row lies on the follower's shards (rows 128-255)
+FILLER = _seeded_batch(140, prefix="f")
+FAR = {"_id": "far", "name": "solitary candidate", "email": "solo@x.no"}
+FAR_COPY = dict(FAR, _id="far-copy")
+EXPLAIN_POSTS = [B1, FILLER, [FAR], [FAR_COPY]]
+
+
+def _reference_retrievals():
+    """The explained pair's retrieval provenance from the JAX package's
+    sharded ``ann`` index on its in-process CPU mesh, and from the port's
+    on a single-process global mesh of 4 CPU shards, fed the group's
+    POSTs; with the candidate's shard in the port's layout."""
+    import torch
+
+    from sesam_duke_microservice_tpu.engine import explain as JX
+    from sesam_duke_microservice_tpu_torch.core.config import (
+        parse_config as tparse)
+    from sesam_duke_microservice_tpu_torch.engine import (
+        explain as TX, sharded_matcher as TSM)
+    from sesam_duke_microservice_tpu_torch.engine.workload import (
+        build_workload as tbuild)
+
+    out = {}
+    for name, parse, build, X, kw in (
+            ("jax", jparse, jbuild, JX, {}),
+            ("port", tparse, tbuild, TX, {"device": "cpu"})):
+        if name == "port":
+            TSM.set_serving_devices([torch.device("cpu")] * 4)
+        sc = parse(DEDUP_XML, env={"MIN_RELEVANCE": "0.05"})
+        wl = build(sc.deduplications["people"], sc, backend="sharded",
+                   persistent=False, **kw)
+        try:
+            with wl.lock:
+                for batch in EXPLAIN_POSTS:
+                    wl.process_batch("crm", batch)
+                find = wl.index.find_record_by_id
+                out[name] = X.retrieval_provenance(
+                    wl, find("crm__far-copy"), find("crm__far"))
+                if name == "port":
+                    local = wl.index.corpus.capacity // wl.index.mesh.size
+                    out["shard"] = wl.index.id_to_row["crm__far"] // local
+        finally:
+            wl.close()
+            if name == "port":
+                TSM.set_serving_devices(None)
+    return out
+
+
+def test_explain_ranks_a_candidate_on_the_follower_shards(tmp_path):
+    """``POST /explain`` on a group whose mesh spans processes gives the
+    JAX package's retrieval provenance for a candidate held on the
+    follower's shards: retrieved, at its rank among the whole corpus's
+    rows (a frontend-only replay would rank among its own rows and say
+    the candidate was never retrieved)."""
+    group = Group("sharded", DEDUP_XML, tmp_path)
+    ingest = f"{group.base}/deduplication/people/crm"
+    try:
+        # the references build while the children start
+        ref = _reference_retrievals()
+        assert ref["shard"] >= 2  # the follower holds global shards 2, 3
+        assert ref["jax"]["retrieved"] is True
+        group.wait_up()
+        for batch in EXPLAIN_POSTS:
+            assert _post(ingest, batch)[0] == 200
+        status, body = _post(f"{group.base}/explain", {
+            "name": "people", "id1": "crm__far-copy", "id2": "crm__far"})
+        assert status == 200
+        got = json.loads(body)["retrieval"]
+        for key in ("retrieved", "rank"):
+            assert got[key] == ref["jax"][key] == ref["port"][key], key
+        # the explain op kept the group in lockstep
         assert _post(ingest, B2)[0] == 200
         metrics = _get(f"{group.base}/metrics")[2].decode()
         assert "duke_dispatch_followers 1" in metrics

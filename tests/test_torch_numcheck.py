@@ -37,6 +37,7 @@ from sesam_duke_microservice_tpu_torch.utils import numcheck as tnumcheck
 
 from test_torch_finalize import _BATCH, _config, _entities
 from torch_jax_cache import jax_cache_off  # noqa: F401
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 MODULES = (jnumcheck, tnumcheck)
 

@@ -38,6 +38,7 @@ from sesam_duke_microservice_tpu_torch.utils import backoff as tbackoff
 from sesam_duke_microservice_tpu_torch.utils import faults as tfaults
 from sesam_duke_microservice_tpu_torch.utils import sqlite as tsqlite
 from torch_jax_cache import jax_cache_off  # noqa: F401
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 JAX = types.SimpleNamespace(
     name="jax", Record=jrecords.Record, ID=jrecords.ID_PROPERTY_NAME,

@@ -48,6 +48,7 @@ from test_probes import user_links
 from test_torch_finalize import _config as mixed_config
 from test_torch_slice import CONFIG_XML as STRESS_XML
 from torch_jax_cache import jax_cache_off  # noqa: F401
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 SCHEMAS = {"probe": CONFIG_XML, "stresstest": STRESS_XML,
            "mixed": mixed_config("mixed")}

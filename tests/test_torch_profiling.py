@@ -8,6 +8,7 @@ import pytest
 from sesam_duke_microservice_tpu_torch.utils import profiling as P
 from test_torch_growth import DEDUP, PORT, Run
 from torch_jax_cache import jax_cache_off  # noqa: F401
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 
 @pytest.fixture

@@ -54,6 +54,7 @@ from sesam_duke_microservice_tpu_torch.utils import faults
 
 from test_sharded_service import DEDUP_XML, LINKAGE_XML, _seeded_batch
 from torch_jax_cache import jax_cache_off  # noqa: F401
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 KEY = ("deduplication", "people")
 ONE_TO_ONE_XML = LINKAGE_XML.replace('link-mode="many-to-many"',

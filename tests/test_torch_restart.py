@@ -67,6 +67,7 @@ from sesam_duke_microservice_tpu_torch.store.records import LazyRecordMap
 
 from test_torch_slice import _Tape
 from torch_jax_cache import jax_cache_off  # noqa: F401
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 CONFIG = """
 <DukeMicroService dataFolder="{folder}">

@@ -28,6 +28,7 @@ from sesam_duke_microservice_tpu_torch.parallel import sharded as TP
 
 from test_torch_growth import DEDUP, PORT
 from torch_jax_cache import jax_cache_off  # noqa: F401
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CHUNK, TOP_K = 16, 8

@@ -57,6 +57,7 @@ from test_scheduler import (
     run_off,
 )
 from torch_jax_cache import jax_cache_off  # noqa: F401
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 DRAIN = 10.0  # seconds a scheduler shutdown may take in these tests
 

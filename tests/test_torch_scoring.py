@@ -43,6 +43,7 @@ from sesam_duke_microservice_tpu_torch.ops import bounds as TB
 from sesam_duke_microservice_tpu_torch.ops import features as TF
 from sesam_duke_microservice_tpu_torch.ops import scoring as TS
 from torch_jax_cache import jax_cache_off  # noqa: F401
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 CHUNK = 64
 TOP_K = 16

@@ -55,6 +55,7 @@ from test_sharded_service import (
 )
 from test_torch_growth import JAX, PORT, Tape
 from torch_jax_cache import jax_cache_off  # noqa: F401
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 CPU = torch.device("cpu")
 SINGLE = {"sharded-brute": "device", "sharded": "ann"}

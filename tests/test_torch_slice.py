@@ -36,6 +36,7 @@ from sesam_duke_microservice_tpu_torch.service.app import DukeApp as TApp
 from sesam_duke_microservice_tpu_torch.ops import features as TF
 from sesam_duke_microservice_tpu_torch.service.app import serve as tserve
 from torch_jax_cache import jax_cache_off  # noqa: F401
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 CONFIG_XML = """
 <DukeMicroService>

@@ -25,6 +25,7 @@ from sesam_duke_microservice_tpu_torch.engine import device_matcher as TDM
 from test_torch_feature_cache import dedup_schema, random_records
 from test_torch_growth import BOTH, JAX, PORT, Run, assert_same
 from torch_jax_cache import jax_cache_off  # noqa: F401
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 SLICE = 8
 

@@ -35,6 +35,7 @@ from sesam_duke_microservice_tpu_torch.telemetry.registry import (
 
 from test_telemetry import _assert_valid_exposition
 from torch_jax_cache import jax_cache_off  # noqa: F401
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 CONFIG_XML = """
 <DukeMicroService>
@@ -368,6 +369,20 @@ def test_request_id_header(live_app):
     assert headers2.get("X-Request-Id") != rid
 
 
+def _metrics_after(url, written):
+    """``/metrics`` once the sample ``written`` (a regex) is in it: a
+    handler thread counts its request after the response went out (the
+    JAX app's order), so a scrape sent as soon as the client has the
+    reply can run before that thread's counters on a loaded host."""
+    deadline = time.monotonic() + 10.0
+    while True:
+        status, headers, body = _get(url + "/metrics")
+        if (re.search(written, body.decode("utf-8"))
+                or time.monotonic() > deadline):
+            return status, headers, body
+        time.sleep(0.02)
+
+
 def test_metrics_end_to_end(live_app):
     app, url = live_app
     status, _ = _post_json(url + "/deduplication/people/crm", [
@@ -375,7 +390,10 @@ def test_metrics_end_to_end(live_app):
         {"_id": "m2", "name": "ole hansen"},
     ])
     assert status == 200
-    status, headers, body = _get(url + "/metrics")
+    # the POST's latency is observed last of what the test reads
+    status, headers, body = _metrics_after(
+        url, r'duke_http_request_seconds_count\{route="/deduplication/:name/'
+             r':datasetId",method="POST"\} 1')
     assert status == 200
     assert headers["Content-Type"].startswith("text/plain")
     text = body.decode("utf-8")
@@ -436,7 +454,8 @@ def test_busy_503_counter(live_app):
             assert status == 200
     finally:
         app_module.READ_LOCK_TIMEOUT_SECONDS = old_timeout
-    _, _, body = _get(url + "/metrics")
+    _, _, body = _metrics_after(
+        url, r'duke_http_busy_total\{route="/deduplication/:name"\} 1')
     text = body.decode("utf-8")
     assert re.search(
         r'duke_http_busy_total\{route="/deduplication/:name"\} 1', text)

@@ -42,6 +42,7 @@ from test_torch_service_surface import (
     served,
 )
 from torch_jax_cache import jax_cache_off  # noqa: F401
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 TRACERS = pytest.mark.parametrize("tracing", [jtracing, ttracing],
                                   ids=["jax", "port"])

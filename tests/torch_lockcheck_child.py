@@ -8,8 +8,10 @@ The paths: persistent ingest (record store, SQLite links behind
 write-behind and the journal) with the streamed append, the streamed
 ``?since=`` feed, a hot config reload, an arena spill and fault-in
 between two tenants, a canary-prober cycle, then a ``sharded-brute`` app
-on an 8-shard CPU mesh: ingest, feed and ``POST .../rematch``.  Exits
-non-zero when the sanitizer is off or a step fails.
+on an 8-shard CPU mesh: ingest, feed and ``POST .../rematch``; then a
+three-group federation of ``device`` groups behind its plane: a federated
+ingest, a feed page, a range probe cycle and a live range migration.
+Exits non-zero when the sanitizer is off or a step fails.
 """
 
 import json
@@ -148,6 +150,32 @@ def main() -> int:
     finally:
         server.shutdown()
         app.close()
+
+    # the federation: scatter ingest, the merged feed, the range prober
+    # and a live migration (freeze, snapshot, replay, cutover, drain)
+    from sesam_duke_microservice_tpu_torch.federation import Federation
+    from sesam_duke_microservice_tpu_torch.service.federation_plane import (
+        serve_federation)
+
+    with tempfile.TemporaryDirectory() as folder:
+        fed = Federation(parse_config(config(folder, ["f"])), n_groups=3,
+                         ranges_per_group=2, backend="device", device="cpu")
+        server = serve_federation(fed)
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        try:
+            post(base, "/deduplication/f/crm", batch(36, "f"))
+            status, body = request(base + "/deduplication/f?since=")
+            assert status == 200 and json.loads(body)
+            server.RequestHandlerClass.range_prober.run_cycle()
+            moved = next(r for r in fed.map.ranges() if r.group == 0)
+            result = post(base, "/federation/migrate",
+                          {"range": moved.range_id, "target": 1})
+            assert result["moved_records"] > 0, result
+            post(base, "/deduplication/f/crm", batch(12, "f2-"))
+            request(base + "/metrics")
+        finally:
+            server.shutdown()
+            fed.close()
 
     rep = lockcheck.report()
     print(json.dumps(rep, sort_keys=True))
