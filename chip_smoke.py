@@ -206,6 +206,25 @@ Phases, each fatal on failure:
    processes' hand-kernel launch counts equal (the lockstep check,
    printed per process with the collectives each entered); records/s and
    p50 POST of the group beside the twin's, and the collective backend;
+8e. the federation phase: three durable ``device`` groups on cuda:0 behind
+   the partition router (``phase_federation``): the ingest against three
+   standalone twins, a live range migration, the ``fed_down`` and
+   scatter-timeout drills;
+8f. the conformance phase (``phase_conformance``): the hand-derived goldens
+   of ``tests/goldens/comparator_goldens.json`` as tiles through the
+   Myers, Jaro-Winkler and intersection kernels (tiles equal to the plain
+   versions, distances and counts to the longhand, similarities within
+   ``certified_f32_margin`` of the goldens); the example-config flow of
+   ``tests/torch_longhand.py`` over HTTP on ``device``, ``sharded-brute``
+   and ``sharded`` (``[cuda:0] * 4``) and ``ann``, its links equal to the
+   longhand sets with confidences within 1e-9 (``ann``: a subset); a
+   durable ``device`` app of 65,536 stresstest records restarted from its
+   snapshot: its store-backed mirror walked by ``bulk_values`` (0 point
+   reads) and by ``values()`` in turns, ``find_candidate_matches`` for
+   64 linked records holding every feed partner, 4,096 deletes through
+   the index (live rows down by exactly that, the masks copied
+   incrementally) and a query POST of copies of the deleted records
+   linking to no deleted id;
 9. print the per-kernel JSON line, the card's name and power limit, and
    the result line ``{"ok": true, "device": {...}}`` last.
 
@@ -4331,6 +4350,353 @@ def post_fed(port, body):
         return e.code, e.headers.get("Retry-After"), payload
 
 
+# -- the conformance phase: the independent oracles and the index interface ---
+
+# the goldens' groups that have a device kernel, by comparator class
+GOLDENS = REPO / "tests" / "goldens" / "comparator_goldens.json"
+GOLDEN_KERNELS = {"levenshtein": "Levenshtein", "jaro_winkler": "JaroWinkler",
+                  "qgram_overlap": "QGram", "dice_tokens": "DiceCoefficient",
+                  "jaccard_tokens": "JaccardIndex"}
+# the demo config's NAME weights: the plan whose certified margin holds
+# the goldens' similarities
+GOLDEN_LOW, GOLDEN_HIGH = 0.09, 0.93
+EXAMPLE_BACKENDS = ("device", "sharded-brute", "sharded", "ann")
+CONFORMANCE_RECORDS = 65536
+CONFORMANCE_PROBES = 64
+CONFORMANCE_DELETES = 4096
+
+
+def phase_conformance(line):
+    """The port held to the repo's two oracles that do not pass through
+    either package's engine, and the index interface at a size users run:
+    (1) the hand-derived goldens through kernels #1, #3 and #5 on the
+    card; (2) the example-config flow over HTTP on ``device``,
+    ``sharded-brute`` and ``sharded`` (``[cuda:0] * 4``) and ``ann``
+    against the longhand oracle of tests/torch_longhand.py; (3)
+    ``find_candidate_matches`` and ``delete`` on a durable ``device`` app
+    of 65,536 stresstest records restored from its snapshot, and (4) that
+    restored store-backed mirror walked by ``bulk_values`` and by
+    ``values()`` in turns."""
+    import torch
+
+    t0 = time.perf_counter()
+    golden_tiles(line)
+    example_flows(line)
+    index_interface(line)
+    torch.cuda.synchronize()
+    print(f"conformance phase: {time.perf_counter() - t0:.1f} s [{line}]",
+          flush=True)
+
+
+def golden_tiles(line):
+    """Each golden group as one (Q, C) tile, every query against every
+    golden text, through the kernel wrappers on the card: distances and
+    counts equal to the plain versions and to the longhand (textbook DP,
+    Python set intersection), the Jaro-Winkler tile equal to its plain
+    version; the similarity of each golden pair through the scorer's
+    ``_property_sim`` within ``certified_f32_margin`` of the golden."""
+    import torch
+
+    import torch_longhand as LH
+    from sesam_duke_microservice_tpu_torch.core import comparators as C
+    from sesam_duke_microservice_tpu_torch.engine.device_matcher import (
+        _to_device)
+    from sesam_duke_microservice_tpu_torch.ops import bounds as B
+    from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
+    from sesam_duke_microservice_tpu_torch.ops import features as F
+    from sesam_duke_microservice_tpu_torch.ops import scoring as S
+
+    with open(GOLDENS) as f:
+        goldens = json.load(f)
+    ck.reset_launch_counts()
+    worst = {}
+    for group, name in GOLDEN_KERNELS.items():
+        cases = goldens[group]
+        v1 = [c["v1"] for c in cases]
+        v2 = [c["v2"] for c in cases]
+        n = len(cases)
+        cmp = getattr(C, name)()
+        spec = F.PropertyFeatureSpec(
+            name="p", kind=F.feature_kind(cmp), low=GOLDEN_LOW,
+            high=GOLDEN_HIGH, comparator=cmp, max_chars=32)
+        margin = B.certified_f32_margin(F.SchemaFeatures(device_props=[spec]))
+        qf, cf = ({k: _to_device(a, DEVICE) for k, a in
+                   F.extract_property(spec, [[v] for v in vs]).items()}
+                  for vs in (v1, v2))
+        if spec.kind == F.CHARS:
+            args = (qf["chars"][:, 0].contiguous(),
+                    qf["length"][:, 0].contiguous(),
+                    cf["chars"][:, 0].contiguous(),
+                    cf["length"][:, 0].contiguous())
+            if name == "Levenshtein":
+                got = ck.myers_distance_tiles(*args)
+                want = ck.myers_distance_tiles_reference(*args)
+                longhand = [LH.lev_distance(a, b) for a, b in zip(v1, v2)]
+            else:
+                equal = torch.zeros((n, n), dtype=torch.bool, device=DEVICE)
+                got = ck.jaro_winkler_sim_tiles(*args, equal)
+                want = ck.jaro_winkler_sim_tiles_reference(*args, equal)
+                longhand = None
+        else:
+            ids, count = (("grams", "gram_count") if spec.kind == F.GRAM_SET
+                          else ("tokens", "token_count"))
+            args = (qf[ids][:, 0].contiguous(), qf[count][:, 0].contiguous(),
+                    cf[ids][:, 0].contiguous(), cf[count][:, 0].contiguous())
+            got = ck.set_intersection_tiles(*args)
+            want = ck.set_intersection_tiles_reference(*args)
+            split = ((lambda v: {v[i:i + 2] for i in range(len(v) - 1)})
+                     if spec.kind == F.GRAM_SET else str.split)
+            longhand = [len(set(split(a)) & set(split(b)))
+                        for a, b in zip(v1, v2)]
+        if not torch.equal(got, want):
+            raise AssertionError(f"goldens {group}: the kernel's tile "
+                                 f"differs from its plain version")
+        if longhand is not None and torch.diagonal(got).tolist() != longhand:
+            raise AssertionError(f"goldens {group}: {torch.diagonal(got)} "
+                                 f"vs longhand {longhand}")
+        sim, _ = S._property_sim(spec, qf, cf)
+        sim = torch.diagonal(sim.reshape(n, n)).double().cpu()
+        expected = torch.tensor([c["expected"] for c in cases],
+                                dtype=torch.float64)
+        err = float((sim - expected).abs().max())
+        if err > margin:
+            raise AssertionError(f"goldens {group}: |sim - golden| {err} "
+                                 f"above the margin {margin}")
+        worst[group] = (n, err, margin)
+    torch.cuda.synchronize()
+    launches = dict(ck.LAUNCHES)
+    for kernel in ("myers_tile", "jw_tile", "intersect_tile"):
+        if launches[kernel] <= 0:
+            raise AssertionError(f"goldens: kernel {kernel} never launched")
+    print("goldens on the card: " + "; ".join(
+        f"{g} {n} cases, max |sim - golden| {e:.3e} (margin {m:.3e})"
+        for g, (n, e, m) in worst.items())
+        + f"; tiles equal to the plain versions and the longhand; launches "
+          f"myers_tile {launches['myers_tile']}, jw_tile "
+          f"{launches['jw_tile']}, intersect_tile "
+          f"{launches['intersect_tile']} [{line}]", flush=True)
+
+
+def example_flows(line):
+    """Steps 1-5 of the example-config flow (tests/torch_longhand.py) over
+    HTTP against the bundled default config on each backend; the mesh
+    backends on ``[cuda:0] * 4``."""
+    import torch
+
+    import torch_longhand as LH
+    from sesam_duke_microservice_tpu_torch.core.config import (
+        load_default_config)
+    from sesam_duke_microservice_tpu_torch.engine import sharded_matcher as SM
+    from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
+    from sesam_duke_microservice_tpu_torch.service.app import DukeApp
+
+    card = torch.device("cuda", 0) if DEVICE == "cuda" else DEVICE
+    for backend in EXAMPLE_BACKENDS:
+        mesh = backend.startswith("sharded")
+        if mesh:
+            SM.set_serving_devices([card] * MESH_SHARDS)
+        try:
+            with mock.patch.dict(os.environ, {"MIN_RELEVANCE": "0.05"}):
+                app = DukeApp(load_default_config(), backend=backend,
+                              persistent=False, device=DEVICE)
+            ck.reset_launch_counts()
+            t0 = time.perf_counter()
+            with serving(app) as port:
+                out = LH.example_flow(f"http://127.0.0.1:{port}",
+                                      subset=backend == "ann")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(ck.LAUNCHES)
+        finally:
+            if mesh:
+                SM.set_serving_devices(None)
+        need = ("myers_tile" if backend in ("device", "sharded-brute")
+                else "myers_gathered")
+        if launches[need] <= 0:
+            raise AssertionError(f"example flow on {backend}: kernel {need} "
+                                 "never launched")
+        linkage = sum(not r["_deleted"] for r in out["linkage"])
+        dedup = sum(not r["_deleted"] for r in out["dedup"])
+        print(f"example flow on {backend}: linkage {linkage} links, dedup "
+              f"{dedup}, equal to the longhand sets (confidences within "
+              f"{LH.CONFIDENCE_TOL}); longhand pairs missing: linkage "
+              f"{out['missing_linkage']}, dedup {out['missing_dedup']}; "
+              f"{wall:.2f} s; launches myers_tile {launches['myers_tile']}, "
+              f"myers_gathered {launches['myers_gathered']}, "
+              f"retrieval_segmax {launches['retrieval_segmax']} [{line}]",
+              flush=True)
+
+
+class PointReads:
+    """Counts a record store's point ``get`` calls."""
+
+    def __init__(self, store):
+        self.store, self.n = store, 0
+        self.real = store.get
+
+    def __enter__(self):
+        def get(rid):
+            self.n += 1
+            return self.real(rid)
+
+        self.store.get = get
+        return self
+
+    def __exit__(self, *exc):
+        del self.store.get  # back to the class's method
+        return False
+
+
+def index_interface(line):
+    """A durable ``device`` app fed 65,536 stresstest records (every 16th
+    a copy), closed and restarted from its snapshot, so that its mirror
+    is the store-backed ``LazyRecordMap``: two walks of that mirror by
+    ``bulk_values`` and two by ``values()`` (walls and point reads); then
+    ``find_candidate_matches`` for 64 linked records (each must hold every
+    record the feed links it to), 4,096 deletes through the index (the
+    live rows drop by exactly that, the masks go up by the incremental
+    copy) and a query POST of copies of the deleted records (no link to a
+    deleted id).  The deletes come after the restart: an index delete
+    leaves the record store holding the rows, so a restart after it
+    rightly replays the store instead of restoring the snapshot."""
+    import tempfile
+
+    import torch
+
+    from sesam_duke_microservice_tpu_torch import telemetry
+    from sesam_duke_microservice_tpu_torch.core.config import parse_config
+    from sesam_duke_microservice_tpu_torch.ops import cuda_kernels as ck
+    from sesam_duke_microservice_tpu_torch.service.app import DukeApp
+    from sesam_duke_microservice_tpu_torch.store.records import LazyRecordMap
+
+    path = "/deduplication/people/crm"
+    entities = stresstest_entities(CONFORMANCE_RECORDS, 2718, "k")
+    entities = with_copies(entities, entities[: CONFORMANCE_RECORDS // 2],
+                           16, 9)
+    with tempfile.TemporaryDirectory(prefix="duke-conformance-") as tmp:
+        config = parse_config(config_xml({"people": STRESS_SCHEMA},
+                                         data_folder=tmp))
+        app = DukeApp(config, backend="device", device=DEVICE)
+        with serving(app) as port:
+            _, ingest_s = ingest(port, path, entities)
+        app = DukeApp(config, backend="device", device=DEVICE)
+        wl = app.deduplications["people"]
+        if wl.restore_route != "snapshot":
+            app.close()
+            raise AssertionError(f"conformance: restart took route "
+                                 f"{wl.restore_route}, not snapshot")
+        with serving(app) as port:
+            index = wl.index
+            mirror = index.records
+            if not isinstance(mirror, LazyRecordMap):
+                raise AssertionError("conformance: the restored mirror is "
+                                     f"a {type(mirror).__name__}, not "
+                                     "store-backed")
+            # (4) the bulk walk of the restored mirror against values(),
+            # in turns (bulk, values, values, bulk), each from an empty
+            # LRU: values() caches what it decodes
+            walks = {"bulk_values": [], "values": []}
+            rows_of = {}
+            for name in ("bulk_values", "values", "values", "bulk_values"):
+                mirror._lru.clear()
+                with PointReads(mirror._store) as reads:
+                    t0 = time.perf_counter()
+                    got = {r.record_id: r.to_dict()
+                           for r in getattr(mirror, name)()}
+                    walks[name].append((time.perf_counter() - t0, reads.n))
+                rows_of.setdefault(name, got)
+                want_reads = 0 if name == "bulk_values" else len(mirror)
+                if reads.n != want_reads or len(got) != len(mirror):
+                    raise AssertionError(
+                        f"{name} walk: {reads.n} point reads, {len(got)} "
+                        f"rows of {len(mirror)}")
+            if rows_of["bulk_values"] != rows_of["values"]:
+                raise AssertionError("bulk walk: rows differ from values()")
+            print(f"bulk walk of the restored mirror ({len(mirror)} records, "
+                  f"in turns bulk, values, values, bulk): bulk_values "
+                  + ", ".join(f"{s:.3f} s" for s, _ in walks["bulk_values"])
+                  + " with 0 point reads; values() "
+                  + ", ".join(f"{s:.3f} s" for s, _ in walks["values"])
+                  + f" with {len(mirror)} point reads each; rows equal "
+                  f"[{line}]", flush=True)
+
+            # (3) the index interface on the restored app
+            rows = [r for r in feed(port, "/deduplication/people")
+                    if not r["_deleted"]]
+            partners = {}
+            for r in rows:
+                a, b = (f"crm__{r['entity1']}", f"crm__{r['entity2']}")
+                partners.setdefault(a, set()).add(b)
+                partners.setdefault(b, set()).add(a)
+            linked = sorted(partners)
+            if len(linked) < CONFORMANCE_DELETES:
+                raise AssertionError(f"conformance: only {len(linked)} "
+                                     "linked records")
+            ck.reset_launch_counts()
+            t0 = time.perf_counter()
+            with wl.lock:
+                for rid in linked[:CONFORMANCE_PROBES]:
+                    found = {c.record_id for c in
+                             index.find_candidate_matches(mirror[rid])}
+                    if not partners[rid] <= found:
+                        raise AssertionError(
+                            f"find_candidate_matches({rid}) lacks "
+                            f"{sorted(partners[rid] - found)[:5]}")
+            torch.cuda.synchronize()
+            probe_s = time.perf_counter() - t0
+            probe_launches = ck.LAUNCHES["myers_tile"]
+            corpus = index.corpus
+            gone = linked[-CONFORMANCE_DELETES:]
+            live = corpus.live_rows
+            full = telemetry.CORPUS_FULL_UPLOADS.single().value
+            t0 = time.perf_counter()
+            with wl.lock:
+                for rid in gone:
+                    index.delete(mirror[rid])
+                delete_s = time.perf_counter() - t0
+                after = corpus.live_rows
+                if after != live - CONFORMANCE_DELETES:
+                    raise AssertionError(
+                        f"delete: live rows {live} -> {after}")
+                if corpus._dirty_full:
+                    raise AssertionError("delete: a full upload is pending")
+                corpus.device_arrays()
+            if (telemetry.CORPUS_FULL_UPLOADS.single().value != full
+                    or corpus._dirty_full or corpus._mask_rows):
+                raise AssertionError("delete: the masks were not copied "
+                                     "incrementally")
+            if any(rid in mirror or rid in index.id_to_row for rid in gone):
+                raise AssertionError("delete: a deleted id is still indexed")
+            # the query POST: copies of the deleted records under new ids
+            before = {r["_id"] for r in rows}
+            by_id = {e["_id"]: e for e in entities}
+            dead = {rid.split("__", 1)[1] for rid in gone}
+            query = [dict(by_id[e], _id=f"z{e}") for e in sorted(dead)]
+            ck.reset_launch_counts()
+            post_s = post(port, path, query)
+            torch.cuda.synchronize()
+            post_launches = ck.LAUNCHES["myers_tile"]
+            new = [r for r in feed(port, "/deduplication/people")
+                   if r["_id"] not in before and not r["_deleted"]]
+            bad = [r for r in new if r["entity1"] in dead
+                   or r["entity2"] in dead]
+            if bad:
+                raise AssertionError(f"query POST: {len(bad)} links to "
+                                     f"deleted ids, e.g. {bad[:2]}")
+            if post_launches <= 0:
+                raise AssertionError("query POST: Myers W=1 never launched")
+    print(f"index interface at {CONFORMANCE_RECORDS} records (durable "
+          f"ingest {ingest_s:.1f} s, restored from the snapshot): "
+          f"find_candidate_matches for {CONFORMANCE_PROBES} linked records "
+          f"held every feed partner, {probe_s:.3f} s, Myers W=1 launches "
+          f"{probe_launches}; {CONFORMANCE_DELETES} deletes {delete_s:.3f} "
+          f"s, live rows {live} -> {after}, masks copied "
+          f"incrementally (no full upload); query POST of "
+          f"{len(query)} copies of the deleted records {post_s:.3f} s, "
+          f"{len(new)} new links, none to a deleted id, Myers W=1 launches "
+          f"{post_launches} [{line}]", flush=True)
+
+
 def char_inputs(q, c, l, seed):
     """Small-alphabet chars so matches are real; random lengths with the
     edge cases (empty and full-width patterns and texts) forced in."""
@@ -4836,6 +5202,7 @@ def main() -> int:
     phase_mesh(line)
     phase_multihost(line)
     phase_federation(line)
+    phase_conformance(line)
 
     def one_word(s):
         return ck.kernel_words(s[2]) == 1

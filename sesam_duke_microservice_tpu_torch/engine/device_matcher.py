@@ -591,6 +591,41 @@ class DeviceIndex(CandidateIndex):
     def find_record_by_id(self, record_id: str) -> Optional[Record]:
         return self.records.get(record_id)
 
+    def find_candidate_matches(self, record: Record,
+                               group_filtering: bool = False) -> List[Record]:
+        """Interface-parity path: scores one record against the corpus and
+        returns every live record whose *device* probability clears
+        ``min_relevance``-equivalent pruning.  The DeviceProcessor fast path
+        bypasses this."""
+        result = resolve_block(self.scorer_cache.dispatch_block(
+            [record], group_filtering=group_filtering))
+        out: List[Record] = []
+        for _, row, _logit in result.survivor_triples(0):
+            rid = self.corpus.row_ids[row]
+            rec = self.records.get(rid)
+            if rec is not None:
+                out.append(rec)
+        return out
+
+    def delete(self, record: Record) -> None:
+        """Drop a record from the index: its row is tombstoned (the
+        incremental mask copy carries it to the device; the live count
+        drops only for a row not already deleted) and its id leaves the
+        mirror -- without a decode in lazy mode, whose content hash rides
+        the store-synced stamp."""
+        with self._lock:
+            row = self.id_to_row.pop(record.record_id, None)
+            if row is not None:
+                self.corpus.tombstone(row)
+            if isinstance(self.records, LazyRecordMap):
+                self.records.discard(record.record_id)
+            else:
+                old = self.records.pop(record.record_id, None)
+                if old is not None:
+                    self._content_hash = xor_fold(
+                        self._content_hash, record_digest(old)
+                    )
+
     @property
     def live_records(self) -> int:
         """Live (non-dukeDeleted) indexed records, O(1) and lock-free for

@@ -328,6 +328,10 @@ class WriteBehindLinkDatabase(LinkDatabase):
         plan = faults.active()
         if plan is not None:
             plan.check_crash("pre_flush")
+            # chaos hook (DUKE_FAULTS flush_fail): a raised injection
+            # takes the retry ladder and then the latch exactly like a
+            # real disk failure
+            plan.check_flush("link write-behind")
         self.inner.assert_links(links)
         if plan is not None:
             plan.check_crash("mid_flush")

@@ -910,3 +910,9 @@ def dd_rescorer(plan: "F.SchemaFeatures", *, queries_from_rows: bool = True,
             _DD_CACHE.pop(next(iter(_DD_CACHE)))
         _DD_CACHE[key] = fn
     return fn
+
+
+def logit_to_probability(logit: np.ndarray) -> np.ndarray:
+    """The Bayes fold's probability of a pair logit, in float64 on the
+    host (the JAX package's formula)."""
+    return 1.0 / (1.0 + np.exp(-np.asarray(logit, dtype=np.float64)))

@@ -109,6 +109,7 @@ from ..telemetry import slo, tracing
 from ..telemetry.decisions import audit_log
 from ..telemetry.logctx import new_request_id, request_id_var
 from ..telemetry.probes import is_probe_name, probes_enabled
+from ..utils import faults
 from ..utils.backoff import full_jitter_delay
 from . import debug as debug_api
 from .homepage import render_homepage
@@ -1096,6 +1097,13 @@ class DukeRequestHandler(BaseHTTPRequestHandler):
                         self.close_connection = True
                         return
                     raise self._unknown(400, kind, name)
+                # chaos hook (DUKE_FAULTS slow_lock): a deterministic
+                # stall before the acquire drives the deadline path
+                plan = faults.active()
+                if plan is not None:
+                    stall = plan.lock_delay()
+                    if stall:
+                        time.sleep(stall)
                 if not workload.lock.acquire(
                         timeout=READ_LOCK_TIMEOUT_SECONDS):
                     if not started:

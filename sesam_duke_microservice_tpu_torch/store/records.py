@@ -140,6 +140,18 @@ class LazyRecordMap:
         self._ids.add(rid)
         self._cache(rid, record)
 
+    def pop(self, rid: str, default=None):
+        record = self.get(rid, default)
+        self._ids.discard(rid)
+        self._lru.pop(rid, None)
+        return record
+
+    def discard(self, rid: str) -> None:
+        """Remove without decoding (pop pays a store read just to return
+        a value the lazy-mode delete path never uses)."""
+        self._ids.discard(rid)
+        self._lru.pop(rid, None)
+
     def __contains__(self, rid) -> bool:
         return rid in self._ids
 
@@ -149,12 +161,26 @@ class LazyRecordMap:
     def __iter__(self):
         return iter(self._ids)
 
+    def keys(self):
+        return iter(self._ids)
+
     def values(self):
         """Streaming decode in id order (memory-bounded by the LRU) —
         only rare bulk paths (value-slot rebuild) walk this."""
         for rid in list(self._ids):
             record = self.get(rid)
             if record is not None:
+                yield record
+
+    def bulk_values(self):
+        """Corpus-scale streaming walk via the store's bulk cursor —
+        ``values()`` pays one point SELECT per id, which turns a 10M-row
+        walk (multi-host bootstrap streaming) into hours.  Rows whose id
+        has been popped from the membership authority are skipped; the
+        store is never BEHIND the map for live ids (the workload persists
+        before indexing), so the cursor view is current."""
+        for record in self._store.all_records():
+            if record.record_id in self._ids:
                 yield record
 
     def prefetch(self, rids) -> None:

@@ -17,8 +17,8 @@ This module is the engine-free half: namespace contract, corpus
 derivation, per-workload probe state (single-writer, scrape-time
 snapshots -- the PhaseRecorder discipline) and the ``duke_probe_*``
 metric families.  ``service/prober.py`` owns workload lifecycles and
-the injection loop.  (The JAX package's per-range federation family
-waits for the federation modules.)
+the injection loop; ``range_probe_family`` is the federation's
+per-range family (``service/prober.RangeProber``).
 
 Namespace contract: every probe workload and probe dataset id carries
 the ``__probe__`` prefix.  Probe workloads are registered ONLY with the

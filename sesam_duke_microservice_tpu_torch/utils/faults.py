@@ -1,6 +1,6 @@
 """Deterministic fault injection: the serving group's dispatch faults, the
-ingest crash sites for the kill-differential tests, and the canary
-prober's verdict-flip drill.
+write-behind flush and feed-lock drills, the ingest crash sites for the
+kill-differential tests, and the canary prober's verdict-flip drill.
 
 The port's share of the JAX package's ``utils/faults.py``.  Activation is
 the ``DUKE_FAULTS`` env var (or ``configure()`` from tests), a
@@ -23,6 +23,12 @@ the same ops whatever the thread interleaving.  The token kinds read here
                                    at its ``n``-th received op
   ``crash_leader=<n>``             the dispatcher raises LeaderCrash
                                    before broadcasting op ``n``
+  ``flush_fail=<n>``               the ``n``-th write-behind link flush
+                                   raises (drives the latch and the
+                                   ``/readyz`` unready flip)
+  ``slow_lock=<p>:<seconds>``      feed-path lock acquisitions sleep
+                                   first (drives the bounded-backoff
+                                   mid-stream deadline path)
   ``crash_at=<site>:<n>``          SIGKILL this process the ``n``-th time
                                    the named crash site is reached -- no
                                    cleanup, no atexit, the honest crash a
@@ -51,12 +57,13 @@ nothing shipped), ``mid_replay`` (snapshot loaded at the target, journal
 slice partly replayed), ``pre_cutover`` (target complete, map still names
 the source) and ``post_cutover`` (map cut over, drain pending).
 
-The JAX package's other token kinds (``flush_fail``, ``slow_lock``) are
-accepted and ignored, so one spec drives both packages.  Every injected
-fault counts in ``duke_faults_injected_total{kind}``.  Wired into
-``parallel/dispatch.py`` (send path and follower loop), the ingest and
-migration crash sites, the prober and the federation router
-(``fed_down``); with no spec every hook is one env read.
+Every token kind is the JAX package's, so one spec drives both packages.
+Every injected fault counts in ``duke_faults_injected_total{kind}``.
+Wired into ``parallel/dispatch.py`` (send path and follower loop),
+``links/write_behind.py`` (flush), ``service/app.py`` (the streamed
+feed's lock), the ingest and migration crash sites, the prober and the
+federation router (``fed_down``); with no spec every hook is one env
+read.
 """
 
 from __future__ import annotations
@@ -83,6 +90,10 @@ class InjectedSendFailure(OSError):
     BEFORE any bytes hit the wire -- retrying it cannot tear a frame."""
 
 
+class InjectedFlushFailure(IOError):
+    """Injected write-behind flush failure (latches the buffer)."""
+
+
 # cached label children: fault kinds are a tiny closed set, so each child
 # resolves through the family lock at most once
 _KIND_CHILDREN: Dict[str, object] = {}
@@ -103,10 +114,6 @@ def _unit(seed: int, *key) -> float:
     return int.from_bytes(h[:8], "big") / float(1 << 64)
 
 
-# token kinds of the JAX package's spec the port reads no hook for
-_IGNORED = ("flush_fail", "slow_lock")
-
-
 class FaultPlan:
     def __init__(self, spec: str):
         self.spec = spec
@@ -121,12 +128,16 @@ class FaultPlan:
         # follower -> op count at which its loop dies
         self._follower_crash: Dict[int, int] = {}
         self._leader_crash: Optional[int] = None
+        self._flush_fail_at: Optional[int] = None
+        self._slow_lock: Optional[Tuple[float, float]] = None
         # crash site name -> 1-based occurrence that kills the process
         self._crash_at: Dict[str, int] = {}
         self._lock = threading.Lock()
         self._crash_counts: Dict[str, int] = {}  # guarded by: self._lock
         self._probe_flip_at: Optional[int] = None
         self._probe_count = 0  # guarded by: self._lock
+        self._flush_count = 0  # guarded by: self._lock
+        self._lock_count = 0  # guarded by: self._lock
         # federation groups whose router calls fail
         self._fed_down: set = set()
         for raw in spec.replace(",", ";").split(";"):
@@ -155,13 +166,17 @@ class FaultPlan:
                     self._follower_crash[int(parts[0])] = int(parts[1])
                 elif kind == "crash_leader":
                     self._leader_crash = int(parts[0])
+                elif kind == "flush_fail":
+                    self._flush_fail_at = int(parts[0])
+                elif kind == "slow_lock":
+                    self._slow_lock = (float(parts[0]), float(parts[1]))
                 elif kind == "probe_flip":
                     self._probe_flip_at = int(parts[0])
                 elif kind == "crash_at":
                     self._crash_at[parts[0]] = int(parts[1])
                 elif kind == "fed_down":
                     self._fed_down.add(int(parts[0]))
-                elif kind not in _IGNORED:
+                else:
                     raise ValueError(f"unknown fault kind {kind!r}")
             except (IndexError, ValueError) as e:
                 raise ValueError(
@@ -217,6 +232,21 @@ class FaultPlan:
             return True
         return False
 
+    # -- write-behind flush ---------------------------------------------------
+
+    def check_flush(self, name: str) -> None:
+        """Count one write-behind flush; raise ``InjectedFlushFailure`` at
+        the configured occurrence (spec ``flush_fail=<n>``)."""
+        if self._flush_fail_at is None:
+            return
+        with self._lock:
+            self._flush_count += 1
+            hit = self._flush_count == self._flush_fail_at
+        if hit:
+            _count("flush_fail")
+            raise InjectedFlushFailure(
+                f"injected {name} flush failure (DUKE_FAULTS flush_fail)")
+
     # -- canary prober --------------------------------------------------------
 
     def probe_flip(self) -> bool:
@@ -267,6 +297,23 @@ class FaultPlan:
             _count("fed_down")
             return True
         return False
+
+    # -- lock paths -----------------------------------------------------------
+
+    def lock_delay(self) -> float:
+        """Seconds the feed path should stall before a lock attempt (spec
+        ``slow_lock=<p>:<seconds>``; the n-th attempt draws
+        ``_unit(seed, "slow_lock", n)``)."""
+        if self._slow_lock is None:
+            return 0.0
+        p, seconds = self._slow_lock
+        with self._lock:
+            self._lock_count += 1
+            n = self._lock_count
+        if _unit(self.seed, "slow_lock", n) < p:
+            _count("slow_lock")
+            return seconds
+        return 0.0
 
 
 _cached: Tuple[Optional[str], Optional[FaultPlan]] = (None, None)

@@ -224,7 +224,7 @@ def test_debug_profile_cycle_and_reset_keys_equal_jax(pair, monkeypatch):
     assert [a[0] for a in seen[1]] == [200, 409, 400, 200, 200]
 
 
-def test_unported_debug_routes_answer_404(pair):
+def test_every_jax_debug_route_is_served(pair):
     """No ``/debug`` route of the JAX app answers 404 on the port any
     more: ``/debug/loadmap`` serves the JAX app's payload (the federation
     heat map, empty on a single group), and the canary prober's

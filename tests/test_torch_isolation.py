@@ -169,12 +169,12 @@ def _imports(path: Path):
 
 
 def test_no_source_file_imports_jax_or_the_jax_package():
-    # chip_smoke.py imports tests/wide_units.py and runs
-    # tests/torch_crash_recovery_child.py; myers_ab.py and telemetry_ab.py
-    # import chip_smoke.py
+    # chip_smoke.py imports tests/wide_units.py and tests/torch_longhand.py
+    # and runs tests/torch_crash_recovery_child.py; myers_ab.py and
+    # telemetry_ab.py import chip_smoke.py
     files = sorted(PORT.rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "myers_ab.py", REPO / "telemetry_ab.py",
-        REPO / "tests" / "wide_units.py",
+        REPO / "tests" / "wide_units.py", REPO / "tests" / "torch_longhand.py",
         REPO / "tests" / "torch_crash_recovery_child.py"]
     assert len(files) > 15
     for mod in ("store/records.py", "links/journal.py",
