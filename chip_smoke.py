@@ -883,7 +883,8 @@ def routes_line(before, what):
             f" [host cores {os.cpu_count()}]")
 
 
-SPLIT_FIELDS = ("retrieval_seconds", "compare_seconds", "dd_seconds")
+SPLIT_FIELDS = ("dispatch_seconds", "wait_seconds", "dd_seconds",
+                "finalize_seconds", "device_seconds")
 
 
 def split_fields(stats):
@@ -966,8 +967,7 @@ def finalization_split(port, workload, batch, line):
     s0 = split_fields(stats)
     with comparator_clock() as totals:
         wall = post(port, f"/deduplication/{workload.name}/crm", batch)
-    final = stats_since(stats, s0)
-    host = final.compare_seconds - final.dd_seconds
+    host = stats_since(stats, s0).finalize_seconds
     print(f"{workload.name} finalization split (one {len(batch)}-record "
           f"POST, wall {wall:.3f} s, host finalization {host:.3f} s, "
           f"per-compare clock on): " + "; ".join(
@@ -998,7 +998,7 @@ def mixed_finalization_split(port, mixed, batches, line):
             post(port, path, batch)
             d = stats_since(stats, s0)
             mixed.processor.finalizer.shutdown()
-            times.append((threads, d.compare_seconds - d.dd_seconds))
+            times.append((threads, d.finalize_seconds))
     finally:
         mixed.processor.finalizer = old
     print("mixed host finalization by DUKE_FINALIZE_THREADS, one "
@@ -1309,13 +1309,16 @@ def phase_host_extraction(workload, entities, line):
 
 
 def split_line(stats, wall, line):
-    wait = stats.retrieval_seconds
-    final = stats.compare_seconds
-    return (f"wall {wall:.3f} s: waiting on the device's block results "
-            f"{wait:.3f} s, the dd rescore {stats.dd_seconds:.3f} s, host "
-            f"finalization {final - stats.dd_seconds:.3f} s, the rest (HTTP, "
-            f"JSON, extraction, upload, kernel launches) "
-            f"{wall - wait - final:.3f} s (host clock) [{line}]")
+    parts = (stats.dispatch_seconds + stats.wait_seconds + stats.dd_seconds
+             + stats.finalize_seconds)
+    return (f"wall {wall:.3f} s: dispatching the blocks (query preparation, "
+            f"corpus upload, kernel launches) {stats.dispatch_seconds:.3f} "
+            f"s, waiting on their results {stats.wait_seconds:.3f} s, the dd "
+            f"rescore {stats.dd_seconds:.3f} s, host finalization "
+            f"{stats.finalize_seconds:.3f} s, the rest (HTTP, JSON, "
+            f"extraction, persist) {wall - parts:.3f} s (host clock); the "
+            f"programs' device time {stats.device_seconds:.3f} s (CUDA "
+            f"events) [{line}]")
 
 
 def phase_slice1(app, port, line):
@@ -2640,8 +2643,11 @@ def streamed_ingest(app, port, posts, queries, traced, line):
 
 def capture_around_post(port, path, body, line):
     """``POST /debug/profile?seconds=N`` around a query POST sent by
-    another thread: the capture's kernels and ``record_function`` ranges.
-    Returns (kernel names and counts, range names, the POST's wall)."""
+    another thread: the capture's kernels, ``record_function`` ranges and
+    the retained host spans it carries on its own row.  Returns (kernel
+    names and counts, range names, span names and counts, the POST's
+    wall)."""
+    from sesam_duke_microservice_tpu_torch.utils import profiling
     seconds = 6
     status, _, info = post_json(port, f"/debug/profile?seconds={seconds}",
                                 {})
@@ -2664,16 +2670,17 @@ def capture_around_post(port, path, body, line):
     if len(files) != 1:
         raise AssertionError(f"debug: the capture wrote {len(files)} files")
     events = json.loads(files[0].read_text())["traceEvents"]
-    kernels, ranges = {}, {}
+    kernels, ranges, spans = {}, {}, {}
     for e in events:
         if e.get("ph") != "X":
             continue
-        bucket = (kernels if e.get("cat") == "kernel" else ranges
+        bucket = (spans if e.get("pid") == profiling.SPAN_ROW_PID
+                  else kernels if e.get("cat") == "kernel" else ranges
                   if e.get("cat") == "user_annotation" else None)
         if bucket is not None:
             name = e["name"][:60]
             bucket[name] = bucket.get(name, 0) + 1
-    return kernels, ranges, wall[0]
+    return kernels, ranges, spans, wall[0]
 
 
 def explain_pair_on_card(port, app, workload, id1, id2, line):
@@ -2820,8 +2827,9 @@ def phase_debug(line):
         _, _, tree = get_json(port, f"/debug/traces/{trace_id}")
         names = {s["name"] for s in tree["spans"]}
         need = {"POST /deduplication/:name/:datasetId", "sched.queued",
-                "sched.microbatch", "encode", "encode.stream_append",
-                "retrieve", "score", "persist", "links:assert_batch"}
+                "sched.microbatch", "ingest.convert", "encode",
+                "encode.stream_append", "scan.dispatch", "scan.wait",
+                "finalize", "persist", "links:assert_batch"}
         if not need <= names:
             raise AssertionError(f"debug: the trace lacks {need - names}")
         _, _, chrome = get_json(port,
@@ -2877,7 +2885,7 @@ def phase_debug(line):
               flush=True)
 
         # 3. an on-demand capture around a query POST from another thread
-        kernels, ranges, wall = capture_around_post(
+        kernels, ranges, spans, wall = capture_around_post(
             port, "/deduplication/people/crm",
             with_copies(stresstest_entities(INGEST_BATCH, 999, "r"),
                         entities, 16, 2), line)
@@ -2887,7 +2895,9 @@ def phase_debug(line):
               f"capture; {sum(kernels.values())} kernels, top "
               f"{sorted(kernels.items(), key=lambda kv: -kv[1])[:8]}; the "
               f"port's kernels {sorted(set(mine))}; record_function ranges "
-              f"{sorted(ranges.items())[:12]} [{line}]", flush=True)
+              f"{sorted(ranges.items())[:12]}; retained host spans on "
+              f"their row {sorted(spans.items())[:12]} [{line}]",
+              flush=True)
         if "myers_tile" not in mine:
             raise AssertionError("debug: the capture holds no Myers kernel")
 

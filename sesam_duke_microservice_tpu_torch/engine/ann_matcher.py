@@ -44,6 +44,7 @@ from .device_matcher import (
     _PendingBlock,
     _Fetch,
     _ScorerCache,
+    _device_clock,
     resolve_block,
 )
 
@@ -193,6 +194,7 @@ class _AnnScorerCache(_ScorerCache):
                 np.full((n, 1), S.NEG_INF, np.float32),
                 np.full((n, 1), -1, np.int32), min_logit,
             )
+        start = _device_clock(index.device)
         qfeats, from_rows, query_row, query_group = self._prepare_queries(
             records, group_filtering)
         # gathered from the corpus rows by the scorer when from_rows
@@ -232,7 +234,7 @@ class _AnnScorerCache(_ScorerCache):
             corpus.capacity, n, min_logit, c0, call,
             (qfeats, from_rows, query_row),
             needs_escalation=lambda cmax, c: cmax >= c,
-            stage="ivf" if ivf is not None else "top_c")
+            stage="ivf" if ivf is not None else "top_c", start=start)
 
 
 class AnnProcessor(DeviceProcessor):

@@ -134,6 +134,19 @@ def _stream_append_slice(n: int) -> Optional[int]:
     return slice_n if n > slice_n else None
 
 
+# bytes handed host -> device through ``_to_device``, per thread: a
+# workload's pass runs on one thread, which reads its own running count
+# around each phase (``h2d_bytes``), so the count needs no lock
+_H2D = threading.local()
+
+
+def h2d_bytes() -> int:
+    """The running count of bytes this thread has queued host to device
+    through ``_to_device`` (callers take differences).  On the CPU the
+    same tensors are handed over without a copy and still count."""
+    return getattr(_H2D, "n", 0)
+
+
 def _to_device(arr: np.ndarray, device: torch.device,
                prop: str = None) -> torch.Tensor:
     """Host mirror -> device tensor; uint16 chars widen to int32 here,
@@ -142,12 +155,36 @@ def _to_device(arr: np.ndarray, device: torch.device,
     pageable source is staged by the copy call itself, and a blocking copy
     would synchronize the stream behind queued scoring."""
     if arr.dtype == np.uint16 and prop == E.ANN_PROP:
-        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).to(
+        src = np.ascontiguousarray(arr).view(np.int16)
+        _H2D.n = h2d_bytes() + src.nbytes
+        return torch.from_numpy(src).to(
             device, non_blocking=True).view(torch.bfloat16)
     if arr.dtype == np.uint16:
         arr = arr.astype(np.int32)
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device,
-                                                          non_blocking=True)
+    src = np.ascontiguousarray(arr)
+    _H2D.n = h2d_bytes() + src.nbytes
+    return torch.from_numpy(src).to(device, non_blocking=True)
+
+
+def _device_clock(device: torch.device):
+    """A timing event recorded now on the current stream when ``device``
+    is a card, else None: it reads the card's clock as the stream reaches
+    it, so the interval to a later event is the device time of the work
+    queued between them, including any gap in which the card waited for
+    the host's next launch.  Recording adds no synchronization."""
+    if device.type != "cuda":
+        return None
+    event = torch.cuda.Event(enable_timing=True)
+    event.record()
+    return event
+
+
+def _elapsed_seconds(start, end) -> float:
+    """Seconds between two timing events that have completed (after a
+    synchronization the caller already made), 0 without them."""
+    if start is None or end is None:
+        return 0.0
+    return start.elapsed_time(end) / 1e3
 
 
 def _grow_1d(arr: np.ndarray, cap: int, fill) -> np.ndarray:
@@ -1253,6 +1290,10 @@ class _BlockResult:
         self.min_logit = min_logit
         self.dd_ctx = dd_ctx
         self.dd = None
+        # the block's width escalations and the CUDA-event time of its
+        # programs (the scan, its re-runs and the dd rescore; 0 on the CPU)
+        self.escalations = 0
+        self.device_seconds = 0.0
 
     def survivor_triples(self, q: int) -> List[Tuple[int, int, float]]:
         """(k_position, corpus_row, device_logit) survivors of query q."""
@@ -1278,7 +1319,9 @@ class _Fetch:
             self.host = torch.empty(packed.shape, dtype=torch.int32,
                                     pin_memory=True)
             self.host.copy_(packed, non_blocking=True)
-            self.event = torch.cuda.Event()
+            # timing-enabled: the end of the block's device time
+            # (resolve_block)
+            self.event = torch.cuda.Event(enable_timing=True)
             self.event.record()
         else:
             self.host = packed
@@ -1298,11 +1341,14 @@ class _PendingBlock:
     """In-flight scoring call; ``call(k)`` re-runs the scorer at width k.
     ``needs_escalation(count_max, k)`` is the backend's saturation
     predicate (brute force: some query overflowed K; ``ann``: retrieval
-    saturated at C), ``stage`` the name ESCALATIONS counts it under."""
+    saturated at C), ``stage`` the name ESCALATIONS counts it under;
+    ``start`` the timing event recorded as the dispatch began (None on
+    the CPU)."""
 
     def __init__(self, capacity, n, min_logit, k, call, dd_ctx, *,
                  needs_escalation=lambda cmax, k: cmax > k,
-                 stage: str = "top_k"):
+                 stage: str = "top_k", start=None):
+        self.start = start
         self.capacity = capacity
         self.n = n
         self.min_logit = min_logit
@@ -1329,12 +1375,21 @@ def resolve_block(pending) -> _BlockResult:
         return pending
     k = pending.k
     fetch = pending.fetch
+    start = pending.start
+    escalations, device_seconds = 0, 0.0
     while True:
         count, top_logit, top_index = fetch.result()
+        # fetch.result() synchronized on this fetch's event, which the
+        # stream reached after ``start``
+        device_seconds += _elapsed_seconds(start, fetch.event)
         cmax = int(count[: pending.n].max(initial=0))
         if k >= pending.capacity or not pending.needs_escalation(cmax, k):
-            return _BlockResult(top_logit, top_index, pending.min_logit,
-                                pending.dd_ctx)
+            result = _BlockResult(top_logit, top_index, pending.min_logit,
+                                  pending.dd_ctx)
+            result.escalations = escalations
+            result.device_seconds = device_seconds
+            return result
+        escalations += 1
         k = min(k * 2, pending.capacity)
         with _ESCALATIONS_LOCK:
             ESCALATIONS[pending.stage] += 1
@@ -1345,6 +1400,10 @@ def resolve_block(pending) -> _BlockResult:
         telemetry.RETRIEVAL_ESCALATIONS.labels(stage=pending.stage).inc()
         logger.info("escalation: %d candidates at the bound, retrying with "
                     "width=%d", cmax, k)
+        if start is not None:
+            # the re-run queues behind what was dispatched meanwhile (the
+            # next block's lookahead), so it is timed from its own start
+            start = _device_clock(torch.device("cuda"))
         fetch = pending.call(k)
 
 
@@ -1449,6 +1508,7 @@ class _ScorerCache:
                 np.full((n, 1), S.NEG_INF, np.float32),
                 np.full((n, 1), -1, np.int32), min_logit,
             )
+        start = _device_clock(self.index.device)
         qfeats, from_rows, query_row, query_group = self._prepare_queries(
             records, group_filtering)
         cfeats, cvalid, cdeleted, cgroup = corpus.device_arrays()
@@ -1462,7 +1522,7 @@ class _ScorerCache:
         k = min(_INITIAL_TOP_K, corpus.capacity)
         # the query side the scorer used, for the post-resolve dd rescore
         return _PendingBlock(corpus.capacity, n, min_logit, k, call,
-                             (qfeats, from_rows, query_row))
+                             (qfeats, from_rows, query_row), start=start)
 
     def dd_rescore(self, result: _BlockResult):
         """The dd survivor rescore of a resolved block: (hi, lo, unsafe)
@@ -1487,10 +1547,15 @@ class _ScorerCache:
             return None
         qfeats, _, query_row = ctx
         names = [s.name for s in B.dd_plan_specs(plan)]
+        start = _device_clock(index.device)
         hi, lo, unsafe = self._dd_call(fn, qfeats,
                                        index.corpus.device_arrays()[0],
                                        names, query_row, result.top_index)
-        return hi.cpu().numpy(), lo.cpu().numpy(), unsafe.cpu().numpy()
+        end = _device_clock(index.device)
+        out = hi.cpu().numpy(), lo.cpu().numpy(), unsafe.cpu().numpy()
+        # the blocking copies above waited for the program and its events
+        result.device_seconds += _elapsed_seconds(start, end)
+        return out
 
     def _dd_call(self, fn, qfeats, cfeats_all, names, query_row,
                  top_index: np.ndarray):
@@ -1555,33 +1620,39 @@ class DeviceProcessor:
         return self._host.compare(r1, r2)
 
     def deduplicate(self, records: Sequence[Record]) -> None:
-        """One batch, with the JAX package's four phases observed on the
-        host clock at its sites: encode (listener batch_ready, index,
-        commit: extraction and the corpus append), retrieve and score (the
-        ``retrieval_seconds`` / ``compare_seconds`` this batch added in
-        ``_score_blocks``), persist (listener batch_done: the link
-        commit).  With the one-block lookahead, retrieve holds each
-        block's wait for its results, in which the next block's dispatch
-        runs and the card may still be scoring the block before; score
-        holds the dd rescore and the host finalization, which overlap the
-        next block on the card.  The four durations also go to the cost
-        ledger (``costs.note_busy``), so the per-phase counters sum to the
-        busy total."""
+        """One batch in true-interval phases, each a span under the active
+        trace and a ``ProfileStats`` clock: ``encode`` (listener
+        batch_ready, index, commit: extraction and the corpus append),
+        then per query block (``_score_blocks``) ``scan.dispatch``,
+        ``scan.wait``, ``finalize.dd`` and ``finalize``, and ``persist``
+        (listener batch_done: the link commit, with the journal append
+        and its sync as ``links.journal``).  The JAX package's four phases
+        are observed as before from the same intervals: retrieve is
+        dispatch plus wait, score is dd plus finalize; their sum goes to
+        the cost ledger as host busy time (``costs.note_busy``), and the
+        pass's CUDA-event device time (``device_seconds``) to its device
+        ledger (``costs.note_device``).  ``h2d_bytes`` counts what the
+        pass handed host to device; the encode and dispatch spans carry
+        their own share."""
         t0 = time.monotonic()
+        h2d0 = h2d_bytes()
         for listener in self.listeners:
             listener.batch_ready(len(records))
         # annotate=True also opens a torch.profiler range while an
         # on-demand capture is live (utils.profiling.start_capture), so
         # the capture's timeline carries the trace tree's phase names
         with tracing.span(PHASE_ENCODE, {"records": len(records)},
-                          annotate=True):
+                          annotate=True) as sp:
             for record in records:
                 self.database.index(record)
             self.database.commit()
+            if sp is not None:
+                sp.set_attribute("h2d_bytes", h2d_bytes() - h2d0)
         encode_dt = time.monotonic() - t0
         self.phases.observe(PHASE_ENCODE, encode_dt)
-        retrieval0 = self.stats.retrieval_seconds
-        compare0 = self.stats.compare_seconds
+        retrieval0 = self.stats.retrieval_total()
+        compare0 = self.stats.compare_total()
+        device0 = self.stats.device_seconds
         # a serving group: followers replay the scoring pass on the same
         # query records (the corpus mutation went out from commit());
         # broadcast before _score_blocks, so every process enters the
@@ -1593,27 +1664,47 @@ class DeviceProcessor:
         if d is not None:
             d.broadcast(dispatch.with_trace_ctx(("score", key,
                                                  list(records))))
-        match_ns = time.monotonic_ns()
         # a frontend that aborts mid-pass (a listener error, an OOM) has
         # entered fewer collectives than the followers it just instructed
         with dispatch.latch_on_failure(
                 d, "frontend scoring pass aborted after broadcast"):
             self._score_blocks(records)
         self.stats.batches += 1
-        retrieve_dt = self.stats.retrieval_seconds - retrieval0
-        score_dt = self.stats.compare_seconds - compare0
+        retrieve_dt = self.stats.retrieval_total() - retrieval0
+        score_dt = self.stats.compare_total() - compare0
         self.phases.observe(PHASE_RETRIEVE, retrieve_dt)
         self.phases.observe(PHASE_SCORE, score_dt)
-        # the block waits and the host finalization interleave across the
-        # double-buffered blocks: the shared aggregate-span layout
-        tracing.add_phase_spans(match_ns, retrieve_dt, score_dt)
         t_persist = time.monotonic()
         with tracing.span(PHASE_PERSIST, annotate=True):
             for listener in self.listeners:
                 listener.batch_done()
         persist_dt = time.monotonic() - t_persist
         self.phases.observe(PHASE_PERSIST, persist_dt)
+        self.stats.h2d_bytes += h2d_bytes() - h2d0
         costs.note_busy(encode_dt + retrieve_dt + score_dt + persist_dt)
+        costs.note_device(self.stats.device_seconds - device0)
+
+    def _dispatch_scan(self, block: Sequence[Record],
+                       lookahead: bool = False):
+        """``dispatch_block`` as the ``scan.dispatch`` phase: the host's
+        query preparation, corpus upload and scorer launches.  A lookahead
+        dispatch runs inside the previous block's ``scan.wait`` (its span
+        a child of that one); returns (pending, seconds)."""
+        h2d0 = h2d_bytes()
+        t0 = time.monotonic()
+        attrs = {"records": len(block), "lookahead": lookahead}
+        if not lookahead:
+            # a lookahead dispatch lies inside a scan.wait, whose phase
+            # already counts it
+            attrs["phase"] = PHASE_RETRIEVE
+        with tracing.span("scan.dispatch", attrs) as sp:
+            pending = self._scorers.dispatch_block(
+                block, group_filtering=self.group_filtering)
+            if sp is not None:
+                sp.set_attribute("h2d_bytes", h2d_bytes() - h2d0)
+        dt = time.monotonic() - t0
+        self.stats.dispatch_seconds += dt
+        return pending, dt
 
     def _score_blocks(self, records: Sequence[Record]) -> None:
         """Double-buffered block dispatch: block N+1's program is queued
@@ -1621,6 +1712,17 @@ class DeviceProcessor:
         overlaps device scoring of N+1.  While a device trace is armed
         (``PROFILE_TRACE_DIR``) the lookahead is held back, so a traced
         block is dispatched inside its own trace window.
+
+        Each block's host time falls into four intervals that never
+        overlap, each a span and a ``ProfileStats`` clock:
+        ``scan.dispatch`` (``_dispatch_scan``), ``scan.wait``
+        (``resolve_block``: the wait for the results and any width
+        escalation, less the lookahead dispatch inside it),
+        ``finalize.dd`` (the dd rescore's gate, program and copy back)
+        and ``finalize`` (the host f64 loop and the listener events).
+        ``device_seconds`` adds the CUDA-event time of the block's
+        programs, read after the waits that already synchronized on
+        them.
 
         A serving group's follower replicas call this directly with
         ``finalize_survivors=False``: the block order, the lookahead and
@@ -1635,55 +1737,69 @@ class DeviceProcessor:
             lookahead = bi + 1 < len(blocks) and not trace_armed()
             with trace_batch(f"score_block[{len(block)}]"):
                 if pending is None:
-                    pending = self._scorers.dispatch_block(
-                        block, group_filtering=self.group_filtering)
-                # the device wait is clocked from here: a block's own
-                # dispatch is host work (the next block's lookahead
-                # dispatch falls inside the wait)
+                    pending, _ = self._dispatch_scan(block)
                 t1 = time.monotonic()
-                nxt = None
-                if lookahead:
-                    nxt = self._scorers.dispatch_block(
-                        blocks[bi + 1], group_filtering=self.group_filtering)
-                result = resolve_block(pending)
+                nxt, nested = None, 0.0
+                attrs = {"records": len(block), "phase": PHASE_RETRIEVE}
+                with tracing.span("scan.wait", attrs) as sp:
+                    if lookahead:
+                        nxt, nested = self._dispatch_scan(
+                            blocks[bi + 1], lookahead=True)
+                    result = resolve_block(pending)
+                    if sp is not None:
+                        sp.set_attribute("escalations", result.escalations)
             pending = nxt
             t2 = time.monotonic()
-            self.stats.retrieval_seconds += t2 - t1
+            self.stats.wait_seconds += t2 - t1 - nested
             if not self.finalize_survivors:
+                self.stats.device_seconds += result.device_seconds
                 continue
             if self.finalizer.device:
                 # certified finalization: one more device program over the
                 # resolved (Q, K) survivors
-                result.dd = self._scorers.dd_rescore(result)
+                with tracing.span("finalize.dd", {"phase": PHASE_SCORE}) as sp:
+                    result.dd = self._scorers.dd_rescore(result)
+                    if sp is not None:
+                        sp.set_attribute("ran", result.dd is not None)
                 if result.dd is not None:
                     self.stats.dd_blocks += 1
-                self.stats.dd_seconds += time.monotonic() - t2
-            outcomes = self.finalizer.finalize_block(self, block, result)
-            for qi, (record, out) in enumerate(zip(block, outcomes)):
-                for event, candidate, prob in out.events:
-                    for listener in self.listeners:
-                        getattr(listener, event)(record, candidate, prob)
-                if not out.events:
-                    for listener in self.listeners:
-                        listener.no_match_for(record)
-                if out.decisions:
-                    # drift monitors + sampled / latched ring records, on
-                    # the serial event-coordinator thread (single writer)
-                    self.decisions.observe(
-                        record, out.decisions, prune=out.prune,
-                        margin=out.margin, host_bound=out.host_bound)
-                self.stats.records_processed += 1
-                self.stats.candidates_retrieved += out.survivors
-                self.stats.pairs_rescored += out.rescored
-                self.stats.pairs_skipped += out.skipped
-                self.stats.pairs_device_certified += out.device_certified
-                self.stats.dd_residue_margin += out.residue_margin
-                self.stats.dd_residue_kind += out.residue_kind
-                self.stats.dd_residue_truncation += out.residue_truncation
-                if self.exhaustive:
-                    # the device scored this query against every live row
-                    self.stats.pairs_compared += live_rows
-                else:
-                    self.stats.pairs_compared += int(
-                        (result.top_index[qi] >= 0).sum())
-            self.stats.compare_seconds += time.monotonic() - t2
+            self.stats.device_seconds += result.device_seconds
+            t3 = time.monotonic()
+            self.stats.dd_seconds += t3 - t2
+            with tracing.span("finalize", {"records": len(block),
+                                           "phase": PHASE_SCORE}):
+                self._finalize_block(block, result, live_rows)
+            self.stats.finalize_seconds += time.monotonic() - t3
+
+    def _finalize_block(self, block: Sequence[Record], result: _BlockResult,
+                        live_rows: int) -> None:
+        """Host finalization of a resolved block and its listener events,
+        in query order."""
+        outcomes = self.finalizer.finalize_block(self, block, result)
+        for qi, (record, out) in enumerate(zip(block, outcomes)):
+            for event, candidate, prob in out.events:
+                for listener in self.listeners:
+                    getattr(listener, event)(record, candidate, prob)
+            if not out.events:
+                for listener in self.listeners:
+                    listener.no_match_for(record)
+            if out.decisions:
+                # drift monitors + sampled / latched ring records, on
+                # the serial event-coordinator thread (single writer)
+                self.decisions.observe(
+                    record, out.decisions, prune=out.prune,
+                    margin=out.margin, host_bound=out.host_bound)
+            self.stats.records_processed += 1
+            self.stats.candidates_retrieved += out.survivors
+            self.stats.pairs_rescored += out.rescored
+            self.stats.pairs_skipped += out.skipped
+            self.stats.pairs_device_certified += out.device_certified
+            self.stats.dd_residue_margin += out.residue_margin
+            self.stats.dd_residue_kind += out.residue_kind
+            self.stats.dd_residue_truncation += out.residue_truncation
+            if self.exhaustive:
+                # the device scored this query against every live row
+                self.stats.pairs_compared += live_rows
+            else:
+                self.stats.pairs_compared += int(
+                    (result.top_index[qi] >= 0).sum())

@@ -78,13 +78,35 @@ class ProfileStats:
     dd_residue_margin: int = 0
     dd_residue_kind: int = 0
     dd_residue_truncation: int = 0
+    # host clocks.  The host engine writes retrieval and scoring per
+    # record.  The device backends write the pass's true intervals
+    # (``DeviceProcessor``): dispatch (query preparation, the corpus
+    # upload, the scorer's launches), wait (the block's results and any
+    # width escalation), dd (the dd rescore's gate, program and copy
+    # back) and finalize (the host f64 loop and the listener events).
+    # ``retrieval_total`` / ``compare_total`` read either engine's.
     retrieval_seconds: float = 0.0
-    # host clock of finalization, of which the dd rescore (gate, program,
-    # copy back) is dd_seconds; on a POST of several query blocks the next
-    # block's scan is queued ahead of the dd program, so dd_seconds then
-    # also holds the wait for that scan and retrieval_seconds reads low
     compare_seconds: float = 0.0
+    dispatch_seconds: float = 0.0
+    wait_seconds: float = 0.0
     dd_seconds: float = 0.0
+    finalize_seconds: float = 0.0
+    # the device backends' CUDA-event time of the pass's programs (0 on
+    # the CPU) and the bytes they handed host to device
+    device_seconds: float = 0.0
+    h2d_bytes: int = 0
+
+    def retrieval_total(self) -> float:
+        """Retrieval seconds of either engine: the host engine's own
+        clock, or the device backends' dispatch plus wait."""
+        return self.retrieval_seconds + self.dispatch_seconds \
+            + self.wait_seconds
+
+    def compare_total(self) -> float:
+        """Scoring seconds of either engine: the host engine's own clock,
+        or the device backends' dd rescore plus host finalization."""
+        return self.compare_seconds + self.dd_seconds \
+            + self.finalize_seconds
 
     def merge(self, other: "ProfileStats") -> None:
         """Add ``other``'s counters and clocks into this one."""

@@ -1,10 +1,13 @@
 """Continuous cross-request microbatching scheduler.
 
-A copy of the JAX package's ``engine/scheduler.py`` without its trace
-spans: same knobs, same defaults, same dispatch order, and the same
-telemetry (the ingest SLO tracker and feed-lag meter per microbatch, the
-single-writer queue counters and histograms the /metrics ``duke_sched_*``
-families and ``duke_tenant_throttled_total`` read).
+A copy of the JAX package's ``engine/scheduler.py``: same knobs, same
+defaults, same dispatch order, and the same telemetry (the ingest SLO
+tracker and feed-lag meter per microbatch, the single-writer queue
+counters and histograms the /metrics ``duke_sched_*`` families and
+``duke_tenant_throttled_total`` read), plus the port's own account of
+the workload lock's contention: ``lock_requeues`` and ``lock_wait_s``
+per queue, and a ``sched.lock_wait`` span under the head request's
+trace.
 
 The inference-serving "continuous batching" pattern (Orca, OSDI '22; vLLM,
 SOSP '23) applied to record matching: instead of each HTTP POST walking the
@@ -216,7 +219,8 @@ class _TenantQueue:
     __slots__ = ("kind", "name", "weight", "pending", "queued", "deficit",
                  "admitted", "rejected", "throttled", "microbatches",
                  "merged_requests", "dispatched_records", "wait_hist",
-                 "fill_hist")
+                 "fill_hist", "lock_requeues", "lock_wait_s",
+                 "lock_failed_ns")
 
     def __init__(self, kind: str, name: str, weight: float = 1.0):
         self.kind = kind
@@ -244,6 +248,14 @@ class _TenantQueue:
         self.dispatched_records = 0  # single-writer: dispatcher thread
         self.wait_hist = _MonitorHist(_WAIT_BOUNDS)
         self.fill_hist = _MonitorHist(_FILL_BOUNDS)
+        # the workload lock held by another thread (a feed page read, a
+        # transform, a reload): microbatches requeued because the
+        # non-blocking acquire failed, and the seconds from a microbatch's
+        # first failed acquire to the acquire that succeeded (the
+        # ``sched.lock_wait`` span); ``lock_failed_ns`` marks an open wait
+        self.lock_requeues = 0  # single-writer: dispatcher thread
+        self.lock_wait_s = 0.0  # single-writer: dispatcher thread
+        self.lock_failed_ns: Optional[int] = None  # single-writer: dispatcher thread
 
     def queued_records(self) -> int:
         return self.queued
@@ -568,11 +580,15 @@ class IngestScheduler:
                     return True
                 total = sum(r.records for r in batch)
                 if not wl.lock.acquire(blocking=False):
+                    q.lock_requeues += 1
+                    if q.lock_failed_ns is None:
+                        q.lock_failed_ns = time.monotonic_ns()
                     with self._cv:
                         q.pending.extendleft(reversed(batch))
                         q.queued += total
                         q.deficit += total  # restore the consumed quantum
                     return False
+                acquired_ns = time.monotonic_ns()
                 try:
                     if wl.closed:
                         continue  # reload swapped it: re-resolve
@@ -590,13 +606,21 @@ class IngestScheduler:
                         r.trace_ctx[0].trace_id for r in batch[:8]
                         if r.trace_ctx is not None
                     ]
-                    with attach, tracing.span("sched.microbatch", {
-                        "workload": q.name, "kind": q.kind,
-                        "requests": len(batch), "records": total,
-                        "bucket": self._bucket_for(total),
-                        "merged_trace_ids": ",".join(merged_ids),
-                    }):
-                        wl._run_merged(list(batch))
+                    failed_ns, q.lock_failed_ns = q.lock_failed_ns, None
+                    with attach:
+                        if failed_ns is not None:
+                            q.lock_wait_s += (acquired_ns - failed_ns) / 1e9
+                            tracing.add_span("sched.lock_wait", failed_ns,
+                                             acquired_ns, {
+                                                 "workload": q.name,
+                                                 "kind": q.kind})
+                        with tracing.span("sched.microbatch", {
+                            "workload": q.name, "kind": q.kind,
+                            "requests": len(batch), "records": total,
+                            "bucket": self._bucket_for(total),
+                            "merged_trace_ids": ",".join(merged_ids),
+                        }):
+                            wl._run_merged(list(batch))
                     hold = time.monotonic() - t0
                     wl.note_lock_hold(hold)
                 finally:

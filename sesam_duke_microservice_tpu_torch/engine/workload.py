@@ -50,7 +50,7 @@ from ..links.replica import links_feed_page
 from ..ops.arena import arena_enabled
 from ..service.datasource import IncrementalDataSource
 from ..store.records import LazyRecordMap, RecordStore, SqliteRecordStore
-from ..telemetry import memory
+from ..telemetry import memory, tracing
 from ..utils import faults
 from .device_matcher import DeviceIndex, DeviceProcessor
 from .listeners import ServiceMatchListener
@@ -155,6 +155,10 @@ class Workload:
         # recent write-side lock-hold EWMA (seconds), the busy-503's
         # Retry-After; written under self.lock, read lock-free
         self._hold_ewma: Optional[float] = None
+        # feed page reads and the seconds they held self.lock
+        # (``feed_hold``); written under self.lock, read lock-free
+        self.feed_pages = 0
+        self.feed_lock_hold_s = 0.0
         # sticky store/index divergence latch: a store write committed
         # but its index application failed.  While set, _mark_synced never
         # stamps again in this process (the store hash would cover rows
@@ -197,6 +201,22 @@ class Workload:
         """Fold one write-side lock-hold duration into the EWMA (call with
         ``self.lock`` held -- batch paths and the scheduler dispatcher)."""
         self._hold_ewma = fold_ewma(self._hold_ewma, seconds)
+
+    @contextlib.contextmanager
+    def feed_hold(self):
+        """One feed read under ``self.lock`` (enter right after the
+        acquire, leave right before the release): the ``feed.page`` span,
+        and the hold counted in ``feed_pages`` / ``feed_lock_hold_s``.
+        With write-behind links the read first drains every pending link
+        batch into the store (its ``links.drain`` span)."""
+        t0 = time.monotonic()
+        try:
+            with tracing.span("feed.page", {"workload": self.name,
+                                            "kind": self.kind}):
+                yield
+        finally:
+            self.feed_pages += 1
+            self.feed_lock_hold_s += time.monotonic() - t0
 
     def busy_retry_after(self) -> int:
         """Whole-second Retry-After hint for lock-timeout busy replies:
@@ -315,7 +335,9 @@ class Workload:
                 put_done = False
                 try:
                     if self.record_store is not None:
-                        self.record_store.put_many(records)
+                        with tracing.span("store.put",
+                                          {"records": len(records)}):
+                            self.record_store.put_many(records)
                         # store rows durable, index/scoring/links not yet
                         # applied
                         faults.check_crash("post_store_put")
@@ -364,7 +386,9 @@ class Workload:
         for req in work:
             try:  # conversion errors stay per-request
                 datasource = self.datasources[req.dataset_id]
-                records = datasource.records_for_batch(req.entities)
+                with tracing.span("ingest.convert",
+                                  {"entities": len(req.entities)}):
+                    records = datasource.records_for_batch(req.entities)
             except Exception as e:
                 req.error = e
                 req.event.set()
@@ -385,7 +409,9 @@ class Workload:
         """Ingest a batch and run matching (call with ``self.lock`` held);
         returns the transform response rows when ``http_transform``."""
         t_hold = time.monotonic()
-        records = self.datasources[dataset_id].records_for_batch(entities)
+        with tracing.span("ingest.convert", {"entities": len(entities)}):
+            records = self.datasources[dataset_id].records_for_batch(
+                entities)
         live = [r for r in records if not r.is_deleted()]
         deleted = [r for r in records if r.is_deleted()]
         put_done = False
@@ -397,7 +423,8 @@ class Workload:
                 if self.record_store is not None:
                     # the durable source of truth first; the corpus is a
                     # replayable cache of this store
-                    self.record_store.put_many(records)
+                    with tracing.span("store.put", {"records": len(records)}):
+                        self.record_store.put_many(records)
                     faults.check_crash("post_store_put")
                     put_done = True
                 for record in deleted:

@@ -244,6 +244,9 @@ class LinkJournal:
         # lock-free scrape mirrors (plain ints; exact under self._lock)
         self.pending_batches = 0  # guarded by: self._lock [writes]
         self.size_bytes = 0  # guarded by: self._lock [writes]
+        # batch frame bytes appended since open (never reset by
+        # compaction): the append path's running count, read lock-free
+        self.appended_bytes = 0  # guarded by: self._lock [writes]
         # compaction pins held by batches_after walks (retained())
         self._pins = 0  # guarded by: self._lock [writes]
         # torn tails truncated by the startup scan (0 or 1 per open)
@@ -383,7 +386,14 @@ class LinkJournal:
             self._last_seq = seq
             self.pending_batches = seq - self._applied_seq
             self.size_bytes += len(frame)
+            self.appended_bytes += len(frame)
         return seq
+
+    @property
+    def sync_policy(self) -> str:
+        """How ``append_batch`` syncs: ``fsync``, ``fdatasync`` or
+        ``none`` (``DUKE_JOURNAL_SYNC``)."""
+        return self._sync
 
     # -- apply path (background flusher) --------------------------------------
 

@@ -44,6 +44,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 from .. import telemetry
 from ..env import env_int
+from ..telemetry import tracing
 from ..utils import faults
 from ..utils.backoff import full_jitter_delay
 from .base import Link, LinkDatabase, LinkKind, LinkStatus
@@ -310,6 +311,12 @@ class WriteBehindLinkDatabase(LinkDatabase):
         self._recovery_thread: Optional[threading.Thread] = None
         # journaled batches replayed by recover() (the startup redo)
         self.replayed = 0
+        # seconds of the durable commit: the journal append plus its sync
+        # on the committing thread, before the ack (``links.journal``
+        # spans), and the store applies on the flusher thread, one
+        # ``links.flush`` trace each; each clock has one writer
+        self.journal_seconds = 0.0
+        self.flush_seconds = 0.0
 
     def _seal_batch(self, links: List[Link]):
         """Batch-sealing hook (runs inside ``commit()``): journal the
@@ -318,28 +325,46 @@ class WriteBehindLinkDatabase(LinkDatabase):
         crash and the batch still replays."""
         seq = None
         if self.journal is not None:
-            seq = self.journal.append_batch(
-                [encode_link(link) for link in links])
+            rows = [encode_link(link) for link in links]
+            t0 = time.monotonic()
+            before = self.journal.appended_bytes
+            try:
+                with tracing.span("links.journal", {
+                        "links": len(rows),
+                        "sync": self.journal.sync_policy}) as sp:
+                    seq = self.journal.append_batch(rows)
+                    if sp is not None:
+                        sp.set_attribute(
+                            "bytes", self.journal.appended_bytes - before)
+            finally:
+                self.journal_seconds += time.monotonic() - t0
             faults.check_crash("post_journal_append")
         return (seq, links)
 
     def _flush_batch(self, sealed) -> None:
         seq, links = sealed
-        plan = faults.active()
-        if plan is not None:
-            plan.check_crash("pre_flush")
-            # chaos hook (DUKE_FAULTS flush_fail): a raised injection
-            # takes the retry ladder and then the latch exactly like a
-            # real disk failure
-            plan.check_flush("link write-behind")
-        self.inner.assert_links(links)
-        if plan is not None:
-            plan.check_crash("mid_flush")
-        self.inner.commit()
-        if plan is not None:
-            plan.check_crash("post_flush_pre_truncate")
-        if self.journal is not None and seq is not None:
-            self.journal.mark_applied(seq)
+        t0 = time.monotonic()
+        # the flusher thread's own root trace, like a prober cycle
+        try:
+            with tracing.start_trace("links.flush", attributes={
+                    "links": len(links), "seq": seq}):
+                plan = faults.active()
+                if plan is not None:
+                    plan.check_crash("pre_flush")
+                    # chaos hook (DUKE_FAULTS flush_fail): a raised
+                    # injection takes the retry ladder and then the latch
+                    # exactly like a real disk failure
+                    plan.check_flush("link write-behind")
+                self.inner.assert_links(links)
+                if plan is not None:
+                    plan.check_crash("mid_flush")
+                self.inner.commit()
+                if plan is not None:
+                    plan.check_crash("post_flush_pre_truncate")
+                if self.journal is not None and seq is not None:
+                    self.journal.mark_applied(seq)
+        finally:
+            self.flush_seconds += time.monotonic() - t0
 
     def recover(self) -> int:
         """Replay journaled-but-unapplied batches into the durable store
@@ -484,7 +509,8 @@ class WriteBehindLinkDatabase(LinkDatabase):
         self._wb.commit()
 
     def drain(self) -> None:
-        self._wb.drain()
+        with tracing.span("links.drain"):
+            self._wb.drain()
 
     # -- reads (drain first; the ingest-path reads fence during recovery
     # because their results feed writes -- see recover_async) -----------------

@@ -881,8 +881,8 @@ class DukeRequestHandler(BaseHTTPRequestHandler):
                     records_processed=stats.records_processed,
                     candidates_retrieved=stats.candidates_retrieved,
                     pairs_compared=stats.pairs_compared,
-                    retrieval_seconds=round(stats.retrieval_seconds, 3),
-                    compare_seconds=round(stats.compare_seconds, 3),
+                    retrieval_seconds=round(stats.retrieval_total(), 3),
+                    compare_seconds=round(stats.compare_total(), 3),
                 )
                 if getattr(wl.processor, "finalizer", None) is not None:
                     finalized = stats.pairs_rescored + stats.pairs_skipped
@@ -1132,9 +1132,11 @@ class DukeRequestHandler(BaseHTTPRequestHandler):
                 lock_attempts = 0
                 lock_deadline = None
                 try:
-                    closed = workload.closed
-                    if not closed:
-                        rows, cursor = workload.links_page(cursor, page_size)
+                    with workload.feed_hold():
+                        closed = workload.closed
+                        if not closed:
+                            rows, cursor = workload.links_page(cursor,
+                                                               page_size)
                 finally:
                     workload.lock.release()
                 if closed:
@@ -1201,9 +1203,10 @@ class DukeRequestHandler(BaseHTTPRequestHandler):
             if not workload.lock.acquire(timeout=READ_LOCK_TIMEOUT_SECONDS):
                 raise _BusyError(label, workload.busy_retry_after())
             try:
-                closed = workload.closed
-                if not closed:
-                    rows = workload.links_since(since)
+                with workload.feed_hold():
+                    closed = workload.closed
+                    if not closed:
+                        rows = workload.links_since(since)
             finally:
                 workload.lock.release()
             if not closed:

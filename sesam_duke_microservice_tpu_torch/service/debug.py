@@ -214,9 +214,11 @@ def _app_workloads(app):
 
 
 def handle_costs(workload_iter=()) -> Reply:
-    """``GET /debug/costs``: the device-time ledger reconciled against
-    per-workload phase attribution.  ``attributed_seconds`` sums every
-    live PhaseRecorder; the residual vs the busy ledger is reported as
+    """``GET /debug/costs``: the host busy ledger reconciled against
+    per-workload phase attribution (its ``utilization`` is the CUDA-event
+    device time's, ``telemetry.costs.utilization``).
+    ``attributed_seconds`` sums every live PhaseRecorder; the residual
+    vs the busy ledger is reported as
     ``unattributed_seconds`` (PhaseRecorders die with reloaded-away
     workloads, the ledger survives) and ``reconciles`` asserts the two
     agree within max(50 ms, 1%) — the tested invariant."""

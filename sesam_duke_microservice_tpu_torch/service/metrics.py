@@ -401,9 +401,9 @@ def make_app_collector(app):
                            "first write)", hold_samples),
             FamilySnapshot(
                 "duke_cost_device_seconds_total", "counter",
-                "Attributed device-busy seconds by workload and engine "
-                "phase; sums to duke_cost_busy_seconds_total (the ledger "
-                "reconciliation invariant)", cost_samples),
+                "Attributed host busy seconds by workload and engine "
+                "phase (host clock); sums to duke_cost_busy_seconds_total "
+                "(the ledger reconciliation invariant)", cost_samples),
         ]
         if hbm_samples:
             out.append(FamilySnapshot(
@@ -657,9 +657,9 @@ def make_group_collector(group):
                            "first write)", hold_samples),
             FamilySnapshot(
                 "duke_cost_device_seconds_total", "counter",
-                "Attributed device-busy seconds by workload and engine "
-                "phase; sums to duke_cost_busy_seconds_total (the ledger "
-                "reconciliation invariant)", cost_samples),
+                "Attributed host busy seconds by workload and engine "
+                "phase (host clock); sums to duke_cost_busy_seconds_total "
+                "(the ledger reconciliation invariant)", cost_samples),
             FamilySnapshot(
                 "duke_device_bytes", "gauge",
                 "Registered device-buffer bytes by workload and component "

@@ -1,12 +1,12 @@
-"""Device-time cost ledger (a copy of the JAX package's
-``telemetry/costs.py``).
+"""Cost ledger (a copy of the JAX package's ``telemetry/costs.py``,
+with a device ledger of its own).
 
 Answers "who is spending the hardware" from measurements the engine
 already takes: every batch's per-phase durations (encode / retrieve /
 score / persist — ``engine.processor`` and ``engine.device_matcher``
 both observe them into the workload's ``PhaseRecorder``) are ALSO summed
-into this process-wide busy ledger by ``note_busy``, called once per
-batch by the thread that measured them.  Build time accumulates
+into this process-wide host busy ledger by ``note_busy``, called once
+per batch by the thread that measured them.  Build time accumulates
 separately through ``note_compile`` (amortized capacity spend, not batch
 latency): in the port a "compile" is the first-use build of a native
 library, ``ops.cuda_kernels.build_library`` (nvcc) and
@@ -21,10 +21,20 @@ is process-global) while PhaseRecorders die with their workloads, so
 ``/debug/costs`` reports the residual as ``unattributed_seconds``
 instead of pretending the books always balance.
 
-Utilization: ``duke_device_utilization`` = busy seconds inside a
-sliding window / window wall time — the busy fraction the autoscaler
-reads for scale-down headroom.  The window is a slot
-ring like ``slo.SloTracker``'s, recomputed exactly at scrape.
+The phase durations are host-clock busy time: the dispatching thread's
+time inside a batch, whether it launched work, waited on the card or
+ran host code.  The card's own time is a separate ledger:
+``note_device`` takes each scoring pass's CUDA-event device time
+(``ProfileStats.device_seconds``, 0 on the CPU): for each program, the
+time from its first queued op to its last as the card's clock reads
+them, so the card's waits for the host's next launch inside a program
+count as device time.
+
+Utilization: ``duke_device_utilization`` = CUDA-event device seconds
+inside a sliding window / window wall time — the busy fraction the
+autoscaler reads for scale-down headroom, an upper bound where the
+passes are bound by their launches.  The window is a slot ring
+like ``slo.SloTracker``'s, recomputed exactly at scrape.
 
 Locking: one leaf lock, taken once per BATCH (never per record/pair)
 and once per scrape — the same budget the SLO trackers spend.  The
@@ -51,7 +61,8 @@ _enabled = True  # guarded by: _lock [writes]
 _busy_total = 0.0  # guarded by: _lock
 _compile_total = 0.0  # guarded by: _lock
 _compile_count = 0  # guarded by: _lock
-# [slot_index, busy_seconds] per 5 s slot, lazily recycled
+_device_total = 0.0  # guarded by: _lock
+# [slot_index, device_seconds] per 5 s slot, lazily recycled
 _slots: List[List[float]] = [[-1, 0.0] for _ in range(_N_SLOTS)]  # guarded by: _lock
 _started = time.monotonic()
 
@@ -67,18 +78,28 @@ def enabled() -> bool:
     return _enabled
 
 
-def note_busy(seconds: float, now: Optional[float] = None) -> None:
-    """Credit one batch's measured device-busy seconds (the sum of its
+def note_busy(seconds: float) -> None:
+    """Credit one batch's measured host busy seconds (the sum of its
     four phase durations).  Called once per batch by the thread that
     holds the workload lock — the leaf ``_lock`` nests under it but
     never the reverse."""
     if not _enabled or seconds <= 0.0:
         return
-    now = time.monotonic() if now is None else now
-    slot_idx = int(now // _SLOT_S)
     global _busy_total
     with _lock:
         _busy_total += seconds
+
+
+def note_device(seconds: float, now: Optional[float] = None) -> None:
+    """Credit one scoring pass's CUDA-event device seconds into the
+    utilization window.  Called once per batch, like ``note_busy``."""
+    if not _enabled or seconds <= 0.0:
+        return
+    now = time.monotonic() if now is None else now
+    slot_idx = int(now // _SLOT_S)
+    global _device_total
+    with _lock:
+        _device_total += seconds
         cell = _slots[slot_idx % _N_SLOTS]
         if cell[0] != slot_idx:
             cell[0], cell[1] = slot_idx, 0.0
@@ -108,15 +129,21 @@ def busy_seconds_total() -> float:
         return _busy_total
 
 
+def device_seconds_total() -> float:
+    with _lock:
+        return _device_total
+
+
 def compile_seconds_total() -> float:
     with _lock:
         return _compile_total
 
 
 def utilization(now: Optional[float] = None) -> float:
-    """Busy fraction over the sliding window (clamped to uptime so a
-    fresh process is not under-reported against a window it has not
-    lived through yet)."""
+    """Device-busy fraction over the sliding window: CUDA-event device
+    seconds over the window's wall (clamped to uptime so a fresh process
+    is not under-reported against a window it has not lived through
+    yet)."""
     now = time.monotonic() if now is None else now
     window = min(WINDOW_S, max(now - _started, _SLOT_S))
     min_slot = int((now - window) // _SLOT_S)
@@ -126,10 +153,11 @@ def utilization(now: Optional[float] = None) -> float:
 
 
 def _reset_for_tests() -> None:
-    global _busy_total, _compile_total, _enabled, _started
+    global _busy_total, _compile_total, _device_total, _enabled, _started
     with _lock:
         _busy_total = 0.0
         _compile_total = 0.0
+        _device_total = 0.0
         _enabled = True
         for cell in _slots:
             cell[0], cell[1] = -1, 0.0
@@ -159,9 +187,10 @@ def collect() -> List[FamilySnapshot]:
     return [
         FamilySnapshot(
             "duke_cost_busy_seconds_total", "counter",
-            "Measured device-busy seconds across all workloads (each "
-            "batch's four phase durations, summed once per batch); the "
-            "reconciliation target for duke_cost_device_seconds_total",
+            "Measured host busy seconds across all workloads (each "
+            "batch's four phase durations on the host clock, summed once "
+            "per batch); the reconciliation target for "
+            "duke_cost_device_seconds_total",
             [("", (), busy)]),
         FamilySnapshot(
             "duke_cost_compile_seconds_total", "counter",
@@ -171,7 +200,9 @@ def collect() -> List[FamilySnapshot]:
             [("", (), comp)]),
         FamilySnapshot(
             "duke_device_utilization", "gauge",
-            "Busy device-seconds / wall over a sliding 60 s window "
-            "(the autoscaler's busy-fraction headroom signal)",
+            "CUDA-event device-seconds of the scoring passes (each "
+            "program from its first queued op to its last, launch gaps "
+            "included) / wall over a sliding 60 s window (the "
+            "autoscaler's busy-fraction headroom signal; 0 on the CPU)",
             [("", (), utilization())]),
     ]

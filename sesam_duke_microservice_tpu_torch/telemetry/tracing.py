@@ -297,13 +297,20 @@ class TraceRecord:
         }
 
 
+_PHASES = ("encode", "retrieve", "score", "persist")
+
+
 def _phase_seconds(spans: List[Span]) -> Dict[str, float]:
-    """Per-phase seconds summed from engine phase spans (the four names
-    from engine/processor.py)."""
+    """Per-phase seconds summed from engine phase spans: the four names
+    from engine/processor.py, or a span's ``phase`` attribute (the spans
+    an engine records in their stead)."""
     out: Dict[str, float] = {}
     for s in spans:
-        if s.name in ("encode", "retrieve", "score", "persist"):
-            out[s.name] = out.get(s.name, 0.0) + s.duration_ns / 1e9
+        phase = (s.attributes or {}).get("phase")
+        if phase is None and s.name in _PHASES:
+            phase = s.name
+        if phase is not None:
+            out[phase] = out.get(phase, 0.0) + s.duration_ns / 1e9
     return {k: round(v, 6) for k, v in out.items()}
 
 
@@ -505,9 +512,10 @@ def add_span(name: str, start_ns: int, end_ns: int,
              attributes: Optional[Dict[str, Any]] = None) -> None:
     """Record an already-measured interval as a completed child span.
 
-    Used where phase boundaries interleave (the engine's retrieve/score
-    accounting splits one region by accumulated stats) — the caller
-    supplies the interval; nothing re-reads the clock."""
+    Used where the interval is known only after the fact (the host
+    engine's accumulated retrieve/score layout, the scheduler's wait for
+    a workload lock) — the caller supplies the interval; nothing re-reads
+    the clock."""
     active = _ACTIVE.get()
     if active is None:
         return
@@ -520,11 +528,13 @@ def add_span(name: str, start_ns: int, end_ns: int,
 
 def add_phase_spans(start_ns: int, retrieve_seconds: float,
                     score_seconds: float) -> None:
-    """The engines' shared retrieve/score span layout: both phases
-    interleave (per record on the host, per double-buffered block on the
-    device), so their spans carry the ACCUMULATED durations laid out
-    sequentially from the matching region's start — the timeline shows
-    where the batch's time went, not exact intervals."""
+    """The host engine's retrieve/score span layout: both phases
+    interleave per record (and across its thread pool), so their spans
+    carry the ACCUMULATED durations laid out sequentially from the
+    matching region's start — the timeline shows where the batch's time
+    went, not exact intervals.  The device backends record true
+    intervals instead (``scan.dispatch``, ``scan.wait``, ``finalize.dd``,
+    ``finalize``)."""
     r_end = start_ns + int(retrieve_seconds * 1e9)
     add_span("retrieve", start_ns, r_end, {"aggregate": True})
     add_span("score", r_end, r_end + int(score_seconds * 1e9),

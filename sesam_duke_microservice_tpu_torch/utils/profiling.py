@@ -29,12 +29,22 @@ Only one capture runs at a time; a second ``start_capture`` raises
 ``CaptureActiveError``.  A per-block trace armed at the same moment
 would collide with it (the profiler is one per process), so leave
 ``PROFILE_TRACE_DIR``'s budget spent while capturing on demand.
+
+**One clock with the spans.**  As the profiler starts, the session reads
+``time.monotonic_ns()`` and opens a ``duke.clock_anchor`` range back to
+back; the span clock and the trace's clock then differ by the range's
+start less that reading.  When the profiler stops, the session writes
+every retained span (``telemetry.tracing.RECORDER``) that overlaps the
+capture into the Chrome trace, shifted by that offset, on a process row
+of its own (``SPAN_ROW_PID``, a thread row per trace): an idle gap on
+the device rows then lies under the host span that was open.
 """
 
 from __future__ import annotations
 
 import contextlib
 import itertools
+import json
 import logging
 import os
 import re
@@ -136,6 +146,50 @@ def trace_batch(label: str):
 # -- on-demand capture (POST /debug/profile) ---------------------------------
 
 _CAPTURE_SEQ = itertools.count(1)
+# the clock anchor's range name, and the process row the retained spans
+# take in a capture's Chrome trace (far from the profiler's own rows:
+# the host's pid and the cards' indices)
+CLOCK_ANCHOR = "duke.clock_anchor"
+SPAN_ROW_PID = 1 << 30
+
+
+def _write_spans(path: str, anchor_mono_ns: int, stop_mono_ns: int) -> None:
+    """Write every span the flight recorder retained that overlaps
+    [anchor_mono_ns, stop_mono_ns] (monotonic) into the Chrome trace at
+    ``path``, on the trace's clock: the offset is the ``CLOCK_ANCHOR``
+    range's start in the file less ``anchor_mono_ns``, the monotonic
+    reading taken as the range opened."""
+    with open(path) as f:
+        doc = json.load(f)
+    events = doc["traceEvents"] if isinstance(doc, dict) else doc
+    anchor_us = next((e["ts"] for e in events
+                      if e.get("name") == CLOCK_ANCHOR and "ts" in e), None)
+    if anchor_us is None:
+        logger.warning("%s holds no %s range: no spans written", path,
+                       CLOCK_ANCHOR)
+        return
+    offset_us = float(anchor_us) - anchor_mono_ns / 1e3
+    events.append({"ph": "M", "name": "process_name", "pid": SPAN_ROW_PID,
+                   "tid": 0, "args": {"name": "duke spans"}})
+    recorder = _tracing.RECORDER
+    for tid, row in enumerate(recorder.summaries()):
+        record = recorder.get(row["trace_id"])
+        if record is None:
+            continue
+        for s in record.spans:
+            if s.end_ns < anchor_mono_ns or s.start_ns > stop_mono_ns:
+                continue
+            events.append({
+                "ph": "X", "cat": "duke", "name": s.name,
+                "pid": SPAN_ROW_PID, "tid": tid,
+                "ts": s.start_ns / 1e3 + offset_us,
+                "dur": max(s.duration_ns, 0) / 1e3,
+                "args": {"trace_id": record.trace_id, "span_id": s.span_id,
+                         "parent_id": s.parent_id, "status": s.status,
+                         **(s.attributes or {})},
+            })
+    with open(path, "w") as f:
+        json.dump(doc, f, default=str)
 
 
 class _Session:
@@ -166,13 +220,24 @@ class _Session:
     def _run(self) -> None:
         try:
             import torch
-            from torch.profiler import ProfilerActivity, profile
+            from torch.profiler import (
+                ProfilerActivity,
+                profile,
+                record_function,
+            )
 
             activities = [ProfilerActivity.CPU]
             if torch.cuda.is_available():
                 activities.append(ProfilerActivity.CUDA)
             prof = profile(activities=activities)
             prof.start()
+            # the clock anchor: a monotonic reading and a range opened
+            # back to back (the range's start is the reading on the
+            # trace's clock)
+            anchor = record_function(CLOCK_ANCHOR)
+            anchor_ns = time.monotonic_ns()
+            anchor.__enter__()
+            anchor.__exit__(None, None, None)
         except BaseException as e:  # reported by start()
             self.error = e
             self._started.set()
@@ -181,6 +246,7 @@ class _Session:
         self._stop.wait(self.seconds)
         try:
             prof.stop()
+            stop_ns = time.monotonic_ns()
             os.makedirs(self.logdir, exist_ok=True)
             path = os.path.join(
                 self.logdir,
@@ -189,6 +255,12 @@ class _Session:
             self.path = path
         except BaseException as e:  # reported by stop()
             self.error = e
+            return
+        try:
+            _write_spans(path, anchor_ns, stop_ns)
+        except Exception:
+            # the device capture stands without the spans
+            logger.exception("writing the spans into %s failed", path)
 
     def stop(self) -> str:
         self._stop.set()

@@ -22,6 +22,7 @@ imports no JAX, so on a machine without it run::
 
 import json
 import os
+import time
 
 import pytest
 import torch
@@ -476,6 +477,82 @@ def test_mixed_service_on_cuda_matches_cpu_and_certifies(cuda_device):
         app.close()
     assert feeds[0] == feeds[1]
     assert certified[0] == certified[1] > 0
+
+
+def test_pass_device_time_from_cuda_events(cuda_device):
+    """The mixed schema's passes on the card: the CUDA-event time of the
+    scan and dd programs lands in ``device_seconds`` and in the cost
+    ledger's device ledger, inside the scoring loop's host intervals (a
+    lookahead block's scan runs while the host finalizes the block
+    before it, so the bound counts finalize too); on the CPU the same
+    passes read 0."""
+    from sesam_duke_microservice_tpu_torch.telemetry import costs
+
+    g = torch.Generator().manual_seed(11)
+    words = ["ole", "ola", "kari", "hansen", "olsen", "gate", "vei"]
+
+    def pick(n):
+        return " ".join(words[int(k)] for k in
+                        torch.randint(0, len(words), (n,), generator=g))
+
+    batches = [[{"_id": f"e{b}_{i}", "name": pick(2), "given": pick(1),
+                 "address": pick(2), "person": pick(2)} for i in range(300)]
+               for b in range(2)]
+    for device in (cuda_device, "cpu"):
+        app = DukeApp(parse_config(MIXED), device=device, persistent=False)
+        wl = app.deduplications["mixed"]
+        ledger0 = costs.device_seconds_total()
+        for batch in batches:
+            with wl.lock:
+                wl.process_batch("crm", batch)
+        st = wl.processor.stats
+        assert st.h2d_bytes > 0 and st.dd_blocks > 0
+        if device == "cpu":
+            assert st.device_seconds == 0.0
+        else:
+            assert st.device_seconds > 0
+            # the programs' events lie inside the scoring loop, whose
+            # intervals follow one another
+            assert st.device_seconds <= 1.01 * (
+                st.dispatch_seconds + st.wait_seconds + st.dd_seconds
+                + st.finalize_seconds) + 1e-3
+            if costs.enabled():
+                assert costs.device_seconds_total() - ledger0 == \
+                    pytest.approx(st.device_seconds)
+        app.close()
+
+
+def test_escalated_lookahead_device_time_within_the_wall(cuda_device,
+                                                         monkeypatch):
+    """A width escalation re-runs a block's scan behind the next block's
+    lookahead scan; the re-run is timed from an event of its own, so the
+    lookahead's device time is not counted twice and the pass's
+    ``device_seconds`` stays within its wall."""
+    from sesam_duke_microservice_tpu_torch.engine import device_matcher as DM
+
+    monkeypatch.setattr(DM, "_INITIAL_TOP_K", 1)
+    app = DukeApp(parse_config(MIXED), device=cuda_device, persistent=False)
+    wl = app.deduplications["mixed"]
+    names = ["ole hansen", "ola hansen", "kari olsen", "kari olssen"]
+    # 300 records a pass: several query blocks, the second and later
+    # dispatched as lookaheads
+    batch = [{"_id": f"x{i}", "name": names[i % 4], "given": "ole",
+              "address": "gate 1", "person": names[(i + 1) % 4]}
+             for i in range(600)]
+    with wl.lock:
+        wl.process_batch("crm", batch[:300])
+    escalations0 = sum(DM.ESCALATIONS.values())
+    st = wl.processor.stats
+    device0 = st.device_seconds
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with wl.lock:
+        wl.process_batch("crm", batch[300:])
+    wall = time.monotonic() - t0
+    assert sum(DM.ESCALATIONS.values()) > escalations0
+    device = st.device_seconds - device0
+    assert 0 < device <= wall, (device, wall)
+    app.close()
 
 
 def test_service_on_cuda_matches_service_on_cpu(cuda_device, monkeypatch):

@@ -227,11 +227,15 @@ def test_cost_ledger_busy_and_utilization():
     costs._reset_for_tests()
     try:
         now = time.monotonic()
-        costs.note_busy(0.5, now)
-        costs.note_busy(0.25, now)
+        costs.note_busy(0.5)
+        costs.note_busy(0.25)
         costs.note_compile(1.5)
         assert costs.busy_seconds_total() == pytest.approx(0.75)
         assert costs.compile_seconds_total() == pytest.approx(1.5)
+        # utilization reads the CUDA-event device ledger, not host busy
+        assert costs.utilization(now) == 0.0
+        costs.note_device(0.5, now)
+        assert costs.device_seconds_total() == pytest.approx(0.5)
         assert 0.0 < costs.utilization(now) <= 1.0
         fams = {f.name: f for f in costs.collect()}
         assert fams["duke_cost_busy_seconds_total"].samples == [

@@ -11,9 +11,11 @@ the Chrome export.  Over HTTP, the JAX ``DukeApp(backend="device")`` and
 the port's ``DukeApp(device="cpu")`` take the same POSTs with the same
 sampled ``traceparent``: both trees hold the same span names at the same
 parents (request root, ``sched.queued``, ``sched.microbatch``, encode
-with ``encode.stream_append``, retrieve, score, persist,
-``links:assert_batch``), replies and error bodies carry ``X-Trace-Id``,
-``/debug/requests`` digests the unsampled requests, and the
+with ``encode.stream_append``, persist, ``links:assert_batch``; the JAX
+package's aggregate retrieve and score where the port records record
+conversion and its scoring pass in true intervals), replies and error
+bodies carry ``X-Trace-Id``, ``/debug/requests`` digests the unsampled
+requests, and the
 ``/debug/profile`` capture cycle answers alike (a real ``torch.profiler``
 capture on the CPU too).  Span names and statuses compare exactly; no
 clock is compared.
@@ -299,10 +301,20 @@ def post(url, path, payload, headers=None):
                         **(headers or {})))
 
 
+# the port's own spans inside the microbatch: record conversion and the
+# scoring pass in true intervals (the JAX package lays its accumulated
+# retrieve / score durations end to end instead, AGGREGATE)
+PORT_PASS_SPANS = {"ingest.convert", "scan.dispatch", "scan.wait",
+                   "finalize.dd", "finalize"}
+AGGREGATE = {"retrieve", "score"}
+
+
 def test_sampled_post_trees_equal_jax(pair):
     """A sampled POST that streams (24 records past an 8-row slice on a
     warm corpus): both trees hold the same span names under the same
-    parents, among them every span site of the ingest path."""
+    parents, among them every span site of the ingest path, but that the
+    port records its scoring pass in true intervals (PORT_PASS_SPANS)
+    where the JAX package lays out its aggregate retrieve and score."""
     _, urls = pair
     crm = entities(40, 5, "c")
     shapes = []
@@ -323,16 +335,22 @@ def test_sampled_post_trees_equal_jax(pair):
         status, _, out = request(url + "/debug/traces/" + tid
                                  + "?format=chrome")
         assert status == 200 and json.loads(out)["traceEvents"]
-    assert shapes[1] == shapes[0]
+    jax_tree, port_tree = shapes
+    assert ({e: n for e, n in port_tree.items()
+             if e[0] not in PORT_PASS_SPANS}
+            == {e: n for e, n in jax_tree.items() if e[0] not in AGGREGATE})
     root = "POST /deduplication/:name/:datasetId"
     for edge in ((root, None), ("sched.queued", root),
                  ("sched.microbatch", root), ("encode", "sched.microbatch"),
                  ("encode.stream_append", "encode"),
-                 ("retrieve", "sched.microbatch"),
-                 ("score", "sched.microbatch"),
                  ("persist", "sched.microbatch"),
                  ("links:assert_batch", "persist")):
-        assert edge in shapes[1], edge
+        assert edge in port_tree, edge
+        assert edge in jax_tree, edge
+    for name in AGGREGATE:
+        assert (name, "sched.microbatch") in jax_tree, name
+    for name in PORT_PASS_SPANS:
+        assert (name, "sched.microbatch") in port_tree, name
 
 
 def test_unsampled_requests_digest_and_headers_equal_jax(pair):
